@@ -1,0 +1,55 @@
+// K2: causal-by-position GQA flash attention for the decoder prefill.
+//
+// Replaces streamvln_tpu/ops/flash_attention.py::_flash_kernel. One block
+// per (batch, q head, 64-row q tile) walks the keys in 64-key tiles
+// (attention_tile.cuh); key j is visible to query i iff
+// k_pos[j] <= q_pos[i], the KV head is h // group, and a tile whose
+// smallest key position exceeds the block's largest query position is
+// skipped. The engine passes k_pos = arange(capacity) over the whole
+// cache, so the skip keeps a prefill's cost proportional to the live
+// prefix, not to the 4096-slot capacity. Rows with no visible key are
+// written as exact zeros; an optional tanh soft cap is applied before the
+// mask.
+//
+// Bound on the H100: the work is 4*Sq*Sk_visible*D*Hq FLOPs against
+// q + visible k/v + o bytes; at the main path's prefill (Sq >= 256,
+// D=128, GQA 28/4) that is hundreds of FLOPs per byte, so the tensor
+// cores bound it. The simple design uses mma.sync on bf16 operands with
+// f32 accumulation (the TPU kernel upcasts to f32 instead) and no TMA or
+// warp specialisation, so it runs well below that peak.
+//
+// C interface (ctypes): q/o are [B, Sq, Hq, D]; k/v are [B, Hkv, Sk, D]
+// (kv_major, the cache layout) or [B, Sk, Hkv, D], described by strides
+// in elements; q_pos [B, Sq], k_pos [B, Sk] int32.
+#include "attention_tile.cuh"
+
+extern "C" int svt_flash_attention(
+    const void* q, const void* k, const void* v, void* o,
+    const void* q_pos, const void* k_pos,
+    long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh,
+    long long o_sb, long long o_ss, long long o_sh,
+    int B, int Sq, int Sk, int Hq, int Hkv, int D,
+    float scale, float soft_cap, void* stream) {
+  svt::AttnArgs a;
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k = static_cast<const __nv_bfloat16*>(k);
+  a.v = static_cast<const __nv_bfloat16*>(v);
+  a.o = static_cast<__nv_bfloat16*>(o);
+  a.q_pos = static_cast<const int*>(q_pos);
+  a.k_pos = static_cast<const int*>(k_pos);
+  a.q_sb = q_sb; a.q_ss = q_ss; a.q_sh = q_sh;
+  a.k_sb = k_sb; a.k_ss = k_ss; a.k_sh = k_sh;
+  a.v_sb = v_sb; a.v_ss = v_ss; a.v_sh = v_sh;
+  a.o_sb = o_sb; a.o_ss = o_ss; a.o_sh = o_sh;
+  a.Sq = Sq; a.Sk = Sk; a.D = D; a.group = Hq / Hkv;
+  a.scale = scale;
+  a.soft_cap = soft_cap;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch ((D + 15) / 16 * 16) {
+    case 64: return svt::launch_attention<64>(a, B, Hq, st);
+    case 128: return svt::launch_attention<128>(a, B, Hq, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

@@ -1,0 +1,234 @@
+"""Qwen2 decoder for inference (RMSNorm + RoPE + GQA with qkv bias +
+SwiGLU), PyTorch.
+
+Counterpart of the inference subset of `streamvln_tpu/models/qwen2.py`.
+Parameters are the reference's dict layout with per-layer weights stacked
+on a leading [L] axis and matrices stored [in, out]; the layer stack runs
+as an eager Python loop. Family knobs (MoE, alibi, LayerNorm, gelu MLPs,
+Gemma scalings), LoRA and the int8/int4/kv_int8 forms are later slices of
+the port and raise NotImplementedError here.
+
+KV cache: [L, B, Hkv, Smax, D] per tensor (KV-head-major), slot index ==
+global token position, per-row fill lengths. Appends write in place at
+each row's offset. The reference's decode loop appends into a small
+scratch cache merged after the loop (an XLA loop-carry workaround); eager
+PyTorch has no loop carry, so the port's decode appends in place into the
+big cache. Tokens, `length` and every slot below `length` are the same.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from streamvln_tpu_torch.configs import Qwen2Config
+from streamvln_tpu_torch.ops.attention import (dense_attention,
+                                               dense_attention_kvmajor)
+from streamvln_tpu_torch.ops import flash_attention as fa
+from streamvln_tpu_torch.ops.flash_attention import INVALID_POS
+
+Params = dict
+
+_LATER = "a later slice of the PyTorch port"
+
+
+def check_supported(cfg: Qwen2Config) -> None:
+    """Raise for decoder configurations this slice does not serve."""
+    unsupported = {
+        "num_experts": (cfg.num_experts, 0, "MoE MLPs"),
+        "positional": (cfg.positional, "rope", "alibi positions"),
+        "norm_type": (cfg.norm_type, "rmsnorm", "LayerNorm decoders"),
+        "mlp_act": (cfg.mlp_act, "silu", "gelu MLPs"),
+        "mlp_gated": (cfg.mlp_gated, True, "ungated MLPs"),
+        "norm_offset": (cfg.norm_offset, False, "(1 + w) RMSNorm"),
+        "scale_embeddings": (cfg.scale_embeddings, False,
+                             "scaled embeddings"),
+        "act_int8": (cfg.act_int8, False, "int8 activations"),
+    }
+    for field, (got, want, what) in unsupported.items():
+        if got != want:
+            raise NotImplementedError(
+                f"{what} ({field}={got!r}) are {_LATER}")
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                             device=device) / head_dim
+    return 1.0 / (theta ** exponents)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """HF half-rotation RoPE; x [B, S, H, D], positions [B, S]."""
+    D = x.shape[-1]
+    inv_freq = rope_frequencies(D, theta, x.device)
+    angles = positions.float()[:, :, None] * inv_freq[None, None]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor,
+          b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    out = torch.matmul(x, w)
+    if b is not None:
+        out = out.float() + b.float()
+    return out.to(x.dtype)
+
+
+class KVCache:
+    """Fixed-capacity per-layer KV buffers with per-row fill lengths.
+
+    k, v: [L, B, Hkv, Smax, D]; length: [B] int32 on the cache's device."""
+
+    def __init__(self, k: torch.Tensor, v: torch.Tensor,
+                 length: torch.Tensor):
+        self.k, self.v, self.length = k, v, length
+
+    @classmethod
+    def create(cls, cfg: Qwen2Config, batch: int, capacity: int,
+               dtype=torch.bfloat16, device="cuda") -> "KVCache":
+        shape = (cfg.num_layers, batch, cfg.num_kv_heads, capacity,
+                 cfg.head_dim)
+        return cls(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros((batch,), dtype=torch.int32, device=device))
+
+    @property
+    def capacity(self) -> int:
+        return self.k.shape[3]
+
+    def reset_rows(self, row_mask: torch.Tensor) -> None:
+        """Zero the lengths of selected rows (stale KV is never attended:
+        its slots sit at positions past the row's queries)."""
+        self.length = torch.where(row_mask.to(self.length.device),
+                                  torch.zeros_like(self.length), self.length)
+
+
+def _append(buf: torch.Tensor, new: torch.Tensor, offsets: List[int],
+            rows: List[bool]) -> None:
+    """buf [B, Hkv, Smax, D] (one layer, in place); new [B, S, Hkv, D].
+    Rows with rows[b] False are left untouched (idle batch rows)."""
+    S = new.shape[1]
+    for b, (off, on) in enumerate(zip(offsets, rows)):
+        if on:
+            buf[b, :, off:off + S] = new[b].transpose(0, 1)
+
+
+def _attend(cfg: Qwen2Config, attn_impl: str, q, k, v, q_pos, k_pos,
+            kv_major: bool = False):
+    """Visibility rule `k_pos <= q_pos`. Prefill with S >= 64 and a
+    128-multiple head dim goes to the flash kernel (K2), by shape alone
+    (its wrapper runs the plain version on CPU tensors and launches or
+    raises on CUDA ones); everything else is plain dense PyTorch."""
+    if attn_impl in ("auto", "flash") and cfg.head_dim % 128 == 0 \
+            and q.shape[1] >= 64:
+        return fa.flash_attention(q, k, v, q_pos, k_pos, kv_major=kv_major,
+                                  logits_soft_cap=cfg.attn_logits_soft_cap)
+    mask = k_pos[:, None, :] <= q_pos[:, :, None]
+    fn = dense_attention_kvmajor if kv_major else dense_attention
+    return fn(q, k, v, mask, logits_soft_cap=cfg.attn_logits_soft_cap)
+
+
+def forward(
+    params: Params,
+    cfg: Qwen2Config,
+    inputs_embeds: torch.Tensor,              # [B, S, Dm]
+    positions: torch.Tensor,                  # [B, S] global positions
+    cache: Optional[KVCache] = None,
+    new_lengths: Optional[torch.Tensor] = None,   # [B] real new tokens
+    valid: Optional[torch.Tensor] = None,     # [B, S] bool (no cache)
+    attn_impl: str = "auto",
+    write_mask: Optional[torch.Tensor] = None,    # [B] bool
+    logits_positions: Optional[torch.Tensor] = None,  # [B]
+) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """Run the decoder stack. Returns (f32 logits [B, S, V] or [B, 1, V]
+    with logits_positions, the cache updated in place).
+
+    With a cache, the S new tokens' KV are written at each row's offset
+    `cache.length` (rows with write_mask False are not written), keys are
+    the cache slots (k_pos = slot index), and `length` grows by
+    new_lengths (default S)."""
+    check_supported(cfg)
+    for key in params["layers"]:
+        if key in ("qkv_w", "gu_w") or key.endswith("_lora_a"):
+            raise NotImplementedError(
+                f"parameter {key!r} (fused or LoRA layers) is {_LATER}")
+    B, S, _ = inputs_embeds.shape
+    Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dev = inputs_embeds.device
+    x = inputs_embeds
+
+    if cache is not None:
+        if new_lengths is None:
+            new_lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
+        offsets = cache.length.tolist()
+        rows = [True] * B if write_mask is None else write_mask.tolist()
+        for b in range(B):
+            if rows[b] and offsets[b] + S > cache.capacity:
+                # the reference's dynamic_update_slice would clamp the
+                # start and overwrite live slots; refuse instead
+                raise RuntimeError(
+                    f"row {b}: KV write of {S} tokens at offset "
+                    f"{offsets[b]} overflows capacity {cache.capacity}")
+        k_pos = torch.arange(cache.capacity, dtype=torch.int32,
+                             device=dev)[None].expand(B, -1).contiguous()
+    elif valid is None:
+        k_pos = positions
+    else:
+        k_pos = torch.where(valid, positions,
+                            torch.full_like(positions, INVALID_POS))
+
+    lp = params["layers"]
+    for i in range(cfg.num_layers):
+        h = rms_norm(x, lp["ln1"][i], cfg.rms_norm_eps)
+        bias = (lambda n: lp[n][i] if n in lp else None)
+        q = _proj(h, lp["q_w"][i], bias("q_b")).reshape(B, S, Hq, Dh)
+        k = _proj(h, lp["k_w"][i], bias("k_b")).reshape(B, S, Hkv, Dh)
+        v = _proj(h, lp["v_w"][i], bias("v_b")).reshape(B, S, Hkv, Dh)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        if cache is not None:
+            _append(cache.k[i], k, offsets, rows)
+            _append(cache.v[i], v, offsets, rows)
+            attn = _attend(cfg, attn_impl, q, cache.k[i], cache.v[i],
+                           positions, k_pos, kv_major=True)
+        else:
+            attn = _attend(cfg, attn_impl, q, k, v, positions, k_pos)
+        x = x + _proj(attn.reshape(B, S, Hq * Dh), lp["o_w"][i])
+        h = rms_norm(x, lp["ln2"][i], cfg.rms_norm_eps)
+        gate = _proj(h, lp["gate_w"][i])
+        up = _proj(h, lp["up_w"][i])
+        act = (F.silu(gate.float()) * up.float()).to(x.dtype)
+        x = x + _proj(act, lp["down_w"][i])
+
+    if cache is not None:
+        cache.length = cache.length + new_lengths.to(torch.int32)
+    if logits_positions is not None:
+        x = x[torch.arange(B, device=dev), logits_positions.long()][:, None]
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return lm_head_logits(params, x), cache
+
+
+def lm_head_logits(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Final-normed hidden states -> f32 vocabulary logits."""
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embed"].t()
+    return torch.matmul(x, head).float()
+
+
+def embed_tokens(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
+    """Token embedding lookup; sentinel (negative) ids map to zeros."""
+    emb = params["embed"][input_ids.clamp(min=0)]
+    return torch.where((input_ids >= 0)[..., None], emb,
+                       torch.zeros((), dtype=emb.dtype, device=emb.device))

@@ -1,0 +1,84 @@
+"""Attention: plain PyTorch references and dispatch to the port's kernels.
+
+Counterpart of `streamvln_tpu/ops/attention.py`. Layouts are [B, S, H, D]
+(q) and [B, S, Hkv, D] or KV-head-major [B, Hkv, S, D] (k/v). GQA folds
+query heads into groups over the kv heads; K/V are never repeated.
+Decode attention is plain PyTorch here, as it is dense XLA (not a kernel)
+in the reference.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from streamvln_tpu_torch.ops import vit_attention as va
+
+NEG_INF = -1e30  # large-but-finite; avoids NaN from (-inf) - (-inf) rows
+
+
+def _masked_softmax(logits, mask, logits_soft_cap):
+    if logits_soft_cap is not None:
+        logits = torch.tanh(logits / logits_soft_cap) * logits_soft_cap
+    if mask is not None:
+        logits = torch.where(mask, logits,
+                             torch.tensor(NEG_INF, device=logits.device))
+    return torch.softmax(logits, dim=-1)
+
+
+def dense_attention(q, k, v, mask: Optional[torch.Tensor] = None,
+                    scale: Optional[float] = None,
+                    logits_soft_cap: Optional[float] = None) -> torch.Tensor:
+    """softmax(q k^T * scale) v with GQA, f32 math; q [B, Sq, Hq, D],
+    k/v [B, Sk, Hkv, D], mask [B, Sq, Sk] or [B, 1, Sq, Sk] bool."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    qf = q.float().reshape(B, Sq, Hkv, G, D)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
+    if mask is not None:
+        mask = mask[:, None, None] if mask.dim() == 3 else mask[:, :, None]
+    probs = _masked_softmax(logits, mask, logits_soft_cap)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    return out.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def dense_attention_kvmajor(q, k, v, mask: Optional[torch.Tensor] = None,
+                            scale: Optional[float] = None,
+                            logits_soft_cap: Optional[float] = None
+                            ) -> torch.Tensor:
+    """dense_attention over a KV-head-major cache [B, Hkv, Sk, D]: q is
+    cast to the cache dtype, products accumulate in f32, probabilities are
+    cast to the cache dtype before PV (the reference's mixed precision)."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[1]
+    G = Hq // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    qf = q.to(k.dtype).reshape(B, Sq, Hkv, G, D)
+    logits = torch.einsum("bqhgd,bhkd->bhgqk", qf.float(), k.float()) * scale
+    probs = _masked_softmax(logits, None if mask is None
+                            else mask[:, None, None], logits_soft_cap)
+    out = torch.einsum("bhgqk,bhkd->bqhgd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def mha_attention(q, k, v, mask: Optional[torch.Tensor] = None,
+                  scale: Optional[float] = None, impl: str = "auto",
+                  logits_soft_cap: Optional[float] = None) -> torch.Tensor:
+    """Encoder attention dispatch: 'dense' | 'vit' | 'auto'. 'auto' takes
+    the vit kernel (K1) for full attention over short sequences (the
+    reference's shape rule, by shape alone); on CPU tensors the wrapper
+    runs the plain version, on CUDA tensors it launches or raises."""
+    if impl != "dense" and mask is None and logits_soft_cap is None \
+            and q.shape[1] == k.shape[1] and q.shape[3] <= 128 \
+            and q.shape[2] == k.shape[2] and q.shape[1] <= 1024:
+        return va.vit_attention(q, k, v, scale=scale)
+    if impl not in ("auto", "dense"):
+        raise NotImplementedError(
+            f"attention impl {impl!r} for q={tuple(q.shape)} "
+            f"k={tuple(k.shape)} is not in this slice of the port")
+    return dense_attention(q, k, v, mask, scale, logits_soft_cap)

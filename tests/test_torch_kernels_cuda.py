@@ -1,0 +1,198 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. These need an NVIDIA GPU with nvcc (sm_90a); without one they skip.
+Run them on the card with `python -m pytest tests/test_torch_kernels_cuda.py -q`.
+
+Tolerance: bf16 inputs and outputs; the kernels round P to bf16 relative
+to the running (online) row max while the plain versions round it
+relative to the final max, so both differ by bf16 rounding of P plus the
+bf16 output rounding. Elementwise, |out - ref| <= 1e-3 + 2^-6 * |ref|
+(two bf16 ulps of the output) + 2^-8 * sum_k p_k |v_k| (each side's P off
+by at most 2^-9 relative, not averaged out on rows that see few keys);
+the last term is the plain version run on |v|.
+"""
+import numpy as np
+import pytest
+import torch
+
+from streamvln_tpu_torch.ops import flash_attention as fa
+from streamvln_tpu_torch.ops import vit_attention as va
+
+pytestmark = pytest.mark.cuda
+ATOL, RTOL = 1e-3, 2.0 ** -6
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _assert_close(out, ref, ref_abs_v):
+    """ref_abs_v: the plain version on |v|, i.e. sum_k p_k |v_k|."""
+    err = (out.float() - ref.float()).abs()
+    tol = ATOL + RTOL * ref.float().abs() + 2.0 ** -8 * ref_abs_v.float()
+    assert bool((err <= tol).all()), (err - tol).max().item()
+
+
+def _rand(rng, shape, dev):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)) \
+        .to(dev, torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,S,H,D", [(1, 729, 16, 72), (2, 50, 4, 64),
+                                     (1, 16, 2, 72)])
+def test_vit_kernel_matches_plain(dev, B, S, H, D):
+    rng = np.random.default_rng(0)
+    q, k, v = (_rand(rng, (B, S, H, D), dev) for _ in range(3))
+    n0 = va.launches
+    out = va.vit_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert va.launches == n0 + 1
+    _assert_close(out, va.vit_attention_plain(q, k, v),
+                  va.vit_attention_plain(q, k, v.abs()))
+
+
+@pytest.mark.parametrize("Sq,cap,off,kv_major,soft_cap", [
+    (256, 1024, 100, True, None),
+    (100, 300, 37, False, None),
+    (64, 512, 0, True, 30.0),
+])
+def test_flash_kernel_matches_plain(dev, Sq, cap, off, kv_major, soft_cap):
+    rng = np.random.default_rng(1)
+    B, Hq, Hkv, D = 2, 14, 2, 128
+    q = _rand(rng, (B, Sq, Hq, D), dev)
+    kshape = (B, Hkv, cap, D) if kv_major else (B, cap, Hkv, D)
+    k, v = _rand(rng, kshape, dev), _rand(rng, kshape, dev)
+    q_pos = (off + torch.arange(Sq, device=dev, dtype=torch.int32))[None] \
+        .repeat(B, 1)
+    q_pos[1, 3] = -1                      # a row that sees no key
+    k_pos = torch.arange(cap, device=dev, dtype=torch.int32)[None] \
+        .repeat(B, 1)
+    k_pos[:, -16:] = fa.INVALID_POS
+    out = fa.flash_attention(q, k, v, q_pos, k_pos, kv_major=kv_major,
+                             logits_soft_cap=soft_cap)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_plain(q, k, v, q_pos, k_pos, kv_major=kv_major,
+                                   logits_soft_cap=soft_cap)
+    assert torch.all(out[1, 3] == 0)
+    _assert_close(out, ref, fa.flash_attention_plain(
+        q, k, v.abs(), q_pos, k_pos, kv_major=kv_major,
+        logits_soft_cap=soft_cap))
+
+
+def test_non_bf16_cuda_calls_raise(dev):
+    """The kernels take bf16 only: f32 CUDA tensors raise, both at the
+    wrappers and through the dispatchers that pick them by shape."""
+    import dataclasses
+
+    from streamvln_tpu_torch.configs import tiny_llm
+    from streamvln_tpu_torch.models import qwen2
+    from streamvln_tpu_torch.ops.attention import mha_attention
+
+    x = torch.zeros((1, 16, 2, 72), device=dev)
+    for fn in (va.vit_attention, mha_attention):
+        with pytest.raises(ValueError, match="bf16"):
+            fn(x, x, x)
+    cfg = dataclasses.replace(tiny_llm(), head_dim=128)
+    q = torch.zeros((1, 64, 2, 128), device=dev)
+    kv = torch.zeros((1, 1, 128, 128), device=dev)
+    qp = torch.zeros((1, 64), dtype=torch.int32, device=dev)
+    kp = torch.zeros((1, 128), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="bf16"):
+        fa.flash_attention(q, kv, kv, qp, kp, kv_major=True)
+    with pytest.raises(ValueError, match="bf16"):
+        qwen2._attend(cfg, "auto", q, kv, kv, qp, kp, kv_major=True)
+    # head dims the kernels were not built for raise too
+    y = torch.zeros((1, 16, 2, 32), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        va.vit_attention(y, y, y)
+
+
+def _small_wide_cfg():
+    """Two-layer stack at the real head dims (vision D=72, decoder D=128,
+    GQA), so both kernels run inside the engine."""
+    from streamvln_tpu_torch.configs import (Qwen2Config, SigLIPConfig,
+                                             StreamVLNConfig)
+    return StreamVLNConfig(
+        vision=SigLIPConfig(hidden_size=144, intermediate_size=288,
+                            num_layers=2, num_heads=2, image_size=56),
+        llm=Qwen2Config(vocab_size=512, hidden_size=256,
+                        intermediate_size=512, num_layers=2, num_heads=4,
+                        num_kv_heads=2, head_dim=128, rope_theta=1e4),
+        num_frames=8, num_future_steps=2, num_history=2)
+
+
+def test_engine_on_card_kernels_vs_dense_path(dev):
+    """The agent on the card through the kernels against the same agent
+    through the dense attention path: every call's prefill logits agree
+    (cosine > 0.999, bf16), and each call launched K1 and K2 once per
+    layer."""
+    from streamvln_tpu_torch.agent import VLNAgent
+    from streamvln_tpu_torch.data.tokenizer import ByteTokenizer
+    from streamvln_tpu_torch.streaming.engine import StreamingEngine
+    from streamvln_tpu_torch.weights import init
+
+    cfg = _small_wide_cfg()
+    params = init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tok = ByteTokenizer()
+    frames = np.random.default_rng(2).integers(0, 256, (9, 48, 64, 3),
+                                               np.uint8)
+    logits = {}
+    for impl in ("auto", "dense"):
+        eng = StreamingEngine(params, cfg, cache_capacity=2048,
+                              max_new_tokens=4, stop_ids=(tok.im_end_id,),
+                              buckets=(256, 512, 1024), attn_impl=impl)
+        agent = VLNAgent(eng, tok)
+        n_vit, n_fa = va.launches, fa.launches
+        logits[impl] = []
+        for frame in frames:
+            agent.step(0, frame, "go to the door", run_model=True)
+            logits[impl].append(eng.last_logits.float())
+            assert int(eng.cache.length[0]) == eng.envs[0].kv_length
+        calls = len(frames)
+        if impl == "auto":
+            assert va.launches - n_vit == cfg.vision.num_layers * calls
+            assert fa.launches - n_fa == cfg.llm.num_layers * calls
+        else:
+            assert (va.launches, fa.launches) == (n_vit, n_fa)
+    for a, b in zip(logits["auto"], logits["dense"]):
+        cos = torch.nn.functional.cosine_similarity(a, b, dim=-1).min()
+        assert cos.item() > 0.999, cos.item()
+
+
+def test_f32_engine_on_card_matches_cpu(dev):
+    """f32 on the card through the dense attention path (the kernels are
+    bf16 and raise on f32) gives the CPU engine's tokens."""
+    from streamvln_tpu_torch.configs import tiny_streamvln
+    from streamvln_tpu_torch.data.tokenizer import ByteTokenizer
+    from streamvln_tpu_torch.streaming.engine import StreamingEngine
+    from streamvln_tpu_torch.agent import VLNAgent
+    from streamvln_tpu_torch.weights import init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = tiny_streamvln()
+    params = init(cfg, torch.Generator().manual_seed(0), "cpu",
+                  torch.float32)
+    tok = ByteTokenizer()
+    frames = np.random.default_rng(3).integers(0, 256, (9, 48, 64, 3),
+                                               np.uint8)
+    texts = {}
+    for d in ("cpu", "cuda"):
+        eng = StreamingEngine(_to(params, d), cfg, cache_capacity=2048,
+                              max_new_tokens=4, stop_ids=(tok.im_end_id,),
+                              buckets=(128, 512, 1024), attn_impl="dense",
+                              compute_dtype=torch.float32, device=d)
+        agent = VLNAgent(eng, tok)
+        texts[d] = [agent.step(0, f, "go", run_model=True)[2]
+                    for f in frames]
+    assert texts["cpu"] == texts["cuda"]
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
