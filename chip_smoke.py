@@ -22,7 +22,19 @@ Phases (any failure exits non-zero before the result line):
      busy time (union of kernel intervals), idle share against the median
      unprofiled mid-window call, kernel launches and the top kernels by
      device time (in chiprun_out/chip_smoke.json);
-  4. print the kernels JSON line, the card line, and the result line.
+  4. training: (a) the training kernels K3 (forward + LSE), K4 (dQ) and
+     K5 (dK/dV) against their plain versions at the train step's shape
+     (B=2, S=4096, 28/4 heads, D=128, bf16, 3,900 valid tokens, padded
+     keys at INVALID_POS, one row that sees no key), each timed beside
+     its plain version and SDPA's forward / backward under autograd;
+     (b) LoRA SFT of streamvln_7b on the phase-3 weights (rank 16 on the
+     seven default targets): 3 optimizer steps of 2 micro-batches of two
+     VLN windows (8 <memory> + 8 current 480x640 frames each, bucket
+     4096), with checks on losses, grad norms, frozen weights, adapter
+     updates and exact launch counts, a kernels-vs-dense check of one
+     micro-batch's loss and LoRA gradients, per-step times, tokens/s and
+     peak memory, and one micro-step under torch.profiler;
+  5. print the kernels JSON line, the card line, and the result line.
 """
 from __future__ import annotations
 
@@ -43,10 +55,27 @@ KERNEL_ATOL, KERNEL_RTOL = 1e-3, 2.0 ** -6
 # kernels vs dense attention through 28 bf16 layers: rounding drifts,
 # the direction of the logits must not
 REF_MIN_COSINE = 0.99
+# training kernels vs their plain versions (which round P and dS to bf16
+# as the kernels do): LSE (f32) 1e-4 + 1e-5*|ref| (f32 sums in another
+# order and the fast exp on O(1) scores); K3's output as K2's plus
+# 2^-8*sum_k p|v| (rows that see few keys do not average P's rounding
+# out); dQ/dK/dV 2^-6*|ref| (the two sides' output rounding) + 2^-7 *
+# the sum of |terms| of the product whose bf16 factor (dS, or P for dV)
+# can round one ulp apart on the two sides (f32 inputs a few ulps apart,
+# amplified where dP - Dsum cancels), + 1e-5 for f32 summation order
+LSE_ATOL, LSE_RTOL = 1e-4, 1e-5
+GRAD_RTOL, GRAD_FLIP, GRAD_ATOL = 2.0 ** -6, 2.0 ** -7, 1e-5
+# LoRA training, kernels vs dense attention on one micro-batch
+TRAIN_LOSS_RTOL, TRAIN_GRAD_MIN_COSINE = 1e-2, 0.99
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def _version(torch):
+    return tuple(int(x) for x in torch.__version__.split("+")[0]
+                 .split(".")[:2])
 
 
 def card_line() -> str:
@@ -60,17 +89,18 @@ def card_line() -> str:
 
 
 def ptxas_summary(log_text: str) -> str:
-    """'DP=<head dim pad>: <regs> regs, <smem> B smem' per instantiation,
-    from nvcc's -Xptxas -v output."""
+    """'<kernel><DP>: <regs> regs, <smem> B smem, <spill> B spill' per
+    instantiation, from nvcc's -Xptxas -v output."""
     import re
     out = []
-    for dp, body in re.findall(r"attention_tile_kernelILi(\d+)E.*?'(.*?)"
-                               r"Compile time", log_text, re.S):
+    for name, dp, body in re.findall(
+            r"Compiling entry function '_ZN3svt\d+(\w+?)ILi(\d+)E.*?'(.*?)"
+            r"(?=Compiling entry function|\Z)", log_text, re.S):
         m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", body, re.S)
         spill = re.search(r"(\d+) bytes spill stores", body)
         if m:
-            out.append(f"DP={dp}: {m.group(1)} regs, {m.group(2)} B smem, "
-                       f"{spill.group(1) if spill else '?'} B spill")
+            out.append(f"{name}<{dp}>: {m.group(1)} regs, {m.group(2)} B "
+                       f"smem, {spill.group(1) if spill else '?'} B spill")
     return "; ".join(out) or "no ptxas output (library was already built)"
 
 
@@ -163,7 +193,7 @@ def check_flash(torch, F, fa, Sq, cap=4096, off=300, seed=1):
     mask = (k_pos[:, None, :k_live] <= q_pos[:, :, None])[:, None]
     kl, vl = k[:, :, :k_live], v[:, :, :k_live]
     qt = q.transpose(1, 2).contiguous()
-    if torch.__version__ >= "2.5":
+    if _version(torch) >= (2, 5):
         lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kl, vl, attn_mask=mask, enable_gqa=True))
     else:
@@ -186,19 +216,349 @@ def check_flash(torch, F, fa, Sq, cap=4096, off=300, seed=1):
     return rec
 
 
-def profile_call(torch, agent, frame, instruction, unprofiled_ms) -> dict:
-    """One agent model call under torch.profiler: device busy time as the
-    union of kernel intervals, and kernels ranked by device time. The idle
-    share is taken against `unprofiled_ms` (the median wall time of the
-    same kind of call without the profiler, whose overhead would inflate
-    it) and, for reference, against the profiled call's own wall time."""
+def train_positions(torch, B, S, n_valid, device):
+    """Positions as forward_train makes them: valid tokens at 0..n-1,
+    padded queries at position 0, padded keys at INVALID_POS; query 7 of
+    the last row is given position -1, so it sees no key."""
+    from streamvln_tpu_torch.ops.flash_attention import INVALID_POS
+    pos = torch.arange(S, device=device, dtype=torch.int32)
+    q_pos = torch.where(pos < n_valid, pos, 0)[None].repeat(B, 1)
+    k_pos = torch.where(pos < n_valid, pos, INVALID_POS)[None].repeat(B, 1)
+    q_pos[B - 1, 7] = -1
+    return q_pos.contiguous(), k_pos.contiguous()
+
+
+def bwd_rounding_terms(torch, fa, q, k, v, dout, lse, dsum, q_pos, k_pos):
+    """Per element of dQ, dK, dV ([B, S, H, D], k's layout [B, S, Hkv,
+    D]): scale*sum|dS||K|, scale*sum|dS||Q| and sum P|dO|, the products
+    whose bf16-rounded factor a one-ulp flip changes."""
+    B, S, Hq, D = q.shape
+    scale = D ** -0.5
+    p, ds, qf, kf, dof = fa._bwd_core(q, k, v, dout, lse, dsum, q_pos,
+                                      k_pos, scale, False)
+    ds = ds.abs()
+    t_dq = torch.einsum("bhgqk,bhkd->bqhgd", ds, kf.abs()) \
+        .reshape(B, S, Hq, D) * scale
+    t_dk = torch.einsum("bhgqk,bqhgd->bhkd", ds, qf.abs()) * scale
+    t_dv = torch.einsum("bhgqk,bqhgd->bhkd", p, dof.abs())
+    return t_dq, t_dk.transpose(1, 2), t_dv.transpose(1, 2)
+
+
+def grad_compare(out, ref, term) -> dict:
+    """Max abs error and the worst share of the elementwise tolerance
+    2^-6|ref| + 2^-7 term + 1e-5."""
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs()
+    tol = GRAD_RTOL * ref.abs() + GRAD_FLIP * term + GRAD_ATOL
+    return {"max_abs_err": err.max().item(),
+            "tol_share": (err / tol).max().item(),
+            "ref_rms": ref.square().mean().sqrt().item()}
+
+
+def check_training_kernels(torch, F, fa, B=2, S=4096, n_valid=3900,
+                           Hq=28, Hkv=4, D=128, seed=3):
+    """Phase 4a: K3, K4 and K5 against their plain versions on the same
+    inputs at the train step's attention shape, each timed beside its
+    plain version and SDPA (forward for K3; its backward, which computes
+    dQ, dK and dV in one call, for K4 and K5)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda") \
+            .to(torch.bfloat16)
+    q, dout = rnd(B, S, Hq, D), rnd(B, S, Hq, D)
+    k, v = rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+    q_pos, k_pos = train_positions(torch, B, S, n_valid, "cuda")
+    shape = (f"B={B} S={S} valid={n_valid} Hq={Hq} Hkv={Hkv} D={D} bf16 "
+             f"[B,S,Hkv,D]")
+
+    out, lse = fa.flash_attention_lse(q, k, v, q_pos, k_pos)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.flash_attention_lse_plain(q, k, v, q_pos, k_pos)
+    few = fa.flash_attention_plain(q, k, v.abs(), q_pos, k_pos).float()
+    err = (out.float() - ref_out.float()).abs()
+    tol = KERNEL_ATOL + KERNEL_RTOL * ref_out.float().abs() + 2.0 ** -8 * few
+    c_out = {"max_abs_err": err.max().item(),
+             "tol_share": (err / tol).max().item()}
+    del few, err, tol
+    seen = ref_lse > fa.NEG_INF / 2
+    lerr = (lse - ref_lse).abs()[seen]
+    c_lse = {"max_abs_err": lerr.max().item(), "tol_share": (
+        lerr / (LSE_ATOL + LSE_RTOL * ref_lse.abs()[seen])).max().item()}
+    unseen_ok = bool((out[B - 1, 7] == 0).all()) and \
+        bool((lse[B - 1, :, 7] == fa.NEG_INF).all()) and \
+        torch.equal(lse <= fa.NEG_INF / 2, ~seen)
+    del ref_out, ref_lse
+
+    dsum = fa._dsum(dout, out)
+    args = (q, k, v, dout, lse, dsum, q_pos, k_pos)
+    dq = fa.flash_bwd_dq(*args)
+    dk, dv = fa.flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    t_dq, t_dk, t_dv = bwd_rounding_terms(torch, fa, *args)
+    c_dq = grad_compare(dq, fa.flash_bwd_dq_plain(*args), t_dq)
+    rdk, rdv = fa.flash_bwd_dkv_plain(*args)
+    c_dk, c_dv = grad_compare(dk, rdk, t_dk), grad_compare(dv, rdv, t_dv)
+    del rdk, rdv, t_dq, t_dk, t_dv
+    unseen_ok = unseen_ok and bool((dq[B - 1, 7] == 0).all())
+
+    ms3 = time_ms(torch, lambda: fa.flash_attention_lse(q, k, v, q_pos,
+                                                        k_pos))
+    ms4 = time_ms(torch, lambda: fa.flash_bwd_dq(*args))
+    ms5 = time_ms(torch, lambda: fa.flash_bwd_dkv(*args))
+    plain3 = time_ms(torch, lambda: fa.flash_attention_lse_plain(
+        q, k, v, q_pos, k_pos), iters=2, warmup=1)
+    plain4 = time_ms(torch, lambda: fa.flash_bwd_dq_plain(*args), iters=2,
+                     warmup=1)
+    plain5 = time_ms(torch, lambda: fa.flash_bwd_dkv_plain(*args), iters=2,
+                     warmup=1)
+    # yardstick: SDPA on the same masked work ([B, H, S, D]), forward
+    # alone and its backward under autograd; the faster of GQA without
+    # copies (enable_gqa) and K/V repeated per query head beforehand
+    mask = (k_pos[:, None, :] <= q_pos[:, :, None])[:, None]
+    dot = dout.transpose(1, 2).contiguous()
+    lib = {}
+    for variant in ("enable_gqa", "repeated"):
+        kt, vt = (x.transpose(1, 2) for x in (k, v))
+        if variant == "repeated":
+            kt, vt = (x.repeat_interleave(Hq // Hkv, dim=1)
+                      for x in (kt, vt))
+        qt, kt, vt = (x.contiguous().requires_grad_()
+                      for x in (q.transpose(1, 2), kt, vt))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask,
+                enable_gqa=variant == "enable_gqa")
+        with torch.no_grad():
+            fwd = time_ms(torch, sdpa)
+        o = sdpa()
+        bwd = time_ms(torch, lambda: torch.autograd.grad(
+            o, (qt, kt, vt), dot, retain_graph=True))
+        lib[variant] = (fwd, bwd)
+        del o, qt, kt, vt
+    log(f"4a SDPA (fwd ms, bwd ms): {lib}")
+    lib_fwd = min(f for f, _ in lib.values())
+    lib_bwd = min(b for _, b in lib.values())
+
+    pairs = float(mask.sum().item()) * Hq       # visible (q, k) x heads
+    e = 2                                        # bytes per bf16 element
+    qb, kb = B * S * Hq * D * e, B * S * Hkv * D * e
+    rows = B * Hq * S * 4                        # one f32 per row and head
+    pos_b = 2 * B * S * 4
+    work = {
+        "flash_attention_lse": (4 * D * pairs, 2 * qb + 2 * kb + rows + pos_b,
+                                c_out, ms3, plain3, lib_fwd, 108),
+        "flash_bwd_dq": (6 * D * pairs, 3 * qb + 2 * kb + 2 * rows + pos_b,
+                         c_dq, ms4, plain4, lib_bwd, 130),
+        "flash_bwd_dkv": (8 * D * pairs, 2 * qb + 4 * kb + 2 * rows + pos_b,
+                          {"dk": c_dk, "dv": c_dv}, ms5, plain5, lib_bwd,
+                          171),
+    }
+    recs = {}
+    for name, (flops, nbytes, c, ms, plain, lib, line) in work.items():
+        b_ms, b_by = bound(flops, nbytes)
+        err = max(x["max_abs_err"] for x in c.values()) \
+            if name == "flash_bwd_dkv" else c["max_abs_err"]
+        recs[name] = {"shape": shape, "max_abs_err": err, "checks": c,
+                      "ms": ms, "plain_ms": plain, "library_ms": lib,
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "flops": flops, "bytes": nbytes,
+                      "replaces": f"streamvln_tpu/ops/flash_attention.py:"
+                                  f"{line}",
+                      "library": "F.scaled_dot_product_attention "
+                                 + ("forward" if line == 108 else
+                                    "backward (dQ, dK and dV in one call)")}
+        log(f"4a {name} {shape}: {json.dumps(c)} kernel {ms:.4f} ms plain "
+            f"{plain:.4f} ms sdpa {lib:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+    recs["flash_attention_lse"]["checks"] = {"out": c_out, "lse": c_lse}
+    log(f"4a LSE: {json.dumps(c_lse)}; the row that sees no key gives "
+        f"out 0, LSE -1e30, dQ 0: {unseen_ok}")
+    shares = [c_out["tol_share"], c_lse["tol_share"], c_dq["tol_share"],
+              c_dk["tol_share"], c_dv["tol_share"]]
+    if not (unseen_ok and all(x <= 1.0 for x in shares)):
+        raise AssertionError(f"training kernels disagree: {shares} "
+                             f"unseen row ok {unseen_ok}")
+    return recs
+
+
+def vln_batches(torch, np, cfg, tok, n_micro, per_micro, seed=0):
+    """Micro-batches of VLN training samples: each sample is the second
+    32-step window of a random 64-step episode (8 <memory> frames + 8
+    current frames), its 480x640 uint8 frames made and preprocessed on
+    the card, its dialogue tokenized and the batch collated by the port's
+    own data code."""
+    from streamvln_tpu_torch.data.collate import collate
+    from streamvln_tpu_torch.data.vln_dataset import vln_sample, vln_window
+    from streamvln_tpu_torch.ops.preprocess import preprocess_frames
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rooms = ("kitchen", "bedroom", "hallway", "stairs", "sofa", "bathroom")
+    batches = []
+    for _ in range(n_micro):
+        samples = []
+        for _ in range(per_micro):
+            actions = rng.integers(1, 4, 64).tolist()
+            time_ids, win, frame_ids = vln_window(cfg, actions, 32)
+            frames = torch.randint(0, 256, (len(frame_ids), 480, 640, 3),
+                                   generator=g, device="cuda",
+                                   dtype=torch.uint8)
+            a, b = rng.choice(len(rooms), 2, replace=False)
+            instruction = (f"walk past the {rooms[a]} and stop at the "
+                           f"{rooms[b]} door")
+            images = preprocess_frames(frames, cfg.vision.image_size)
+            samples.append(vln_sample(tok, cfg, images, instruction, win,
+                                      32, time_ids, rng))
+        batches.append(collate(samples, cfg))
+    return batches
+
+
+def lora_loss_and_grads(torch, streamvln, params, cfg, batch, attn_impl):
+    """Loss of one micro-batch (remat, chunked CE) and the gradients of
+    the LoRA leaves, outside the optimizer."""
+    from streamvln_tpu_torch.parallel.train import LAYOUT_KEYS, tree_leaves
+    lora = [t for p, t in tree_leaves(params) if t.requires_grad]
+    layout = {k: torch.as_tensor(batch[k]).cuda() for k in LAYOUT_KEYS}
+    images = batch["images"].to(params["vision"]["patch_w"].dtype)
+    loss, _ = streamvln.forward_train(
+        params, cfg, images, layout, attn_impl=attn_impl,
+        remat=True, loss_chunk_size=512)
+    grads = torch.autograd.grad(loss, lora)
+    return loss.item(), torch.cat([x.float().flatten() for x in grads])
+
+
+def train_full_width(torch, np, params, cfg, tok, fa, va):
+    """Phase 4b: LoRA SFT steps of streamvln_7b at full width on the
+    phase-3 weights; returns the record of the run."""
+    from streamvln_tpu_torch.models import lora as lora_lib
+    from streamvln_tpu_torch.models import streamvln
+    from streamvln_tpu_torch.parallel.train import (
+        TrainConfig, create_train_state, make_train_step, tree_leaves)
+
+    tcfg = TrainConfig(lora_only=True, grad_accum_steps=2, remat=True,
+                       loss_chunk_size=512, total_steps=3)
+    params = lora_lib.add_lora(
+        params, torch.Generator(device="cuda").manual_seed(1), rank=16,
+        alpha=32.0)
+    state = create_train_state(params, tcfg)
+    base = {p: t.to("cpu") for p, t in tree_leaves(params)
+            if not lora_lib.is_lora_path(p)}
+    lora_b0 = {p: t.detach().clone() for p, t in tree_leaves(params)
+               if p.endswith("_lora_b")}
+    n_micro = 3 * tcfg.grad_accum_steps
+    t0 = time.perf_counter()
+    batches = vln_batches(torch, np, cfg, tok, n_micro + 1, 2)
+    torch.cuda.synchronize()
+    T = batches[0]["token_ids"].shape[1]
+    valid = [int(b["valid"].sum()) for b in batches]
+    log(f"4b: {len(batches)} micro-batches of 2 VLN windows made and "
+        f"collated in {time.perf_counter() - t0:.2f} s; bucket {T}, valid "
+        f"tokens per micro-batch {valid}, images "
+        f"{tuple(batches[0]['images'].shape)}")
+    if T != 4096:
+        raise AssertionError(f"expected the 4096 bucket, got {T}")
+
+    # kernels vs dense attention on one micro-batch (also the warm-up)
+    ref = {}
+    for impl in ("auto", "dense"):
+        t0 = time.perf_counter()
+        ref[impl] = lora_loss_and_grads(torch, streamvln, params, cfg,
+                                        batches[-1], impl)
+        torch.cuda.synchronize()
+        log(f"4b reference {impl}: loss {ref[impl][0]:.6f} in "
+            f"{time.perf_counter() - t0:.2f} s")
+    (la, ga), (ld, gd) = ref["auto"], ref["dense"]
+    rel = abs(la - ld) / abs(ld)
+    cos = torch.nn.functional.cosine_similarity(ga, gd, dim=0).item()
+    log(f"4b kernels vs dense: loss rel diff {rel:.3e}, LoRA grad cosine "
+        f"{cos:.6f}")
+    if not (rel <= TRAIN_LOSS_RTOL and cos >= TRAIN_GRAD_MIN_COSINE):
+        raise AssertionError("training through the kernels disagrees with "
+                             "the dense attention path")
+    del ref, ga, gd
+
+    step = make_train_step(cfg, tcfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.lse_launches = fa.dq_launches = fa.dkv_launches = 0
+    va.launches = 0
+    metrics, micro_ms = [], []
+    for i in range(n_micro):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batches[i])
+        torch.cuda.synchronize()
+        micro_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({"loss": m["loss"].item(),
+                        "grad_norm": m["grad_norm"].item()})
+        log(f"4b micro-step {i}: loss {metrics[-1]['loss']:.6f} grad_norm "
+            f"{metrics[-1]['grad_norm']:.6f} {micro_ms[-1]:.2f} ms")
+    counts = {"vit_attention": va.launches, "flash_attention": fa.launches,
+              "flash_attention_lse": fa.lse_launches,
+              "flash_bwd_dq": fa.dq_launches,
+              "flash_bwd_dkv": fa.dkv_launches}
+    peak = torch.cuda.max_memory_allocated()
+    L, Lv = cfg.llm.num_layers, cfg.vision.num_layers
+    # per micro-step: the frozen tower runs K1 once per layer (no grad, so
+    # no recompute); each decoder layer runs K3 in the forward and again
+    # in its checkpoint's recompute, then K4 and K5 once in the backward;
+    # K2 (the no-grad prefill kernel) never
+    want = {"vit_attention": Lv * n_micro, "flash_attention": 0,
+            "flash_attention_lse": 2 * L * n_micro,
+            "flash_bwd_dq": L * n_micro, "flash_bwd_dkv": L * n_micro}
+    log(f"4b launches on the training path: {counts} (want {want})")
+    opt_ms = [sum(micro_ms[i:i + 2]) for i in range(0, n_micro, 2)]
+    tok_step = [valid[i] + valid[i + 1] for i in range(0, n_micro, 2)]
+    rates = [n / ms * 1e3 for ms, n in zip(opt_ms, tok_step)]
+    for j, (ms, n, r) in enumerate(zip(opt_ms, tok_step, rates)):
+        log(f"4b optimizer step {j}: {ms:.2f} ms, {n} valid tokens, "
+            f"{r:.1f} tokens/s")
+    med, med_rate = float(np.median(opt_ms)), float(np.median(rates))
+    log(f"4b median optimizer step {med:.2f} ms, {med_rate:.1f} valid "
+        f"tokens/s; peak memory allocated {peak / 2**30:.2f} GiB")
+
+    finite = all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+                 and m["grad_norm"] > 0 for m in metrics)
+    frozen_ok = all(torch.equal(t.to("cpu"), base[p])
+                    for p, t in tree_leaves(state.params) if p in base)
+    moved = sum(not torch.equal(t, lora_b0[p])
+                for p, t in tree_leaves(state.params) if p in lora_b0)
+    log(f"4b checks: finite losses and grad norms > 0 {finite}; base "
+        f"weights bit-identical {frozen_ok}; LoRA B stacks changed {moved} "
+        f"of {len(lora_b0)}")
+    if not (finite and frozen_ok and moved == len(lora_b0)
+            and counts == want):
+        raise AssertionError("LoRA training checks failed")
+
+    prof = profile_call(torch, lambda: step(state, batches[-1]),
+                        float(np.median(micro_ms[1:])))
+    return {"train_config": {k: getattr(tcfg, k) for k in (
+                "lora_only", "grad_accum_steps", "remat", "loss_chunk_size",
+                "total_steps", "learning_rate")},
+            "lora": {"rank": 16, "alpha": 32.0,
+                     "targets": list(lora_lib.DEFAULT_TARGETS)},
+            "bucket": T, "valid_tokens": valid, "metrics": metrics,
+            "micro_ms": micro_ms, "optimizer_step_ms": opt_ms,
+            "median_step_ms": med,
+            "tokens_per_s": med_rate,
+            "peak_memory_bytes": peak, "launches": counts,
+            "reference": {"loss_rel_diff": rel, "lora_grad_cosine": cos},
+            "profile": prof}
+
+
+def profile_call(torch, fn, unprofiled_ms) -> dict:
+    """One call of `fn` (an agent model call, a train micro-step) under
+    torch.profiler: device busy time as the union of kernel intervals, and
+    kernels ranked by device time. The idle share is taken against
+    `unprofiled_ms` (the median wall time of the same kind of call without
+    the profiler, whose overhead would inflate it) and, for reference,
+    against the profiled call's own wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        agent.step(0, frame, instruction, run_model=True)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     spans = sorted((e.time_range.start, e.time_range.end)
@@ -346,8 +706,10 @@ def main() -> int:
 
     engine.collect = collect
     # the profiled call is a mid-window call: compare with calls 1..7
-    prof = profile_call(torch, agent, frames[-1], instruction,
-                        float(np.median(wall[1:8])))
+    prof = profile_call(
+        torch, lambda: agent.step(0, frames[-1], instruction,
+                                  run_model=True),
+        float(np.median(wall[1:8])))
 
     # reference check: the first call's prefill logits, kernels vs the
     # repo's dense attention path, on the same weights and inputs
@@ -368,7 +730,13 @@ def main() -> int:
     if not cos > REF_MIN_COSINE:
         raise AssertionError("kernel path disagrees with the dense path")
 
-    # 4. summary
+    # 4. training: the kernels at the train step's shape, then LoRA SFT
+    del engine, agent, collect, recording_collect
+    torch.cuda.empty_cache()
+    train_k = check_training_kernels(torch, F, fa)
+    train = train_full_width(torch, np, params, cfg, tok, fa, va)
+
+    # 5. summary
     kernels = []
     for name, src, replaces, recs, n in (
             ("vit_attention", "streamvln_tpu_torch/csrc/vit_attention.cu",
@@ -385,10 +753,29 @@ def main() -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": head["shape"],
             "shapes": recs})
+    for name, src in (
+            ("flash_attention_lse",
+             "streamvln_tpu_torch/csrc/flash_attention.cu"),
+            ("flash_bwd_dq",
+             "streamvln_tpu_torch/csrc/flash_attention_bwd.cu"),
+            ("flash_bwd_dkv",
+             "streamvln_tpu_torch/csrc/flash_attention_bwd.cu")):
+        r = train_k[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": r["replaces"], "launches": train["launches"][name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": r["shape"], "library": r["library"]})
+    # K1's launches on the training path, beside the serving path's
+    kernels[0]["launches_training"] = train["launches"]["vit_attention"]
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "calls": calls,
-                   "wall_ms": wall, "profile": prof}, f, indent=1)
+                   "wall_ms": wall, "profile": prof,
+                   "training_kernels": train_k, "training": train},
+                  f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,9 @@
 // to bf16 before the PV product (f32 accumulation); the output is scaled
 // by 1/rowsum once at the end (deferred normalisation). Masked scores are
 // set to -1e30, and a row whose running max never rose above -5e29 (no
-// visible key) is written as exact zeros.
+// visible key) is written as exact zeros. When `lse` is set (K3, the
+// training forward) each row's logsumexp m + log(l) of the scaled scores
+// is written too, -1e30 for a row with no visible key.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,6 +37,7 @@ struct AttnArgs {
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
+  float* lse = nullptr;  // [B, Hq, Sq] f32 or null (no logsumexp)
   const int* q_pos;   // [B, Sq] or null (full attention)
   const int* k_pos;   // [B, Sk] or null
   // element strides; the head dim is contiguous
@@ -253,6 +256,12 @@ attention_tile_kernel(AttnArgs a) {
   const bool v0 = m0 > kNegInf * 0.5f, v1 = m1 > kNegInf * 0.5f;
   const float inv0 = (v0 && l0 > 0.f) ? 1.f / l0 : 0.f;
   const float inv1 = (v1 && l1 > 0.f) ? 1.f / l1 : 0.f;
+
+  if (a.lse != nullptr && t == 0) {
+    float* lb = a.lse + ((long long)b * gridDim.y + h) * a.Sq;
+    if (ok0) lb[r0] = (v0 && l0 > 0.f) ? m0 + logf(l0) : kNegInf;
+    if (ok1) lb[r1] = (v1 && l1 > 0.f) ? m1 + logf(l1) : kNegInf;
+  }
 
   __nv_bfloat16* ob = a.o + b * a.o_sb + h * a.o_sh;
 #pragma unroll

@@ -1,15 +1,18 @@
-// K2: causal-by-position GQA flash attention for the decoder prefill.
+// K2: causal-by-position GQA flash attention for the decoder prefill, and
+// K3: the same forward that also writes each row's logsumexp (training).
 //
-// Replaces streamvln_tpu/ops/flash_attention.py::_flash_kernel. One block
-// per (batch, q head, 64-row q tile) walks the keys in 64-key tiles
-// (attention_tile.cuh); key j is visible to query i iff
-// k_pos[j] <= q_pos[i], the KV head is h // group, and a tile whose
-// smallest key position exceeds the block's largest query position is
-// skipped. The engine passes k_pos = arange(capacity) over the whole
-// cache, so the skip keeps a prefill's cost proportional to the live
-// prefix, not to the 4096-slot capacity. Rows with no visible key are
-// written as exact zeros; an optional tanh soft cap is applied before the
-// mask.
+// K2 replaces streamvln_tpu/ops/flash_attention.py::_flash_kernel, K3
+// replaces ::_flash_kernel_lse. One block per (batch, q head, 64-row q
+// tile) walks the keys in 64-key tiles (attention_tile.cuh); key j is
+// visible to query i iff k_pos[j] <= q_pos[i], the KV head is h // group,
+// and a tile whose smallest key position exceeds the block's largest query
+// position is skipped. The engine passes k_pos = arange(capacity) over the
+// whole cache, so the skip keeps a prefill's cost proportional to the live
+// prefix, not to the 4096-slot capacity; in training the same skip drops
+// the tiles above the causal diagonal and the padded key tail. Rows with
+// no visible key are written as exact zeros (and, for K3, an LSE of
+// -1e30); an optional tanh soft cap is applied before the mask (K2 only:
+// the training path refuses it, as the TPU backward does).
 //
 // Bound on the H100: the work is 4*Sq*Sk_visible*D*Hq FLOPs against
 // q + visible k/v + o bytes; at the main path's prefill (Sq >= 256,
@@ -20,11 +23,11 @@
 //
 // C interface (ctypes): q/o are [B, Sq, Hq, D]; k/v are [B, Hkv, Sk, D]
 // (kv_major, the cache layout) or [B, Sk, Hkv, D], described by strides
-// in elements; q_pos [B, Sq], k_pos [B, Sk] int32.
+// in elements; q_pos [B, Sq], k_pos [B, Sk] int32; lse [B, Hq, Sq] f32.
 #include "attention_tile.cuh"
 
-extern "C" int svt_flash_attention(
-    const void* q, const void* k, const void* v, void* o,
+static int flash_forward(
+    const void* q, const void* k, const void* v, void* o, float* lse,
     const void* q_pos, const void* k_pos,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
@@ -37,6 +40,7 @@ extern "C" int svt_flash_attention(
   a.k = static_cast<const __nv_bfloat16*>(k);
   a.v = static_cast<const __nv_bfloat16*>(v);
   a.o = static_cast<__nv_bfloat16*>(o);
+  a.lse = lse;
   a.q_pos = static_cast<const int*>(q_pos);
   a.k_pos = static_cast<const int*>(k_pos);
   a.q_sb = q_sb; a.q_ss = q_ss; a.q_sh = q_sh;
@@ -52,4 +56,34 @@ extern "C" int svt_flash_attention(
     case 128: return svt::launch_attention<128>(a, B, Hq, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+extern "C" int svt_flash_attention(
+    const void* q, const void* k, const void* v, void* o,
+    const void* q_pos, const void* k_pos,
+    long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh,
+    long long o_sb, long long o_ss, long long o_sh,
+    int B, int Sq, int Sk, int Hq, int Hkv, int D,
+    float scale, float soft_cap, void* stream) {
+  return flash_forward(q, k, v, o, nullptr, q_pos, k_pos, q_sb, q_ss, q_sh,
+                       k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
+                       B, Sq, Sk, Hq, Hkv, D, scale, soft_cap, stream);
+}
+
+// K3: as K2 without the soft cap, plus lse [B, Hq, Sq] f32 (contiguous).
+extern "C" int svt_flash_attention_lse(
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    const void* q_pos, const void* k_pos,
+    long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh,
+    long long o_sb, long long o_ss, long long o_sh,
+    int B, int Sq, int Sk, int Hq, int Hkv, int D,
+    float scale, void* stream) {
+  return flash_forward(q, k, v, o, static_cast<float*>(lse), q_pos, k_pos,
+                       q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+                       o_sb, o_ss, o_sh, B, Sq, Sk, Hq, Hkv, D, scale, 0.f,
+                       stream);
 }

@@ -21,8 +21,8 @@ import numpy as np
 
 from streamvln_tpu_torch.data.tokenizer import Tokenizer
 from streamvln_tpu_torch.utils.constants import (
-    ACTIONS_TO_IDX, CONJUNCTIONS, IGNORE_INDEX, IMAGE_TOKEN_INDEX,
-    MEMORY_TOKEN_INDEX, SYSTEM_MESSAGE)
+    ACTIONS_TO_IDX, CONJUNCTIONS, IDX_TO_ACTION_TEXT, IGNORE_INDEX,
+    IMAGE_TOKEN_INDEX, MEMORY_TOKEN_INDEX, SYSTEM_MESSAGE)
 
 
 def encode_message(tok: Tokenizer, role: str, content: str) -> List[int]:
@@ -106,3 +106,9 @@ def parse_actions(text: str) -> List[int]:
     (reference: streamvln_eval.py:382-389)."""
     return [ACTIONS_TO_IDX[m] for m in _ACTION_RE.findall(text)]
 
+
+
+def actions_to_text(actions: Sequence[int]) -> str:
+    """Action indices -> glyph string (reference:
+    vln_action_dataset.py:702-711)."""
+    return "".join(IDX_TO_ACTION_TEXT[int(a)] for a in actions)

@@ -22,7 +22,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build")
-KERNELS = ("vit_attention", "flash_attention")
+KERNELS = ("vit_attention", "flash_attention", "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -35,6 +35,11 @@ ARGTYPES = {
                           _I, _I, _I, _I, _F, _P],
     "svt_flash_attention": [_P, _P, _P, _P, _P, _P] + [_L] * 12
     + [_I] * 6 + [_F, _F, _P],
+    "svt_flash_attention_lse": [_P] * 7 + [_L] * 12 + [_I] * 6 + [_F, _P],
+    # q, k, v, dO, lse, dsum, dQ | q_pos, k_pos, 21 strides (an array)
+    "svt_flash_bwd_dq": [_P] * 10 + [_I] * 6 + [_F, _P],
+    # q, k, v, dO, lse, dsum, dK, dV | q_pos, k_pos, 21 strides
+    "svt_flash_bwd_dkv": [_P] * 11 + [_I] * 6 + [_F, _P],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

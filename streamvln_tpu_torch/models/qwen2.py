@@ -1,12 +1,17 @@
-"""Qwen2 decoder for inference (RMSNorm + RoPE + GQA with qkv bias +
-SwiGLU), PyTorch.
+"""Qwen2 decoder (RMSNorm + RoPE + GQA with qkv bias + SwiGLU), PyTorch:
+inference with a KV cache, and the training forward.
 
-Counterpart of the inference subset of `streamvln_tpu/models/qwen2.py`.
+Counterpart of `streamvln_tpu/models/qwen2.py` for the Qwen2 defaults.
 Parameters are the reference's dict layout with per-layer weights stacked
 on a leading [L] axis and matrices stored [in, out]; the layer stack runs
-as an eager Python loop. Family knobs (MoE, alibi, LayerNorm, gelu MLPs,
-Gemma scalings), LoRA and the int8/int4/kv_int8 forms are later slices of
-the port and raise NotImplementedError here.
+as an eager Python loop. LoRA adapters (`<w>_lora_a/_lora_b` stacks and
+`lora_scale`, models/lora.py) add their f32 delta inside `_proj`. The
+training knobs are the reference's: `remat` (one non-reentrant
+`torch.utils.checkpoint` per layer), `remat_chunk` (nested: a checkpoint
+per chunk of layers around the per-layer ones), `mlp_chunk` (token-chunked
+MLP, a checkpoint per chunk) and `return_hidden`. Family knobs (MoE,
+alibi, LayerNorm, gelu MLPs, Gemma scalings) and the int8/int4/kv_int8
+forms are later slices of the port and raise NotImplementedError here.
 
 KV cache: [L, B, Hkv, Smax, D] per tensor (KV-head-major), slot index ==
 global token position, per-row fill lengths. Appends write in place at
@@ -21,6 +26,7 @@ from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from streamvln_tpu_torch.configs import Qwen2Config
 from streamvln_tpu_torch.ops.attention import (dense_attention,
@@ -78,10 +84,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor,
-          b: Optional[torch.Tensor] = None) -> torch.Tensor:
+          b: Optional[torch.Tensor] = None, lora=None) -> torch.Tensor:
+    """x @ w, plus the bias and the LoRA delta `x @ A @ B * scale` in f32
+    before the cast back to x's dtype (`lora` = (A, B, scale) or None)."""
     out = torch.matmul(x, w)
-    if b is not None:
-        out = out.float() + b.float()
+    if b is not None or lora is not None:
+        out = out.float()
+        if b is not None:
+            out = out + b.float()
+        if lora is not None:
+            a, bb, scale = lora
+            low = torch.matmul(x.float(), a.float())
+            out = out + torch.matmul(low, bb.float()) * scale
     return out.to(x.dtype)
 
 
@@ -139,6 +153,51 @@ def _attend(cfg: Qwen2Config, attn_impl: str, q, k, v, q_pos, k_pos,
     return fn(q, k, v, mask, logits_soft_cap=cfg.attn_logits_soft_cap)
 
 
+def _layer(cfg: Qwen2Config, attn_impl: str, x: torch.Tensor, p: dict,
+           positions, k_pos, lora_scale=None, mlp_chunk=None,
+           cache_kv=None) -> torch.Tensor:
+    """One decoder block on x [B, S, Dm]; p holds this layer's tensors
+    under the stack names. cache_kv = (k_buf, v_buf, offsets, rows) appends
+    this call's K/V into one layer of the cache and attends over it."""
+    B, S, _ = x.shape
+    Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def proj(h, name):
+        lora = None
+        if lora_scale is not None and name + "_lora_a" in p:
+            lora = (p[name + "_lora_a"], p[name + "_lora_b"], lora_scale)
+        return _proj(h, p[name], p.get(name[:-2] + "_b"), lora)
+
+    h = rms_norm(x, p["ln1"], cfg.rms_norm_eps)
+    q = apply_rope(proj(h, "q_w").reshape(B, S, Hq, Dh), positions,
+                   cfg.rope_theta)
+    k = apply_rope(proj(h, "k_w").reshape(B, S, Hkv, Dh), positions,
+                   cfg.rope_theta)
+    v = proj(h, "v_w").reshape(B, S, Hkv, Dh)
+    if cache_kv is not None:
+        kbuf, vbuf, offsets, rows = cache_kv
+        _append(kbuf, k, offsets, rows)
+        _append(vbuf, v, offsets, rows)
+        attn = _attend(cfg, attn_impl, q, kbuf, vbuf, positions, k_pos,
+                       kv_major=True)
+    else:
+        attn = _attend(cfg, attn_impl, q, k, v, positions, k_pos)
+    x = x + proj(attn.reshape(B, S, Hq * Dh), "o_w")
+    h = rms_norm(x, p["ln2"], cfg.rms_norm_eps)
+
+    def mlp(hb):
+        gate, up = proj(hb, "gate_w"), proj(hb, "up_w")
+        act = (F.silu(gate.float()) * up.float()).to(x.dtype)
+        return proj(act, "down_w")
+
+    if mlp_chunk and S > mlp_chunk and S % mlp_chunk == 0:
+        # token-chunked MLP, each chunk recomputed in the backward: bounds
+        # the [B, S, intermediate] temps; identical math per token
+        return x + torch.cat([checkpoint(mlp, hb, use_reentrant=False)
+                              for hb in h.split(mlp_chunk, dim=1)], dim=1)
+    return x + mlp(h)
+
+
 def forward(
     params: Params,
     cfg: Qwen2Config,
@@ -150,21 +209,27 @@ def forward(
     attn_impl: str = "auto",
     write_mask: Optional[torch.Tensor] = None,    # [B] bool
     logits_positions: Optional[torch.Tensor] = None,  # [B]
+    remat: bool = False,
+    remat_chunk: Optional[int] = None,
+    mlp_chunk: Optional[int] = None,
+    return_hidden: bool = False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder stack. Returns (f32 logits [B, S, V] or [B, 1, V]
-    with logits_positions, the cache updated in place).
+    with logits_positions, or the final-normed hidden states with
+    return_hidden; the cache updated in place).
 
     With a cache, the S new tokens' KV are written at each row's offset
     `cache.length` (rows with write_mask False are not written), keys are
     the cache slots (k_pos = slot index), and `length` grows by
-    new_lengths (default S)."""
+    new_lengths (default S). Without one, keys past `valid` get
+    INVALID_POS. remat/remat_chunk apply to the no-cache (training) path:
+    the cache path is inference and appends in place."""
     check_supported(cfg)
     for key in params["layers"]:
-        if key in ("qkv_w", "gu_w") or key.endswith("_lora_a"):
+        if key in ("qkv_w", "gu_w"):
             raise NotImplementedError(
-                f"parameter {key!r} (fused or LoRA layers) is {_LATER}")
+                f"parameter {key!r} (fused layers) is {_LATER}")
     B, S, _ = inputs_embeds.shape
-    Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dev = inputs_embeds.device
     x = inputs_embeds
 
@@ -188,34 +253,42 @@ def forward(
         k_pos = torch.where(valid, positions,
                             torch.full_like(positions, INVALID_POS))
 
-    lp = params["layers"]
-    for i in range(cfg.num_layers):
-        h = rms_norm(x, lp["ln1"][i], cfg.rms_norm_eps)
-        bias = (lambda n: lp[n][i] if n in lp else None)
-        q = _proj(h, lp["q_w"][i], bias("q_b")).reshape(B, S, Hq, Dh)
-        k = _proj(h, lp["k_w"][i], bias("k_b")).reshape(B, S, Hkv, Dh)
-        v = _proj(h, lp["v_w"][i], bias("v_b")).reshape(B, S, Hkv, Dh)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-        if cache is not None:
-            _append(cache.k[i], k, offsets, rows)
-            _append(cache.v[i], v, offsets, rows)
-            attn = _attend(cfg, attn_impl, q, cache.k[i], cache.v[i],
-                           positions, k_pos, kv_major=True)
-        else:
-            attn = _attend(cfg, attn_impl, q, k, v, positions, k_pos)
-        x = x + _proj(attn.reshape(B, S, Hq * Dh), lp["o_w"][i])
-        h = rms_norm(x, lp["ln2"][i], cfg.rms_norm_eps)
-        gate = _proj(h, lp["gate_w"][i])
-        up = _proj(h, lp["up_w"][i])
-        act = (F.silu(gate.float()) * up.float()).to(x.dtype)
-        x = x + _proj(act, lp["down_w"][i])
+    lora_scale = params.get("lora_scale")
+    stacks = {k: v.unbind(0) for k, v in params["layers"].items()}
+
+    def one(i, y):
+        cache_kv = None if cache is None else \
+            (cache.k[i], cache.v[i], offsets, rows)
+        return _layer(cfg, attn_impl, y, {k: v[i] for k, v in stacks.items()},
+                      positions, k_pos, lora_scale, mlp_chunk, cache_kv)
+
+    L = cfg.num_layers
+    if cache is None and remat and remat_chunk and remat_chunk > 1 \
+            and L % remat_chunk == 0:
+        # nested remat: the backward keeps one residual-stream input per
+        # chunk of layers and recomputes the chunk (per-layer checkpoints
+        # inside), at the cost of one more chunk forward
+        def chunk(y, c):
+            for j in range(remat_chunk):
+                y = checkpoint(one, c * remat_chunk + j, y,
+                               use_reentrant=False)
+            return y
+        for c in range(L // remat_chunk):
+            x = checkpoint(chunk, x, c, use_reentrant=False)
+    elif cache is None and remat:
+        for i in range(L):
+            x = checkpoint(one, i, x, use_reentrant=False)
+    else:
+        for i in range(L):
+            x = one(i, x)
 
     if cache is not None:
         cache.length = cache.length + new_lengths.to(torch.int32)
     if logits_positions is not None:
         x = x[torch.arange(B, device=dev), logits_positions.long()][:, None]
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    if return_hidden:
+        return x, cache
     return lm_head_logits(params, x), cache
 
 

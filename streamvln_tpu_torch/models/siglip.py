@@ -4,13 +4,15 @@ Counterpart of `streamvln_tpu/models/siglip.py`: patch embed as one
 matmul over channel-major flattened patches, learned position embeddings,
 pre-LN blocks with tanh-GELU MLPs, no post-LayerNorm. Per-layer weights
 are stacked [L, ...] and stored [in, out]; the blocks run as a Python
-loop. Attention dispatches through ops.attention.mha_attention, which
-takes the vit kernel (K1) on the card.
+loop (`remat`: one non-reentrant `torch.utils.checkpoint` per block).
+Attention dispatches through ops.attention.mha_attention, which takes the
+vit kernel (K1) on the card.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from streamvln_tpu_torch.configs import SigLIPConfig
 from streamvln_tpu_torch.ops.attention import mha_attention
@@ -38,17 +40,17 @@ def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
 
 
 def forward(params: Params, cfg: SigLIPConfig, images: torch.Tensor,
-            attn_impl: str = "auto") -> torch.Tensor:
+            attn_impl: str = "auto", remat: bool = False) -> torch.Tensor:
     """images [B, H, W, 3] preprocessed pixels -> [B, 729, hidden]."""
     x = patchify(images, cfg.patch_size)
     x = (torch.matmul(x, params["patch_w"]).float()
          + params["patch_b"].float()).to(images.dtype)
-    return forward_embeddings(params, cfg, x, attn_impl)
+    return forward_embeddings(params, cfg, x, attn_impl, remat)
 
 
 def forward_embeddings(params: Params, cfg: SigLIPConfig,
-                       embeds: torch.Tensor,
-                       attn_impl: str = "auto") -> torch.Tensor:
+                       embeds: torch.Tensor, attn_impl: str = "auto",
+                       remat: bool = False) -> torch.Tensor:
     """Patch embeddings [B, N, hidden] -> encoder output."""
     B, N, _ = embeds.shape
     H, Dh = cfg.num_heads, cfg.head_dim
@@ -58,7 +60,7 @@ def forward_embeddings(params: Params, cfg: SigLIPConfig,
     def dense(h, name, i):
         return torch.matmul(h, p[name + "_w"][i]) + p[name + "_b"][i]
 
-    for i in range(cfg.num_layers):
+    def block(x, i):
         h = layer_norm(x, p["ln1_s"][i], p["ln1_b"][i], cfg.layer_norm_eps)
         q = dense(h, "q", i).reshape(B, N, H, Dh)
         k = dense(h, "k", i).reshape(B, N, H, Dh)
@@ -67,5 +69,9 @@ def forward_embeddings(params: Params, cfg: SigLIPConfig,
         x = x + dense(attn, "o", i)
         h = layer_norm(x, p["ln2_s"][i], p["ln2_b"][i], cfg.layer_norm_eps)
         h = F.gelu(dense(h, "fc1", i), approximate="tanh")
-        x = x + dense(h, "fc2", i)
+        return x + dense(h, "fc2", i)
+
+    for i in range(cfg.num_layers):
+        x = checkpoint(block, x, i, use_reentrant=False) if remat \
+            else block(x, i)
     return x

@@ -1,6 +1,6 @@
 """StreamVLN multimodal stack for the PyTorch port: vision encode
-(SigLIP tower -> projector -> 2x2 bilinear pool) and the layout-driven
-token splice.
+(SigLIP tower -> projector -> 2x2 bilinear pool), the layout-driven
+token splice, and the training forward with its (chunked) cross-entropy.
 
 Counterpart of `streamvln_tpu/models/streamvln.py`. The host builds a
 `SpliceLayout` (own copy of the reference's numpy code): for each output
@@ -10,11 +10,12 @@ tokens. On the device the splice is one gather and one select.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from streamvln_tpu_torch.configs import StreamVLNConfig
 from streamvln_tpu_torch.models import projector as projector_lib
@@ -42,13 +43,14 @@ def pool_2d(feats: torch.Tensor, side: int, stride: int,
 
 
 def encode_frames(params: Params, cfg: StreamVLNConfig,
-                  images: torch.Tensor,
-                  attn_impl: str = "auto") -> torch.Tensor:
+                  images: torch.Tensor, attn_impl: str = "auto",
+                  remat: bool = False) -> torch.Tensor:
     """[B, V, H, W, 3] -> [B, V * tokens_per_frame, llm_hidden]: tower ->
     projector -> 2x2 pool, the same for memory and current frames."""
     B, V = images.shape[:2]
     flat = images.reshape((B * V,) + tuple(images.shape[2:]))
-    feats = siglip.forward(params["vision"], cfg.vision, flat, attn_impl)
+    feats = siglip.forward(params["vision"], cfg.vision, flat, attn_impl,
+                           remat=remat)
     feats = projector_lib.forward(params["projector"], feats)
     feats = pool_2d(feats, cfg.vision.patches_per_side,
                     cfg.spatial_pool_stride, cfg.spatial_pool_mode)
@@ -150,6 +152,18 @@ def build_splice_layout(
     )
 
 
+def stack_layouts(layouts) -> dict:
+    """List[SpliceLayout] -> dict of batched numpy arrays."""
+    return {
+        "token_ids": np.stack([l.token_ids for l in layouts]),
+        "is_vision": np.stack([l.is_vision for l in layouts]),
+        "vision_index": np.stack([l.vision_index for l in layouts]),
+        "labels": np.stack([l.labels for l in layouts]),
+        "valid": np.stack([l.valid for l in layouts]),
+        "lengths": np.asarray([l.length for l in layouts], np.int32),
+    }
+
+
 def splice_embeds(params: Params, vision_flat: torch.Tensor,
                   token_ids: torch.Tensor, is_vision: torch.Tensor,
                   vision_index: torch.Tensor) -> torch.Tensor:
@@ -158,3 +172,71 @@ def splice_embeds(params: Params, vision_flat: torch.Tensor,
     vis = torch.gather(vision_flat, 1, vision_index.long()[:, :, None]
                        .expand(-1, -1, vision_flat.shape[-1]))
     return torch.where(is_vision[:, :, None], vis.to(text.dtype), text)
+
+
+def forward_train(
+    params: Params,
+    cfg: StreamVLNConfig,
+    images: torch.Tensor,            # [B, V, H, W, 3]
+    layout: dict,                    # tensors from stack_layouts
+    attn_impl: str = "auto",
+    remat: bool = False,
+    loss_chunk_size: Optional[int] = None,
+    remat_chunk: Optional[int] = None,
+    mlp_chunk: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Training forward. Returns (loss, f32 logits), or (loss, None) with
+    loss_chunk_size: the cross-entropy is then taken over sequence chunks
+    of the final hidden states, so the [B, T, vocab] logits never exist
+    at once; with remat each chunk's logits are recomputed in the
+    backward."""
+    vision_flat = encode_frames(params, cfg, images, attn_impl, remat=remat)
+    embeds = splice_embeds(params, vision_flat, layout["token_ids"],
+                           layout["is_vision"], layout["vision_index"])
+    valid = layout["valid"]
+    B, T = valid.shape
+    positions = torch.where(valid, torch.cumsum(valid.int(), dim=1) - 1,
+                            0).to(torch.int32)
+    labels = layout["labels"].long()
+    kw = dict(valid=valid, attn_impl=attn_impl, remat=remat,
+              remat_chunk=remat_chunk, mlp_chunk=mlp_chunk)
+
+    if loss_chunk_size is None:
+        logits, _ = qwen2.forward(params["llm"], cfg.llm, embeds, positions,
+                                  **kw)
+        return _ce_loss(logits[:, :-1], labels[:, 1:]), logits
+
+    hidden, _ = qwen2.forward(params["llm"], cfg.llm, embeds, positions,
+                              return_hidden=True, **kw)
+    C = loss_chunk_size
+    if T % C:
+        raise ValueError(f"sequence length {T} is not a multiple of "
+                         f"loss_chunk_size {C}")
+    # hidden[t] predicts labels[t + 1]; the last position predicts nothing
+    shifted = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1],
+                                                        IGNORE_INDEX)], 1)
+
+    def chunk_loss(h, lab):
+        logits = qwen2.lm_head_logits(params["llm"], h)
+        mask = lab != IGNORE_INDEX
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        tok = torch.gather(logp, -1, lab.clamp(min=0)[..., None])[..., 0]
+        return -(tok * mask).sum(), mask.sum().float()
+
+    loss_sum = torch.zeros((), device=hidden.device)
+    count = torch.zeros((), device=hidden.device)
+    for h, lab in zip(hidden.split(C, dim=1), shifted.split(C, dim=1)):
+        s, n = checkpoint(chunk_loss, h, lab, use_reentrant=False) \
+            if remat else chunk_loss(h, lab)
+        loss_sum = loss_sum + s
+        count = count + n
+    return loss_sum / count.clamp(min=1), None
+
+
+def _ce_loss(shift_logits: torch.Tensor,
+             shift_labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy over labels != IGNORE_INDEX."""
+    mask = shift_labels != IGNORE_INDEX
+    logp = torch.log_softmax(shift_logits.float(), dim=-1)
+    tok = torch.gather(logp, -1, shift_labels.clamp(min=0)[..., None])[..., 0]
+    return -(tok * mask).sum() / mask.sum().clamp(min=1)

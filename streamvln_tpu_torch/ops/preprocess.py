@@ -1,7 +1,9 @@
 """Frame preprocessing on the device: cubic resize to 384, rescale,
 normalise (mean = std = 0.5), the SigLIP image processor's arithmetic.
 
-Counterpart of `streamvln_tpu/ops/preprocess.py::preprocess_frames`. The
+Counterpart of `streamvln_tpu/ops/preprocess.py`: `preprocess_frames` (on
+the device) and `preprocess_frames_host` (PIL bicubic on the host, the
+dataset's path; PIL is imported only when it runs). The
 reference resizes with `jax.image.resize(method="cubic")`, whose default
 is antialiased Keys cubic with a = -0.5; PyTorch's bicubic matches it only
 with `antialias=True` (without it the kernel is a = -0.75 and differs by
@@ -9,6 +11,7 @@ up to 132 on the 0-255 scale at 480x640 -> 384).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -31,3 +34,18 @@ def preprocess_frames(frames_u8: torch.Tensor, size: int = TARGET_SIZE,
     x = x * (1.0 / 255.0)
     x = (x - IMAGE_MEAN) / IMAGE_STD
     return x.to(dtype).contiguous()
+
+
+def preprocess_frames_host(frames_u8: np.ndarray,
+                           size: int = TARGET_SIZE) -> np.ndarray:
+    """PIL-exact host path: [N, H, W, 3] uint8 -> [N, size, size, 3] f32."""
+    from PIL import Image
+    out = np.empty((frames_u8.shape[0], size, size, 3), np.float32)
+    for i, frame in enumerate(frames_u8):
+        img = Image.fromarray(frame).convert("RGB").resize(
+            (size, size), Image.BICUBIC)
+        out[i] = np.asarray(img, np.float32)
+    out *= 1.0 / 255.0
+    out -= IMAGE_MEAN
+    out /= IMAGE_STD
+    return out

@@ -10,7 +10,10 @@ kernel issues mma.sync on bf16 operands with f32 accumulation.
 
 `vit_attention` is the wrapper: on CPU tensors it runs `vit_attention_plain`;
 on CUDA tensors it launches the kernel or raises. `launches` counts kernel
-launches.
+launches. It is differentiable (`_VitAttentionFn`): the backward is the
+dense torch-math recompute of the JAX package's custom VJP
+(`streamvln_tpu/ops/vit_attention.py:95-103`), which has no Pallas
+backward either, so there is no backward kernel to port.
 """
 from __future__ import annotations
 
@@ -42,20 +45,32 @@ def vit_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.transpose(1, 2).to(q.dtype)
 
 
+def vit_attention_reference(q, k, v, scale: float) -> torch.Tensor:
+    """The JAX package's `_reference`: f32 softmax over the whole score
+    matrix, output in q's dtype. The backward differentiates this."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
 def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: Optional[float] = None) -> torch.Tensor:
     """Full (bidirectional) MHA for encoder shapes; q/k/v [B, S, H, D]."""
-    global launches
     if q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"vit_attention: shapes differ {q.shape} "
                          f"{k.shape} {v.shape}")
+    if scale is None:
+        scale = q.shape[3] ** -0.5
+    return _VitAttentionFn.apply(q, k, v, float(scale))
+
+
+def _forward(q, k, v, scale: float) -> torch.Tensor:
+    global launches
     if q.device.type == "cpu":
         return vit_attention_plain(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"vit_attention: unsupported device {q.device}")
     B, S, H, D = q.shape
-    if scale is None:
-        scale = D ** -0.5
     if q.dtype != torch.bfloat16 or D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"vit_attention kernel takes bf16 with head dim "
                          f"in {KERNEL_HEAD_DIMS}, got {q.dtype} and {D}; "
@@ -82,3 +97,23 @@ def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.check(rc, "vit_attention")
     launches += 1
     return out
+
+
+class _VitAttentionFn(torch.autograd.Function):
+    """K1 forward (the plain version on CPU tensors); backward by autograd
+    of `vit_attention_reference` on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _forward(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_() for x in (q, k, v)]
+            out = vit_attention_reference(*xs, ctx.scale)
+            grads = torch.autograd.grad(out, xs, g)
+        return (*grads, None)

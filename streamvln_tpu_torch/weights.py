@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from streamvln_tpu_torch.configs import StreamVLNConfig, resolve_device
+from streamvln_tpu_torch.models.lora import is_lora_path
 from streamvln_tpu_torch.models.projector import parse_type
 
 _FUSED = ("qkv_w", "qkv_b", "gu_w")
@@ -24,7 +25,9 @@ def from_jax_params(tree, cfg: StreamVLNConfig, device="cuda",
     as numpy arrays, e.g. after `jax.tree.map(np.asarray, params)`) into
     torch tensors on `device`, cast to `dtype` when given. The stacked
     layer weights are taken as they are. Fused projections (the
-    reference's models/fuse.py) are refused: pass the unfused tree."""
+    reference's models/fuse.py) are refused: pass the unfused tree. LoRA
+    adapter stacks (`*_lora_a/_lora_b`) and `lora_scale` are carried across
+    in their own dtype (f32 adapters stay f32 over bf16 base weights)."""
     device = resolve_device(device)
     layers = tree["llm"]["layers"]
     fused = [k for k in _FUSED if k in layers]
@@ -33,18 +36,18 @@ def from_jax_params(tree, cfg: StreamVLNConfig, device="cuda",
             f"fused projection stacks {fused} are not accepted; convert the "
             f"params before fuse_projections")
 
-    def conv(x):
+    def conv(x, keep_dtype):
         t = torch.from_numpy(np.array(x, copy=True))
-        if dtype is not None and t.is_floating_point():
+        if dtype is not None and t.is_floating_point() and not keep_dtype:
             t = t.to(dtype)
         return t.to(device)
 
-    def walk(node):
+    def walk(node, key=""):
         if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
+            return {k: walk(v, k) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [walk(v) for v in node]
-        return conv(node)
+        return conv(node, is_lora_path(key))
     for part, want in (("llm", cfg.llm.num_layers),
                        ("vision", cfg.vision.num_layers)):
         got = np.shape(tree[part]["layers"]["q_w"])[0]

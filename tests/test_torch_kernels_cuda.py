@@ -196,3 +196,133 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+# ---------------------------------------------------------------------------
+# Training kernels: K3 (forward + LSE), K4 (dQ), K5 (dK/dV)
+#
+# Tolerances. K3's output as above. LSE (f32): |err| <= 1e-4 + 1e-5 |ref|
+# (f32 sums in another order and the fast exp; scores are O(1)), and rows
+# that see no key are exactly -1e30 on both sides. The plain versions of
+# K4/K5 round P and dS to bf16 as the kernels do, so what is left is the
+# two sides' output rounding and the one-ulp flips of a rounded dS (or P,
+# for dV) whose f32 values differ by a few ulps (amplified where dP - Dsum
+# cancels, on rows that see few keys); elementwise |err| <= 2^-6 |ref| +
+# 2^-7 * sum|terms of the product with the rounded factor| + 1e-5.
+# ---------------------------------------------------------------------------
+
+def _rounding_terms(q, k, v, dout, lse, dsum, q_pos, k_pos, kv_major):
+    """scale*sum|dS||K|, scale*sum|dS||Q|, sum P|dO| per element of dQ,
+    dK, dV (dK/dV in k's layout)."""
+    B, S, Hq, D = q.shape
+    scale = D ** -0.5
+    p, ds, qf, kf, dof = fa._bwd_core(q, k, v, dout, lse, dsum, q_pos,
+                                      k_pos, scale, kv_major)
+    t_dq = torch.einsum("bhgqk,bhkd->bqhgd", ds.abs(), kf.abs()) \
+        .reshape(B, S, Hq, D) * scale
+    t_dk = torch.einsum("bhgqk,bqhgd->bhkd", ds.abs(), qf.abs()) * scale
+    t_dv = torch.einsum("bhgqk,bqhgd->bhkd", p, dof.abs())
+    if not kv_major:
+        t_dk, t_dv = t_dk.transpose(1, 2), t_dv.transpose(1, 2)
+    return t_dq, t_dk, t_dv
+
+
+def _assert_grad_close(out, ref, term, what):
+    ref = ref.float()
+    err = (out.float() - ref).abs()
+    tol = 2.0 ** -6 * ref.abs() + 2.0 ** -7 * term + 1e-5
+    assert bool((err <= tol).all()), (what, (err / tol).max().item())
+
+
+def _train_positions(B, Sq, Sk, n_valid, dev):
+    """Training layout (as forward_train): valid tokens at positions
+    0..n-1, padded queries at position 0, padded keys at INVALID_POS; one
+    query row of batch 1 sees no key."""
+    pos = torch.arange(Sq, device=dev, dtype=torch.int32)
+    q_pos = torch.where(pos < n_valid, pos, 0)[None].repeat(B, 1)
+    kp = torch.arange(Sk, device=dev, dtype=torch.int32)
+    k_pos = torch.where(kp < n_valid, kp, fa.INVALID_POS)[None].repeat(B, 1)
+    q_pos[1, 3] = -1
+    return q_pos.contiguous(), k_pos.contiguous()
+
+
+@pytest.mark.parametrize("S,n_valid,Hq,Hkv,kv_major", [
+    (200, 170, 14, 2, False),
+    (256, 256, 4, 4, True),
+    (130, 100, 7, 1, False),
+])
+def test_flash_training_kernels_match_plain(dev, S, n_valid, Hq, Hkv,
+                                            kv_major):
+    rng = np.random.default_rng(5)
+    B, D = 2, 128
+    q = _rand(rng, (B, S, Hq, D), dev)
+    kshape = (B, Hkv, S, D) if kv_major else (B, S, Hkv, D)
+    k, v = _rand(rng, kshape, dev), _rand(rng, kshape, dev)
+    dout = _rand(rng, (B, S, Hq, D), dev)
+    q_pos, k_pos = _train_positions(B, S, S, n_valid, dev)
+    n3, n4, n5 = fa.lse_launches, fa.dq_launches, fa.dkv_launches
+    out, lse = fa.flash_attention_lse(q, k, v, q_pos, k_pos,
+                                      kv_major=kv_major)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.flash_attention_lse_plain(q, k, v, q_pos, k_pos,
+                                                    kv_major=kv_major)
+    assert torch.all(out[1, 3] == 0)
+    _assert_close(out, ref_out, fa.flash_attention_plain(
+        q, k, v.abs(), q_pos, k_pos, kv_major=kv_major))
+    unseen = ref_lse == fa.NEG_INF
+    assert torch.equal(lse == fa.NEG_INF, unseen)
+    assert bool(unseen[1, :, 3].all())
+    err = (lse - ref_lse).abs()[~unseen]
+    assert bool((err <= 1e-4 + 1e-5 * ref_lse.abs()[~unseen]).all())
+
+    dsum = fa._dsum(dout, out)
+    args = (q, k, v, dout, lse, dsum, q_pos, k_pos)
+    dq = fa.flash_bwd_dq(*args, kv_major=kv_major)
+    dk, dv = fa.flash_bwd_dkv(*args, kv_major=kv_major)
+    torch.cuda.synchronize()
+    assert (fa.lse_launches - n3, fa.dq_launches - n4,
+            fa.dkv_launches - n5) == (1, 1, 1)
+    assert torch.all(dq[1, 3] == 0)
+    t_dq, t_dk, t_dv = _rounding_terms(*args, kv_major)
+    _assert_grad_close(dq, fa.flash_bwd_dq_plain(*args, kv_major=kv_major),
+                       t_dq, "dq")
+    rdk, rdv = fa.flash_bwd_dkv_plain(*args, kv_major=kv_major)
+    _assert_grad_close(dk, rdk, t_dk, "dk")
+    _assert_grad_close(dv, rdv, t_dv, "dv")
+
+
+def test_cuda_grads_flow_through_both_wrappers(dev):
+    """A loss through K1 and through the flash wrapper gives q/k/v grads on
+    the card: K1's are autograd of the dense reference (its backward), the
+    flash grads are K4/K5's and agree with the plain backward; K2 is not
+    launched on the grad path."""
+    rng = np.random.default_rng(6)
+    x = [_rand(rng, (2, 50, 4, 72), dev).requires_grad_() for _ in range(3)]
+    g = _rand(rng, (2, 50, 4, 72), dev)
+    (va.vit_attention(*x).float() * g.float()).sum().backward()
+    ref = [t.detach().clone().requires_grad_() for t in x]
+    (va.vit_attention_reference(*ref, 72 ** -0.5).float()
+     * g.float()).sum().backward()
+    for a, b in zip(x, ref):
+        assert a.grad is not None and a.grad.abs().max() > 0
+        torch.testing.assert_close(a.grad, b.grad, atol=0, rtol=0)
+
+    B, S, Hq, Hkv, D = 2, 96, 4, 2, 128
+    q = _rand(rng, (B, S, Hq, D), dev).requires_grad_()
+    k = _rand(rng, (B, S, Hkv, D), dev).requires_grad_()
+    v = _rand(rng, (B, S, Hkv, D), dev).requires_grad_()
+    dout = _rand(rng, (B, S, Hq, D), dev)
+    q_pos, k_pos = _train_positions(B, S, S, 80, dev)
+    n2 = fa.launches
+    out = fa.flash_attention(q, k, v, q_pos, k_pos)
+    out.backward(dout)
+    assert fa.launches == n2
+    with torch.no_grad():
+        _, lse = fa.flash_attention_lse(q, k, v, q_pos, k_pos)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                            q_pos, k_pos)
+        terms = _rounding_terms(q, k, v, dout, lse, fa._dsum(dout, out),
+                                q_pos, k_pos, False)
+    for t, w, term, name in zip((q, k, v), want, terms, "qkv"):
+        assert t.grad is not None and t.grad.abs().max() > 0
+        _assert_grad_close(t.grad, w, term, "d" + name)
