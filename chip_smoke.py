@@ -6,22 +6,36 @@ Phases (any failure exits non-zero before the result line):
   1. check for a card, build every CUDA kernel from `streamvln_tpu_torch/
      csrc` (one nvcc per source, all at once), print the build seconds and
      the card's name and power limit;
-  2. hold each kernel against its plain PyTorch version at the main path's
-     shapes in bf16 (max abs error vs tolerance), and time the kernel, the
-     plain version and, as a yardstick only, one PyTorch library call on
-     the same work (the port never calls it);
+  2. hold each serving kernel against its plain PyTorch version at the
+     main path's shapes (max abs error vs tolerance), and time the kernel,
+     the plain version and, as a yardstick only, one PyTorch library call
+     on the same work (the port never calls it): K1 and K2 in bf16; K6
+     (int4 dequant-matmul) at every int4 projection's decode shape and
+     gate/up at 128 rows, K7 (int4 unpack) for gate/up and down, K8
+     (decode attention) at four live lengths of a 4096-slot cache; K6, K7
+     and K8 timed over enough operand copies to miss the L2 cache, as the
+     decode path does;
   3. drive the main path at full width: streamvln_7b (SigLIP-so400m +
-     Qwen2-7B) with random bf16 weights made on the card, a ByteTokenizer
-     and a 4096-slot KV cache; VLNAgent.step over 480x640 frames for steps
-     0..32 with a model call every 4th step (9 calls, crossing the window
-     reset with <memory> at step 32); check tokens, logits, cache
-     bookkeeping and that both kernels' launch counts grew as the path
-     requires; then check the first call's prefill logits against the
-     repo's own dense attention path on the same weights;
-     One more (mid-window) agent call runs under torch.profiler: device
-     busy time (union of kernel intervals), idle share against the median
-     unprofiled mid-window call, kernel launches and the top kernels by
-     device time (in chiprun_out/chip_smoke.json);
+     Qwen2-7B) with random bf16 weights made on the card (q/k/v and
+     gate/up fused, as the engine does), a ByteTokenizer and a 4096-slot
+     KV cache; VLNAgent.step over 480x640 frames for steps 0..32 with a
+     model call every 4th step (9 calls, crossing the window reset with
+     <memory> at step 32); check tokens, logits, cache bookkeeping and the
+     exact launch counts of K1 and K2; check the first call's prefill
+     logits against the repo's own dense attention path on the same
+     weights. One more (mid-window) agent call runs under torch.profiler:
+     device busy time (union of kernel intervals), idle share against the
+     median unprofiled mid-window call, kernel launches and the top
+     kernels by device time (in chiprun_out/chip_smoke.json);
+     3b. two agent calls of an engine with attn_impl="decode_kernel" on
+     the same weights: K8 exactly 28 times per fed token, and a decode
+     step's logits through K8 against the dense path on the same cache;
+     3c. int4 weight-only serving: the weights quantized on the card by
+     quant.quantize_llm(bits=4), the engine's default fusion, the same 9
+     calls with exact launch counts of K1, K2, K6 and K7, per-call times,
+     weight GiB and peak memory, the first call's prefill logits against
+     the int4 weights dequantized to bf16 on the dense path, and one
+     profiled mid-window call;
   4. training: (a) the training kernels K3 (forward + LSE), K4 (dQ) and
      K5 (dK/dV) against their plain versions at the train step's shape
      (B=2, S=4096, 28/4 heads, D=128, bf16, 3,900 valid tokens, padded
@@ -34,7 +48,8 @@ Phases (any failure exits non-zero before the result line):
      updates and exact launch counts, a kernels-vs-dense check of one
      micro-batch's loss and LoRA gradients, per-step times, tokens/s and
      peak memory, and one micro-step under torch.profiler;
-  5. print the kernels JSON line, the card line, and the result line.
+  5. print the kernels JSON line (K1-K8), the card line, and the result
+     line.
 """
 from __future__ import annotations
 
@@ -67,6 +82,11 @@ LSE_ATOL, LSE_RTOL = 1e-4, 1e-5
 GRAD_RTOL, GRAD_FLIP, GRAD_ATOL = 2.0 ** -6, 2.0 ** -7, 1e-5
 # LoRA training, kernels vs dense attention on one micro-batch
 TRAIN_LOSS_RTOL, TRAIN_GRAD_MIN_COSINE = 1e-2, 0.99
+# K6 vs its plain version: both f32 from the same bf16-rounded weights,
+# so only the f32 summation order differs: 1e-5 * sum_k |x_k w_k| + 1e-6
+K6_SUM_RTOL, K6_ATOL = 1e-5, 1e-6
+# K8 vs its plain version in f32: half a bf16 ulp of the output + f32 order
+K8_RTOL, K8_ATOL = 2.0 ** -8, 1e-5
 
 
 def log(*a):
@@ -89,18 +109,28 @@ def card_line() -> str:
 
 
 def ptxas_summary(log_text: str) -> str:
-    """'<kernel><DP>: <regs> regs, <smem> B smem, <spill> B spill' per
-    instantiation, from nvcc's -Xptxas -v output."""
+    """'<kernel><template args>: <regs> regs, <smem> B smem, <spill> B
+    spill' per instantiation, from nvcc's -Xptxas -v output."""
     import re
     out = []
-    for name, dp, body in re.findall(
-            r"Compiling entry function '_ZN3svt\d+(\w+?)ILi(\d+)E.*?'(.*?)"
+    for mangled, body in re.findall(
+            r"Compiling entry function '(_ZN3svt\w+)'(.*?)"
             r"(?=Compiling entry function|\Z)", log_text, re.S):
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", body, re.S)
+        head = re.match(r"_ZN3svt(\d+)", mangled)
+        n = int(head.group(1))
+        name = mangled[head.end():head.end() + n]
+        targs = mangled[head.end() + n:].split("EE")[0]
+        args = (["bf16"] if "__nv_bfloat16" in targs else
+                ["f32"] if targs.startswith("If") else []) \
+            + re.findall(r"Li(\d+)E?", targs)
+        regs = re.search(r"Used (\d+) registers", body)
+        smem = re.search(r"(\d+) bytes smem", body)
         spill = re.search(r"(\d+) bytes spill stores", body)
-        if m:
-            out.append(f"{name}<{dp}>: {m.group(1)} regs, {m.group(2)} B "
-                       f"smem, {spill.group(1) if spill else '?'} B spill")
+        if regs:
+            label = f"{name}<{','.join(args)}>" if args else name
+            out.append(f"{label}: {regs.group(1)} regs, "
+                       f"{smem.group(1) if smem else 0} B smem, "
+                       f"{spill.group(1) if spill else '?'} B spill")
     return "; ".join(out) or "no ptxas output (library was already built)"
 
 
@@ -214,6 +244,223 @@ def check_flash(torch, F, fa, Sq, cap=4096, off=300, seed=1):
     if not c["tol_share"] <= 1.0:
         raise AssertionError(f"flash_attention disagrees: {c}")
     return rec
+
+
+def time_cold_ms(torch, fns, iters=12, warmup=2) -> float:
+    """time_ms over a rotation of `fns`, each bound to its own copy of the
+    operands, so that the working set exceeds the 50 MB L2 cache as it
+    does on the decode path (28 layers' weights and caches in turn).
+    Where a call's host work outlasts its kernels, this measures the host;
+    device_ms gives the kernels' own time."""
+    k = [0]
+
+    def step():
+        fns[k[0] % len(fns)]()
+        k[0] += 1
+    return time_ms(torch, step, iters=max(iters, len(fns)), warmup=warmup)
+
+
+def _copies(nbytes: int) -> int:
+    """Operand copies that take a rotation past 2.5x the L2 cache."""
+    return max(1, -(-int(2.5 * 50e6) // max(nbytes, 1)))
+
+
+def int4_weight(torch, quant, din, dout, seed):
+    """A random fan-in-scaled [din, dout] weight quantized by the port's
+    quantize_weight_int4, as a one-layer stack ([1, din/2, dout] uint8,
+    [1, din/64, dout] f32)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn((din, dout), generator=g, device="cuda")
+    wp, s = quant.quantize_weight_int4(w.mul_(din ** -0.5))
+    del w
+    return wp[None].contiguous(), s[None].contiguous()
+
+
+def int4pack_yardstick(torch, i4, wp, s):
+    """The same weights repacked for torch._weight_int4pack_mm: unsigned
+    nibbles q + 8 with zero point 8 ((u - 8) * scale + 0), the scales
+    rounded to bf16 (the port keeps them f32), group 64, torch's tiled
+    [dout, din] layout. Returns a function of x, or raises where this
+    torch lacks the op."""
+    _, half, dout = wp.shape
+    lo, hi = i4.unpack_nibbles(wp[0])
+    q = torch.stack([lo, hi], 1).reshape(2 * half, dout).t().contiguous()
+    q = q + 8
+    u8 = ((q[:, 0::2] << 4) | q[:, 1::2]).to(torch.uint8)
+    del q, lo, hi
+    packed = torch._convert_weight_to_int4pack(u8, 8)
+    sb = s[0].to(torch.bfloat16)
+    sz = torch.stack([sb, torch.zeros_like(sb)], -1).contiguous()
+    return lambda x: torch._weight_int4pack_mm(x, packed, 64, sz)
+
+
+INT4_SHAPES = (("qkv", 3584, 4608, 1), ("o", 3584, 3584, 1),
+               ("gu", 3584, 37888, 1), ("down", 18944, 3584, 1),
+               ("lm_head", 3584, 152064, 1), ("gu", 3584, 37888, 128))
+
+
+def check_int4(torch, i4, quant):
+    """K6 at every int4 projection's decode shape (M=1; fused qkv and
+    gate/up, o, down, lm_head) and gate/up at M=128, and K7 for gate/up and
+    down, against their plain versions. K6: f32 out on both sides from the
+    same bf16-rounded weights, so only the f32 summation order differs:
+    |err| <= 1e-5 * sum_k |x_k w_k| + 1e-6 elementwise. K7: bit-equal."""
+    weights, recs, dq = {}, [], []
+    for i, (name, din, dout, M) in enumerate(INT4_SHAPES):
+        if (din, dout) not in weights:
+            weights[(din, dout)] = int4_weight(torch, quant, din, dout, i)
+        wp, s = weights[(din, dout)]
+        half = din // 2
+        g = torch.Generator(device="cuda").manual_seed(100 + i)
+        x = torch.randn((M, din), generator=g, device="cuda") \
+            .to(torch.bfloat16)
+        out = i4.int4_matmul(x, wp, s, 0)
+        torch.cuda.synchronize()
+        ref = i4.int4_matmul_plain(x, wp, s, 0)
+        lo, hi = i4._scaled_halves(wp[0], s[0], torch.bfloat16)
+        term = x[:, 0::2].float().abs() @ lo.float().abs() \
+            + x[:, 1::2].float().abs() @ hi.float().abs()
+        err = (out - ref).abs()
+        share = (err / (K6_SUM_RTOL * term + K6_ATOL)).max().item()
+        wb = torch.cat([lo, hi])                # bf16 [din, dout], split rows
+        del term, lo, hi
+        n = _copies(wp.numel() + s.numel() * 4)
+        ops = [(wp, s, wb)] + [(wp.clone(), s.clone(), wb.clone())
+                               for _ in range(n - 1)]
+        kfns = [(lambda a=a, b=b: i4.int4_matmul(x, a, b, 0))
+                for a, b, _ in ops]
+        ms, event_ms = device_ms(torch, kfns), time_cold_ms(torch, kfns)
+        plain = time_ms(torch, lambda: i4.int4_matmul_plain(x, wp, s, 0),
+                        iters=3, warmup=1)
+        xs = i4._split_cols(x)
+        mm_ms = device_ms(torch, [(lambda c=c: torch.mm(xs, c))
+                                  for _, _, c in ops])
+        try:
+            packs = [int4pack_yardstick(torch, i4, a, b) for a, b, _ in ops]
+            pack_ms = device_ms(torch, [(lambda f=f: f(x)) for f in packs])
+            pack_err = ((packs[0](x).float() - ref).abs().max()
+                        / ref.abs().max()).item()
+            pack_note = None
+            del packs
+        except (AttributeError, RuntimeError) as e:
+            pack_ms = pack_err = None
+            pack_note = f"torch._weight_int4pack_mm unavailable: {e}"[:200]
+        nbytes = half * dout + (din // 64) * dout * 4 + M * din * 2 \
+            + M * dout * 4
+        b_ms, b_by = bound(2.0 * M * din * dout, nbytes)
+        rec = {"shape": f"{name} M={M} din={din} dout={dout} bf16 x, int4 "
+                        f"group 64", "max_abs_err": err.max().item(),
+               "tol_share": share, "ms": ms, "event_ms": event_ms,
+               "plain_ms": plain,
+               "library_ms": pack_ms if pack_ms is not None else mm_ms,
+               "library": "torch._weight_int4pack_mm" if pack_ms is not None
+               else "torch.mm on the bf16-dequantized weight",
+               "int4pack_ms": pack_ms, "int4pack_max_rel_err": pack_err,
+               "int4pack_note": pack_note, "mm_bf16_ms": mm_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+               "splits": i4._splits(M, half, dout), "rotation": n}
+        log(f"K6 int4_matmul {rec['shape']}: max_abs_err "
+            f"{rec['max_abs_err']:.3e} ({share:.3f} of 1e-5*sum|xw| + 1e-6) "
+            f"kernel {ms:.4f} ms device ({event_ms:.4f} ms event-timed) "
+            f"plain {plain:.4f} ms int4pack {pack_ms} ms "
+            f"(max rel err {pack_err}) mm bf16 {mm_ms:.4f} ms bound "
+            f"{b_ms:.4f} ms ({b_by}); {rec['splits']} splits, {n} copies")
+        if pack_note:
+            log(f"  {pack_note}")
+        recs.append(rec)
+        if not share <= 1.0:
+            raise AssertionError(f"int4_matmul disagrees at {rec['shape']}")
+        del ops, wb, xs, out, ref, err
+        if M == 1 and name in ("gu", "down"):
+            dq.append(check_dequant(torch, i4, name, wp, s))
+    del weights
+    torch.cuda.empty_cache()
+    return recs, dq
+
+
+def check_dequant(torch, i4, name, wp, s):
+    """K7 against its plain version: bit-equal."""
+    _, half, dout = wp.shape
+    out = i4.int4_dequant_split(wp, s, 0, torch.bfloat16)
+    torch.cuda.synchronize()
+    ref = i4.int4_dequant_split_plain(wp, s, 0, torch.bfloat16)
+    equal = torch.equal(out, ref)
+    err = (out.float() - ref.float()).abs().max().item()
+    del out, ref
+    n = _copies(wp.numel() * 5)
+    ops = [(wp, s)] + [(wp.clone(), s.clone()) for _ in range(n - 1)]
+    kfns = [(lambda a=a, b=b: i4.int4_dequant_split(a, b, 0, torch.bfloat16))
+            for a, b in ops]
+    ms, event_ms = device_ms(torch, kfns), time_cold_ms(torch, kfns)
+    plain = time_ms(torch, lambda: i4.int4_dequant_split_plain(
+        wp, s, 0, torch.bfloat16), iters=3, warmup=1)
+    nbytes = half * dout + (2 * half // 64) * dout * 4 + 2 * half * dout * 2
+    b_ms, b_by = bound(0.0, nbytes)
+    rec = {"shape": f"{name} din={2 * half} dout={dout} -> bf16 "
+                    f"[2, {half}, {dout}]", "max_abs_err": err,
+           "bit_equal": equal, "ms": ms, "event_ms": event_ms,
+           "plain_ms": plain,
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "bytes": nbytes, "rotation": n}
+    log(f"K7 int4_dequant_split {rec['shape']}: bit-equal {equal} kernel "
+        f"{ms:.4f} ms device ({event_ms:.4f} ms event-timed) plain "
+        f"{plain:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+    if not equal:
+        raise AssertionError(f"int4_dequant_split differs at {rec['shape']}")
+    return rec
+
+
+def check_decode(torch, F, da, lengths=(300, 1900, 4096, 2049), L=28,
+                 cap=4096, seed=7):
+    """K8 against its plain version run in f32 on the same (upcast) inputs,
+    at a 28-layer bf16 cache's shapes: |err| <= 2^-8 |ref| + 1e-5 (the
+    kernel's one bf16 output rounding, half an ulp, plus f32 summation
+    order). Timed over the 28 layers in turn, beside SDPA on the live
+    prefix (enable_gqa)."""
+    B, Hq, Hkv, D = 1, 28, 4, 128
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((L, B, 1, Hq, D), generator=g, device="cuda") \
+        .to(torch.bfloat16)
+    k, v = (torch.randn((L, B, Hkv, cap, D), generator=g, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    recs = []
+    for n in lengths:
+        lens = torch.full((B,), n, dtype=torch.int32, device="cuda")
+        out = da.decode_attention(q[0], k[0], v[0], lens)
+        torch.cuda.synchronize()
+        ref = da.decode_attention_plain(q[0].float(), k[0].float(),
+                                        v[0].float(), lens)
+        err = (out.float() - ref).abs()
+        share = (err / (K8_RTOL * ref.abs() + K8_ATOL)).max().item()
+        kfns = [(lambda i=i: da.decode_attention(q[i], k[i], v[i], lens))
+                for i in range(L)]
+        ms, event_ms = device_ms(torch, kfns, 2 * L), \
+            time_cold_ms(torch, kfns, iters=2 * L)
+        plain = time_ms(torch, lambda: da.decode_attention_plain(
+            q[0], k[0], v[0], lens), iters=3, warmup=1)
+        qt = [q[i].transpose(1, 2) for i in range(L)]
+        lib = device_ms(torch, [
+            (lambda i=i: F.scaled_dot_product_attention(
+                qt[i], k[i][:, :, :n], v[i][:, :, :n], enable_gqa=True))
+            for i in range(L)], 2 * L)
+        nbytes = 2 * B * Hkv * n * D * 2 + 2 * B * Hq * D * 2 + 4 * B
+        b_ms, b_by = bound(4.0 * B * Hq * n * D, nbytes)
+        rec = {"shape": f"B={B} Hq={Hq} Hkv={Hkv} D={D} length={n} "
+                        f"cache={cap} bf16", "max_abs_err": err.max().item(),
+               "tol_share": share, "ms": ms, "event_ms": event_ms,
+               "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+               "bound_by": b_by, "bytes": nbytes}
+        log(f"K8 decode_attention {rec['shape']}: max_abs_err "
+            f"{rec['max_abs_err']:.3e} ({share:.3f} of 2^-8|ref| + 1e-5) "
+            f"kernel {ms:.4f} ms device ({event_ms:.4f} ms event-timed) "
+            f"plain {plain:.4f} ms sdpa {lib:.4f} ms bound {b_ms:.4f} ms "
+            f"({b_by})")
+        recs.append(rec)
+        if not share <= 1.0:
+            raise AssertionError(f"decode_attention disagrees at length {n}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return recs
 
 
 def train_positions(torch, B, S, n_valid, device):
@@ -597,6 +844,298 @@ def profile_call(torch, fn, unprofiled_ms) -> dict:
     return rec
 
 
+def record_calls(torch, engine):
+    """Record each collected call's tokens, phase times and whether its
+    logits are finite; returns (records, a function that stops it)."""
+    calls = []
+    collect = engine.collect
+
+    def recording_collect(handle):
+        out = collect(handle)
+        calls.append({"tokens": out[0], "phase_ms": engine.last_phase_ms,
+                      "logits_finite": bool(torch.isfinite(
+                          engine.last_logits).all())})
+        return out
+    engine.collect = recording_collect
+
+    def restore():
+        engine.collect = collect
+    return calls, restore
+
+
+def drive_calls(torch, agent, engine, cfg, frames, instruction, reset,
+                n_steps=33):
+    """A warm-up call (its state reset), then VLNAgent.step over steps
+    0..n_steps-1 of 480x640 frames with a model call every
+    num_future_steps (33 steps: 9 calls, the window reset and the
+    <memory> call at step 32). `reset()` zeroes the launch counts just
+    before the steps. Checks tokens, finite logits and the KV
+    bookkeeping; returns (calls, wall ms of each call)."""
+    calls, restore = record_calls(torch, engine)
+    agent.step(0, frames[0], instruction, run_model=True)
+    agent.reset_memory(0)
+    calls.clear()
+    torch.cuda.synchronize()
+    reset()
+    wall = []
+    for step in range(n_steps):
+        run = step % cfg.num_future_steps == 0
+        t0 = time.perf_counter()
+        actions, _, _ = agent.step(0, frames[step], instruction,
+                                   run_model=run)
+        if run:
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            if actions is None or not actions:
+                raise AssertionError(f"step {step}: no actions")
+            if engine.envs[0].kv_length != int(engine.cache.length[0]):
+                raise AssertionError(
+                    f"step {step}: KV length {int(engine.cache.length[0])} "
+                    f"!= bookkeeping {engine.envs[0].kv_length}")
+    restore()
+    want = -(-n_steps // cfg.num_future_steps)
+    if len(calls) != want:
+        raise AssertionError(f"expected {want} model calls, got "
+                             f"{len(calls)}")
+    for i, c in enumerate(calls):
+        if not c["tokens"] or not all(0 <= t < cfg.llm.vocab_size
+                                      for t in c["tokens"]):
+            raise AssertionError(f"call {i}: bad tokens {c['tokens']}")
+        if not c["logits_finite"]:
+            raise AssertionError(f"call {i}: non-finite logits")
+        vis, pre, dec = c["phase_ms"]
+        n_dec = max(len(c["tokens"]) - 1, 1)
+        log(f"call {i}: wall {wall[i]:.2f} ms = vision {vis:.2f} + prefill "
+            f"{pre:.2f} + decode {dec:.2f} ms ({len(c['tokens'])} tokens, "
+            f"{dec / n_dec:.2f} ms/decode token)")
+    return calls, wall
+
+
+def fed_tokens(calls) -> int:
+    """Decode forwards of the calls: every token after a call's first
+    (which comes from the prefill) was produced by feeding the one before
+    it."""
+    return sum(len(c["tokens"]) - 1 for c in calls)
+
+
+def logits_agreement(torch, a, b) -> dict:
+    a, b = a.float(), b.float()
+    return {"cosine": torch.nn.functional.cosine_similarity(
+                a, b, dim=-1).min().item(),
+            "max_rel_diff": ((a - b).abs().max() / b.abs().max()).item(),
+            "top1_agree": bool((a.argmax(-1) == b.argmax(-1)).all())}
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def serve_decode_kernel(torch, fused, cfg, tok, frames, instruction,
+                        counts, reset):
+    """Phase 3b: two agent calls of an engine under
+    attn_impl="decode_kernel" (K8 at every decode step, dense prefill) on
+    the phase-3 weights; K8 must run exactly 28 times per fed token. Then
+    one more decode step from that engine's cache, through K8 and through
+    the dense path on identical copies of the cache: the logits must agree
+    (cosine > 0.99)."""
+    from streamvln_tpu_torch.agent import VLNAgent
+    from streamvln_tpu_torch.models import qwen2
+    from streamvln_tpu_torch.streaming.engine import StreamingEngine
+    eng = StreamingEngine(fused, cfg, cache_capacity=4096,
+                          max_new_tokens=16, stop_ids=(tok.im_end_id,),
+                          attn_impl="decode_kernel")
+    agent = VLNAgent(eng, tok)
+    calls, wall = drive_calls(torch, agent, eng, cfg, frames, instruction,
+                              reset, n_steps=5)
+    got = counts()
+    fed = fed_tokens(calls)
+    L = cfg.llm.num_layers
+    want = {"vit_attention": cfg.vision.num_layers * len(calls),
+            "flash_attention": 0, "int4_matmul": 0,
+            "int4_dequant_split": 0, "decode_attention": L * fed}
+    log(f"3b launches under decode_kernel ({len(calls)} calls, {fed} fed "
+        f"tokens): {got} (want {want})")
+    if got != want:
+        raise AssertionError("decode_kernel launch counts do not match")
+
+    def step_logits(impl):
+        c = qwen2.KVCache(eng.cache.k.clone(), eng.cache.v.clone(),
+                          eng.cache.length.clone())
+        ids = torch.tensor([[eng.envs[0].pending_token]], device=eng.device)
+        emb = qwen2.embed_tokens(eng.params["llm"], ids).to(torch.bfloat16)
+        logits, _ = qwen2.forward(eng.params["llm"], cfg.llm, emb,
+                                  c.length[:, None], cache=c,
+                                  attn_impl=impl)
+        del c
+        return logits[:, 0]
+    with torch.no_grad():
+        agree = logits_agreement(torch, step_logits("decode_kernel"),
+                                 step_logits("dense"))
+    agree["cache_length"] = int(eng.cache.length[0])
+    log(f"3b decode-step logits, K8 vs dense on the same cache (length "
+        f"{agree['cache_length']}): cosine {agree['cosine']:.6f} max rel "
+        f"diff {agree['max_rel_diff']:.3e} top-1 agree "
+        f"{agree['top1_agree']}")
+    if not agree["cosine"] > REF_MIN_COSINE:
+        raise AssertionError("decode kernel disagrees with the dense path")
+    return {"calls": calls, "wall_ms": wall, "fed_tokens": fed,
+            "launches": got, "reference": agree}, eng
+
+
+def serve_int4(torch, np, params, cfg, tok, frames, instruction, counts,
+               reset):
+    """Phase 3c: the phase-3 weights quantized on the card by the port's
+    quantize_llm(bits=4); an engine (which fuses q/k/v and gate/up) runs the 9
+    agent calls over steps 0..32 as phase 3 does, with exact launch
+    counts; then the first call's prefill logits against the same int4
+    weights dequantized to bf16 (dequantize_llm) on the dense path, and
+    one profiled mid-window call."""
+    from streamvln_tpu_torch.agent import VLNAgent
+    from streamvln_tpu_torch.models import quant
+    from streamvln_tpu_torch.streaming.engine import StreamingEngine
+    t0 = time.perf_counter()
+    q4 = quant.quantize_llm(params, bits=4)
+    torch.cuda.synchronize()
+    q_s = time.perf_counter() - t0
+    gib = {"llm_bf16": tree_bytes(params["llm"]) / 2**30,
+           "llm_int4": tree_bytes(q4["llm"]) / 2**30}
+    log(f"3c: quantize_llm(bits=4) on the card in {q_s:.2f} s; LLM weights "
+        f"{gib['llm_int4']:.3f} GiB int4 (embed bf16) vs "
+        f"{gib['llm_bf16']:.3f} GiB bf16")
+    eng = StreamingEngine(q4, cfg, cache_capacity=4096, max_new_tokens=16,
+                          stop_ids=(tok.im_end_id,))
+    del q4
+    agent = VLNAgent(eng, tok)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    calls, wall = drive_calls(torch, agent, eng, cfg, frames, instruction,
+                              reset)
+    got = counts()
+    peak = torch.cuda.max_memory_allocated()
+    fed = fed_tokens(calls)
+    L, n = cfg.llm.num_layers, len(calls)
+    # per call: K1 per tower layer, K2 per layer (prefill), K7 for the 4
+    # fused projections of each layer (prefill rows > 128), K6 for the
+    # prefill's one-row lm_head and, per fed token, 4 per layer + lm_head
+    want = {"vit_attention": cfg.vision.num_layers * n,
+            "flash_attention": L * n, "int4_matmul": n + (4 * L + 1) * fed,
+            "int4_dequant_split": 4 * L * n, "decode_attention": 0}
+    log(f"3c launches on the int4 path ({n} calls, {fed} fed tokens): {got} "
+        f"(want {want}); peak memory allocated {peak / 2**30:.2f} GiB")
+    if got != want:
+        raise AssertionError("int4 launch counts do not match the path")
+    prof = profile_call(torch, lambda: agent.step(
+        0, frames[-1], instruction, run_model=True),
+        float(np.median(wall[1:8])))
+
+    # reference: prefill logits of the first call, int4 kernels vs the
+    # same int4 weights dequantized to bf16 on the dense path
+    outs = []
+    dq = quant.dequantize_llm(eng.params, torch.bfloat16)
+    for tree, impl in ((eng.params, "auto"), (dq, "dense")):
+        e = StreamingEngine(tree, cfg, cache_capacity=4096, max_new_tokens=2,
+                            stop_ids=(tok.im_end_id,), attn_impl=impl)
+        VLNAgent(e, tok).step(0, frames[0], instruction, run_model=True)
+        outs.append(e.last_logits.float())
+        del e
+    del dq
+    agree = logits_agreement(torch, *outs)
+    log(f"3c reference (prefill logits, int4 kernels vs dequantized bf16 "
+        f"dense): cosine {agree['cosine']:.6f} max rel diff "
+        f"{agree['max_rel_diff']:.3e} top-1 agree {agree['top1_agree']}")
+    if not agree["cosine"] > REF_MIN_COSINE:
+        raise AssertionError("int4 path disagrees with its dequantized "
+                             "reference")
+    torch.cuda.empty_cache()
+    return {"calls": calls, "wall_ms": wall, "fed_tokens": fed,
+            "launches": got, "weights_gib": gib, "quantize_s": q_s,
+            "peak_memory_bytes": peak, "profile": prof,
+            "reference": agree}, eng
+
+
+def paired_timing(torch, np, engines, cfg, tok, frames, instruction):
+    """Phase 3d: the serving variants in turns on one host and card. Each
+    engine gets a fresh agent; for steps 0..32 every agent takes the same
+    step, and at each model call the order of the engines rotates, so
+    host noise falls on all of them alike. Returns per-engine call
+    records and medians over the mid-window calls 1..7."""
+    from streamvln_tpu_torch.agent import VLNAgent
+    names = list(engines)
+    agents = {n: VLNAgent(engines[n], tok) for n in names}
+    recs = {n: [] for n in names}
+    for n in names:
+        agents[n].reset_memory(0)
+    k = 0
+    for step in range(33):
+        run = step % cfg.num_future_steps == 0
+        order = names[k % len(names):] + names[:k % len(names)]
+        for n in order:
+            calls, restore = record_calls(torch, engines[n])
+            t0 = time.perf_counter()
+            agents[n].step(0, frames[step], instruction, run_model=run)
+            if run:
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                c = calls[0]
+                vis, pre, dec = c["phase_ms"]
+                recs[n].append({"wall_ms": wall, "vision_ms": vis,
+                                "prefill_ms": pre, "decode_ms": dec,
+                                "tokens": len(c["tokens"]),
+                                "decode_ms_per_token":
+                                    dec / max(len(c["tokens"]) - 1, 1)})
+            restore()
+        k += run
+    out = {}
+    for n in names:
+        mid = recs[n][1:8]
+        med = {key: float(np.median([r[key] for r in mid])) for key in (
+            "wall_ms", "vision_ms", "prefill_ms", "decode_ms_per_token")}
+        out[n] = {"calls": recs[n], "median_mid_window": med,
+                  "memory_call": recs[n][-1]}
+        log(f"3d {n}: mid-window medians wall {med['wall_ms']:.2f} ms, "
+            f"vision {med['vision_ms']:.2f}, prefill {med['prefill_ms']:.2f},"
+            f" decode {med['decode_ms_per_token']:.2f} ms/token; <memory> "
+            f"call prefill {recs[n][-1]['prefill_ms']:.2f} ms")
+    return out
+
+
+def device_ms(torch, fns, calls=None) -> float:
+    """Device time per call of a rotation of `fns`: the summed durations
+    of the CUDA kernels they launch (torch.profiler), so that a host
+    slower than the kernels does not count; see time_cold_ms for the
+    rotation."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    calls = calls or max(12, len(fns))
+    for f in fns[:2]:
+        f()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fns[i % len(fns)]()
+        torch.cuda.synchronize()
+    total_us = sum(e.time_range.end - e.time_range.start
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return total_us / 1e3 / calls
+
+
+def kernel_entry(name, src, replaces, launches, recs, head=0, **extra):
+    """One kernel's record of the kernels line: the numbers of its head
+    shape, every shape under "shapes"."""
+    r = recs[head]
+    return {"name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(x["max_abs_err"] for x in recs),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": r["shape"],
+            "shapes": recs, **extra}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -610,13 +1149,28 @@ def main() -> int:
     from streamvln_tpu_torch.configs import streamvln_7b
     from streamvln_tpu_torch.data.tokenizer import ByteTokenizer
     from streamvln_tpu_torch.kernels import build
+    from streamvln_tpu_torch.models import quant
+    from streamvln_tpu_torch.models.fuse import fuse_projections
+    from streamvln_tpu_torch.ops import decode_attention as da
     from streamvln_tpu_torch.ops import flash_attention as fa
+    from streamvln_tpu_torch.ops import int4_matmul as i4
     from streamvln_tpu_torch.ops import vit_attention as va
     from streamvln_tpu_torch.streaming.engine import StreamingEngine
     from streamvln_tpu_torch.weights import init
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    def reset_counts():
+        va.launches = fa.launches = i4.launches = i4.dequant_launches = 0
+        da.launches = 0
+
+    def serving_counts():
+        return {"vit_attention": va.launches, "flash_attention": fa.launches,
+                "int4_matmul": i4.launches,
+                "int4_dequant_split": i4.dequant_launches,
+                "decode_attention": da.launches}
 
     # 1. build
     t0 = time.perf_counter()
@@ -631,80 +1185,40 @@ def main() -> int:
     # 2. kernels against their plain versions at main-path shapes
     vit = [check_vit(torch, F, va, B) for B in (1, 9)]
     flash = [check_flash(torch, F, fa, Sq) for Sq in (768, 2560)]
+    int4_recs, dequant_recs = check_int4(torch, i4, quant)
+    decode_recs = check_decode(torch, F, da)
 
-    # 3. the main path at full width
+    # 3. the main path at full width (bf16; q/k/v and gate/up fused once,
+    # as the engine would, and shared by this phase's engines)
     cfg = streamvln_7b()
     t0 = time.perf_counter()
     params = init(cfg, torch.Generator(device="cuda").manual_seed(0),
                   device="cuda", dtype=torch.bfloat16)
+    fused = fuse_projections(params)
     torch.cuda.synchronize()
-    log(f"phase 3: streamvln_7b bf16 weights on the card in "
+    log(f"phase 3: streamvln_7b bf16 weights on the card, fused, in "
         f"{time.perf_counter() - t0:.2f} s "
         f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB)")
     tok = ByteTokenizer()
-    engine = StreamingEngine(params, cfg, cache_capacity=4096,
+    engine = StreamingEngine(fused, cfg, cache_capacity=4096,
                              max_new_tokens=16, stop_ids=(tok.im_end_id,))
     agent = VLNAgent(engine, tok)
-    calls = []
-    collect = engine.collect
-
-    def recording_collect(handle):
-        out = collect(handle)
-        calls.append({"tokens": out[0], "phase_ms": engine.last_phase_ms,
-                      "logits_finite": bool(torch.isfinite(
-                          engine.last_logits).all())})
-        return out
-    engine.collect = recording_collect
-
     frames = np.random.default_rng(0).integers(0, 256, (33, 480, 640, 3),
                                                np.uint8)
     instruction = "walk past the sofa and stop at the kitchen door"
-    # warm-up call on a separate engine state, then reset (not counted)
-    agent.step(0, frames[0], instruction, run_model=True)
-    agent.reset_memory(0)
-    calls.clear()
-    torch.cuda.synchronize()
-
-    va.launches = 0
-    fa.launches = 0
-    wall = []
-    for step in range(33):
-        run = step % cfg.num_future_steps == 0
-        t0 = time.perf_counter()
-        actions, _, _ = agent.step(0, frames[step], instruction,
-                                   run_model=run)
-        if run:
-            torch.cuda.synchronize()
-            wall.append((time.perf_counter() - t0) * 1e3)
-            if actions is None or not actions:
-                raise AssertionError(f"step {step}: no actions")
-            if engine.envs[0].kv_length != int(engine.cache.length[0]):
-                raise AssertionError(
-                    f"step {step}: KV length {int(engine.cache.length[0])} "
-                    f"!= bookkeeping {engine.envs[0].kv_length}")
-    n_vit, n_flash = va.launches, fa.launches
+    calls, wall = drive_calls(torch, agent, engine, cfg, frames,
+                              instruction, reset_counts)
+    counts = serving_counts()
+    n_vit, n_flash = counts["vit_attention"], counts["flash_attention"]
     n_calls = len(calls)
-    if n_calls != 9:
-        raise AssertionError(f"expected 9 model calls, got {n_calls}")
-    for i, c in enumerate(calls):
-        if not c["tokens"] or not all(0 <= t < cfg.llm.vocab_size
-                                      for t in c["tokens"]):
-            raise AssertionError(f"call {i}: bad tokens {c['tokens']}")
-        if not c["logits_finite"]:
-            raise AssertionError(f"call {i}: non-finite logits")
-        vis, pre, dec = c["phase_ms"]
-        n_dec = max(len(c["tokens"]) - 1, 1)
-        log(f"call {i}: wall {wall[i]:.2f} ms = vision {vis:.2f} + prefill "
-            f"{pre:.2f} + decode {dec:.2f} ms ({len(c['tokens'])} tokens, "
-            f"{dec / n_dec:.2f} ms/decode token)")
-    want_vit = cfg.vision.num_layers * n_calls          # one frame a call
-    want_flash = cfg.llm.num_layers * n_calls           # one prefill a call
-    log(f"launches on the main path: vit_attention {n_vit} (want "
-        f"{want_vit}), flash_attention {n_flash} (want {want_flash})")
-    if n_vit != want_vit or n_flash != want_flash:
+    want = {"vit_attention": cfg.vision.num_layers * n_calls,
+            "flash_attention": cfg.llm.num_layers * n_calls,
+            "int4_matmul": 0, "int4_dequant_split": 0,
+            "decode_attention": 0}
+    log(f"launches on the main path: {counts} (want {want})")
+    if counts != want:
         raise AssertionError("kernel launch counts do not match the path")
 
-    engine.collect = collect
     # the profiled call is a mid-window call: compare with calls 1..7
     prof = profile_call(
         torch, lambda: agent.step(0, frames[-1], instruction,
@@ -715,44 +1229,51 @@ def main() -> int:
     # repo's dense attention path, on the same weights and inputs
     outs = []
     for impl in ("auto", "dense"):
-        eng = StreamingEngine(params, cfg, cache_capacity=4096,
+        eng = StreamingEngine(fused, cfg, cache_capacity=4096,
                               max_new_tokens=2, stop_ids=(tok.im_end_id,),
                               attn_impl=impl)
         VLNAgent(eng, tok).step(0, frames[0], instruction, run_model=True)
         outs.append(eng.last_logits.float())
         del eng
-    a, b = outs
-    cos = torch.nn.functional.cosine_similarity(a, b, dim=-1).min().item()
-    rel = ((a - b).abs().max() / b.abs().max()).item()
-    top1 = bool((a.argmax(-1) == b.argmax(-1)).all())
+    ref3 = logits_agreement(torch, *outs)
     log(f"reference check (prefill logits, kernels vs dense): cosine "
-        f"{cos:.6f} max rel diff {rel:.3e} top-1 agree {top1}")
-    if not cos > REF_MIN_COSINE:
+        f"{ref3['cosine']:.6f} max rel diff {ref3['max_rel_diff']:.3e} "
+        f"top-1 agree {ref3['top1_agree']}")
+    if not ref3["cosine"] > REF_MIN_COSINE:
         raise AssertionError("kernel path disagrees with the dense path")
+    del agent, outs
+
+    # 3b. decode attention through K8 (bf16 weights)
+    dk, engine_dk = serve_decode_kernel(torch, fused, cfg, tok, frames,
+                                        instruction, serving_counts,
+                                        reset_counts)
+    # 3c. int4 weight-only serving of the same weights
+    int4, engine4 = serve_int4(torch, np, params, cfg, tok, frames,
+                               instruction, serving_counts, reset_counts)
+    # 3d. the three serving variants in turns
+    paired = paired_timing(torch, np, {
+        "bf16": engine, "bf16_decode_kernel": engine_dk,
+        "int4": engine4}, cfg, tok, frames, instruction)
+    del engine, engine_dk, engine4, fused
+    torch.cuda.empty_cache()
 
     # 4. training: the kernels at the train step's shape, then LoRA SFT
-    del engine, agent, collect, recording_collect
-    torch.cuda.empty_cache()
     train_k = check_training_kernels(torch, F, fa)
     train = train_full_width(torch, np, params, cfg, tok, fa, va)
 
     # 5. summary
-    kernels = []
-    for name, src, replaces, recs, n in (
-            ("vit_attention", "streamvln_tpu_torch/csrc/vit_attention.cu",
-             "streamvln_tpu/ops/vit_attention.py:37", vit, n_vit),
-            ("flash_attention",
-             "streamvln_tpu_torch/csrc/flash_attention.cu",
-             "streamvln_tpu/ops/flash_attention.py:49", flash, n_flash)):
-        head = recs[0]
-        kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": n,
-            "max_abs_err": max(r["max_abs_err"] for r in recs),
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
-            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": head["library_ms"], "shape": head["shape"],
-            "shapes": recs})
+    kernels = [
+        kernel_entry("vit_attention",
+                     "streamvln_tpu_torch/csrc/vit_attention.cu",
+                     "streamvln_tpu/ops/vit_attention.py:37", n_vit, vit,
+                     launches_int4=int4["launches"]["vit_attention"],
+                     launches_decode_kernel=dk["launches"]["vit_attention"],
+                     launches_training=train["launches"]["vit_attention"]),
+        kernel_entry("flash_attention",
+                     "streamvln_tpu_torch/csrc/flash_attention.cu",
+                     "streamvln_tpu/ops/flash_attention.py:49", n_flash,
+                     flash,
+                     launches_int4=int4["launches"]["flash_attention"])]
     for name, src in (
             ("flash_attention_lse",
              "streamvln_tpu_torch/csrc/flash_attention.cu"),
@@ -768,14 +1289,31 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"], "library": r["library"]})
-    # K1's launches on the training path, beside the serving path's
-    kernels[0]["launches_training"] = train["launches"]["vit_attention"]
+    kernels += [
+        kernel_entry("int4_matmul",
+                     "streamvln_tpu_torch/csrc/int4_matmul.cu",
+                     "streamvln_tpu/ops/int4_matmul.py:93",
+                     int4["launches"]["int4_matmul"], int4_recs, head=2,
+                     library=int4_recs[2]["library"]),
+        kernel_entry("int4_dequant_split",
+                     "streamvln_tpu_torch/csrc/int4_matmul.cu",
+                     "streamvln_tpu/ops/int4_matmul.py:170",
+                     int4["launches"]["int4_dequant_split"], dequant_recs),
+        kernel_entry("decode_attention",
+                     "streamvln_tpu_torch/csrc/decode_attention.cu",
+                     "streamvln_tpu/ops/decode_attention.py:31",
+                     dk["launches"]["decode_attention"], decode_recs,
+                     library="F.scaled_dot_product_attention (enable_gqa) "
+                             "on the live prefix")]
+    seconds = time.perf_counter() - t_start
+    log(f"chip_smoke: all phases passed in {seconds:.1f} s")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "calls": calls,
-                   "wall_ms": wall, "profile": prof,
-                   "training_kernels": train_k, "training": train},
-                  f, indent=1)
+                   "wall_ms": wall, "profile": prof, "reference": ref3,
+                   "decode_kernel": dk, "int4": int4, "paired": paired,
+                   "training_kernels": train_k, "training": train,
+                   "seconds": seconds}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

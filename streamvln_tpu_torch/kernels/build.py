@@ -22,7 +22,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build")
-KERNELS = ("vit_attention", "flash_attention", "flash_attention_bwd")
+KERNELS = ("vit_attention", "flash_attention", "flash_attention_bwd",
+           "int4_matmul", "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,6 +41,13 @@ ARGTYPES = {
     "svt_flash_bwd_dq": [_P] * 10 + [_I] * 6 + [_F, _P],
     # q, k, v, dO, lse, dsum, dK, dV | q_pos, k_pos, 21 strides
     "svt_flash_bwd_dkv": [_P] * 11 + [_I] * 6 + [_F, _P],
+    # x, w, scales, out, part | M, din, dout, splits, is_bf16
+    "svt_int4_matmul": [_P] * 5 + [_I] * 5 + [_P],
+    # w, scales, out | half, dout, is_bf16
+    "svt_int4_dequant_split": [_P] * 3 + [_I] * 3 + [_P],
+    # q, k, v, lengths, out, part_m, part_l, part_acc, 8 strides (an
+    # array) | B, Hq, Hkv, Smax, D, scale, is_bf16
+    "svt_decode_attention": [_P] * 9 + [_I] * 5 + [_F, _I, _P],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

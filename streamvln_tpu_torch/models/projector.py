@@ -11,6 +11,8 @@ import re
 import torch
 import torch.nn.functional as F
 
+from streamvln_tpu_torch.ops.linear import matmul_f32
+
 Params = dict
 
 
@@ -29,5 +31,5 @@ def forward(params: Params, x: torch.Tensor) -> torch.Tensor:
     for i, p in enumerate(params["layers"]):
         if i > 0:
             x = F.gelu(x, approximate="none")
-        x = (torch.matmul(x, p["w"]).float() + p["b"].float()).to(x.dtype)
+        x = (matmul_f32(x, p["w"]) + p["b"].float()).to(x.dtype)
     return x

@@ -4,14 +4,22 @@ inference with a KV cache, and the training forward.
 Counterpart of `streamvln_tpu/models/qwen2.py` for the Qwen2 defaults.
 Parameters are the reference's dict layout with per-layer weights stacked
 on a leading [L] axis and matrices stored [in, out]; the layer stack runs
-as an eager Python loop. LoRA adapters (`<w>_lora_a/_lora_b` stacks and
-`lora_scale`, models/lora.py) add their f32 delta inside `_proj`. The
-training knobs are the reference's: `remat` (one non-reentrant
-`torch.utils.checkpoint` per layer), `remat_chunk` (nested: a checkpoint
-per chunk of layers around the per-layer ones), `mlp_chunk` (token-chunked
-MLP, a checkpoint per chunk) and `return_hidden`. Family knobs (MoE,
-alibi, LayerNorm, gelu MLPs, Gemma scalings) and the int8/int4/kv_int8
-forms are later slices of the port and raise NotImplementedError here.
+as an eager Python loop. Every projection keeps its f32 sum: the bias and
+any LoRA delta (`<w>_lora_a/_lora_b` stacks and `lora_scale`,
+models/lora.py) are added in f32 before the one cast to x's dtype, and the
+lm_head returns f32 logits, as `jnp.dot(..., preferred_element_type=f32)`
+does in the reference. Weights may be float, int8 with per-column scales
+or packed int4 with group scales (models/quant.py), and q/k/v and gate/up
+may be fused (`qkv_w`, `gu_w`; models/fuse.py). Kernel-eligible int4
+projections go to K6 at up to KERNEL_MAX_ROWS rows and to K7 plus one
+product above (ops/int4_matmul.py), each handed its layer's view of the
+stack (contiguous, no copy). The training knobs are the reference's:
+`remat` (one non-reentrant `torch.utils.checkpoint` per layer),
+`remat_chunk` (nested: a checkpoint per chunk of layers around the
+per-layer ones), `mlp_chunk` (token-chunked MLP, a checkpoint per chunk)
+and `return_hidden`. Family knobs (MoE, alibi, LayerNorm, gelu MLPs,
+Gemma scalings), act_int8 and the int8 KV cache are later slices of the
+port and raise NotImplementedError here.
 
 KV cache: [L, B, Hkv, Smax, D] per tensor (KV-head-major), slot index ==
 global token position, per-row fill lengths. Appends write in place at
@@ -29,10 +37,17 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from streamvln_tpu_torch.configs import Qwen2Config
+from streamvln_tpu_torch.models.quant import dequant_int4
+from streamvln_tpu_torch.ops import decode_attention as da
+from streamvln_tpu_torch.ops import flash_attention as fa
 from streamvln_tpu_torch.ops.attention import (dense_attention,
                                                dense_attention_kvmajor)
-from streamvln_tpu_torch.ops import flash_attention as fa
 from streamvln_tpu_torch.ops.flash_attention import INVALID_POS
+from streamvln_tpu_torch.ops.int4_matmul import (KERNEL_MAX_ROWS,
+                                                 int4_kernel_eligible,
+                                                 int4_matmul,
+                                                 int4_prefill_matmul)
+from streamvln_tpu_torch.ops.linear import matmul_f32
 
 Params = dict
 
@@ -83,19 +98,42 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor,
-          b: Optional[torch.Tensor] = None, lora=None) -> torch.Tensor:
-    """x @ w, plus the bias and the LoRA delta `x @ A @ B * scale` in f32
-    before the cast back to x's dtype (`lora` = (A, B, scale) or None)."""
-    out = torch.matmul(x, w)
-    if b is not None or lora is not None:
-        out = out.float()
-        if b is not None:
-            out = out + b.float()
-        if lora is not None:
-            a, bb, scale = lora
-            low = torch.matmul(x.float(), a.float())
-            out = out + torch.matmul(low, bb.float()) * scale
+def _int4_product(x: torch.Tensor, w: torch.Tensor,
+                  s: torch.Tensor) -> Optional[torch.Tensor]:
+    """x @ dequant(w) as f32 through K6 (rows <= KERNEL_MAX_ROWS) or K7 +
+    one product, for one layer's packed weight w [din/2, dout] and scales
+    s [G, dout]; None when the shape is not kernel-eligible."""
+    if not int4_kernel_eligible(w[None], s[None]):
+        return None
+    x2 = x.reshape(-1, x.shape[-1])
+    fn = int4_matmul if x2.shape[0] <= KERNEL_MAX_ROWS \
+        else int4_prefill_matmul
+    return fn(x2, w[None], s[None], 0).reshape(*x.shape[:-1], w.shape[-1])
+
+
+def _proj(x: torch.Tensor, p: dict, name: str,
+          lora_scale=None) -> torch.Tensor:
+    """x @ p[name] with the f32 sum kept, plus the bias `<name[:-2]>_b`
+    and the LoRA delta `x @ A @ B * lora_scale` in f32, then one cast to
+    x's dtype. int8 weights apply their per-column scale to the f32
+    output; packed int4 weights take the kernels when eligible, else the
+    reference's materialized dequant (`dequant_int4` in x's dtype)."""
+    w = p[name]
+    if w.dtype == torch.uint8:
+        out = _int4_product(x, w, p[name + "_scale"])
+        if out is None:
+            out = matmul_f32(x, dequant_int4(w, p[name + "_scale"], x.dtype))
+    elif w.dtype == torch.int8:
+        out = matmul_f32(x, w.to(x.dtype)) * p[name + "_scale"].float()
+    else:
+        out = matmul_f32(x, w)
+    b = p.get(name[:-2] + "_b")
+    if b is not None:
+        out = out + b.float()
+    if lora_scale is not None and name + "_lora_a" in p:
+        low = torch.matmul(x.float(), p[name + "_lora_a"].float())
+        out = out + torch.matmul(low, p[name + "_lora_b"].float()) \
+            * lora_scale
     return out.to(x.dtype)
 
 
@@ -143,7 +181,13 @@ def _attend(cfg: Qwen2Config, attn_impl: str, q, k, v, q_pos, k_pos,
     """Visibility rule `k_pos <= q_pos`. Prefill with S >= 64 and a
     128-multiple head dim goes to the flash kernel (K2), by shape alone
     (its wrapper runs the plain version on CPU tensors and launches or
-    raises on CUDA ones); everything else is plain dense PyTorch."""
+    raises on CUDA ones). Under attn_impl="decode_kernel" a single query
+    on the cache goes to the decode kernel (K8) over the keys below
+    q_pos + 1 (slot == position), as in the reference; its prefill is
+    dense. Everything else is plain dense PyTorch."""
+    if attn_impl == "decode_kernel" and kv_major and q.shape[1] == 1 \
+            and cfg.head_dim % 128 == 0 and k.shape[2] % 512 == 0:
+        return da.decode_attention(q, k, v, q_pos[:, 0] + 1)
     if attn_impl in ("auto", "flash") and cfg.head_dim % 128 == 0 \
             and q.shape[1] >= 64:
         return fa.flash_attention(q, k, v, q_pos, k_pos, kv_major=kv_major,
@@ -163,17 +207,18 @@ def _layer(cfg: Qwen2Config, attn_impl: str, x: torch.Tensor, p: dict,
     Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
     def proj(h, name):
-        lora = None
-        if lora_scale is not None and name + "_lora_a" in p:
-            lora = (p[name + "_lora_a"], p[name + "_lora_b"], lora_scale)
-        return _proj(h, p[name], p.get(name[:-2] + "_b"), lora)
+        return _proj(h, p, name, lora_scale)
 
     h = rms_norm(x, p["ln1"], cfg.rms_norm_eps)
-    q = apply_rope(proj(h, "q_w").reshape(B, S, Hq, Dh), positions,
-                   cfg.rope_theta)
-    k = apply_rope(proj(h, "k_w").reshape(B, S, Hkv, Dh), positions,
-                   cfg.rope_theta)
-    v = proj(h, "v_w").reshape(B, S, Hkv, Dh)
+    if "qkv_w" in p:
+        # fused (models/fuse.py): output columns are independent sums, so
+        # the split equals the three projections
+        q, k, v = proj(h, "qkv_w").split([Hq * Dh, Hkv * Dh, Hkv * Dh], -1)
+    else:
+        q, k, v = proj(h, "q_w"), proj(h, "k_w"), proj(h, "v_w")
+    q = apply_rope(q.reshape(B, S, Hq, Dh), positions, cfg.rope_theta)
+    k = apply_rope(k.reshape(B, S, Hkv, Dh), positions, cfg.rope_theta)
+    v = v.reshape(B, S, Hkv, Dh)
     if cache_kv is not None:
         kbuf, vbuf, offsets, rows = cache_kv
         _append(kbuf, k, offsets, rows)
@@ -186,7 +231,10 @@ def _layer(cfg: Qwen2Config, attn_impl: str, x: torch.Tensor, p: dict,
     h = rms_norm(x, p["ln2"], cfg.rms_norm_eps)
 
     def mlp(hb):
-        gate, up = proj(hb, "gate_w"), proj(hb, "up_w")
+        if "gu_w" in p:
+            gate, up = proj(hb, "gu_w").chunk(2, dim=-1)
+        else:
+            gate, up = proj(hb, "gate_w"), proj(hb, "up_w")
         act = (F.silu(gate.float()) * up.float()).to(x.dtype)
         return proj(act, "down_w")
 
@@ -225,10 +273,6 @@ def forward(
     INVALID_POS. remat/remat_chunk apply to the no-cache (training) path:
     the cache path is inference and appends in place."""
     check_supported(cfg)
-    for key in params["layers"]:
-        if key in ("qkv_w", "gu_w"):
-            raise NotImplementedError(
-                f"parameter {key!r} (fused layers) is {_LATER}")
     B, S, _ = inputs_embeds.shape
     dev = inputs_embeds.device
     x = inputs_embeds
@@ -293,15 +337,39 @@ def forward(
 
 
 def lm_head_logits(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Final-normed hidden states -> f32 vocabulary logits."""
+    """Final-normed hidden states -> f32 vocabulary logits (the f32 sum,
+    never rounded to x's dtype). int8 heads (or a tied int8 embed) scale
+    the f32 logits per vocabulary column; a kernel-eligible packed int4
+    head goes to K6 on its [1, din/2, V] view at up to KERNEL_MAX_ROWS
+    rows, to K7 plus one product above."""
     head = params.get("lm_head")
+    head_scale = None
     if head is None:
         head = params["embed"].t()
-    return torch.matmul(x, head).float()
+        if head.dtype == torch.int8:
+            head_scale = params["embed_scale"].float()[:, 0]
+            head = head.to(x.dtype)
+    elif head.dtype == torch.int8:
+        head_scale = params["lm_head_scale"].float()
+        head = head.to(x.dtype)
+    elif head.dtype == torch.uint8:
+        logits = _int4_product(x, head, params["lm_head_scale"])
+        if logits is not None:
+            return logits
+        head = dequant_int4(head, params["lm_head_scale"], x.dtype)
+    logits = matmul_f32(x, head)
+    if head_scale is not None:
+        logits = logits * head_scale
+    return logits
 
 
 def embed_tokens(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
-    """Token embedding lookup; sentinel (negative) ids map to zeros."""
-    emb = params["embed"][input_ids.clamp(min=0)]
+    """Token embedding lookup; sentinel (negative) ids map to zeros. An int8
+    embed is scaled per row, in the scale's dtype."""
+    safe = input_ids.clamp(min=0)
+    emb = params["embed"][safe]
+    if emb.dtype == torch.int8:
+        scale = params["embed_scale"][safe]
+        emb = emb.to(scale.dtype) * scale
     return torch.where((input_ids >= 0)[..., None], emb,
                        torch.zeros((), dtype=emb.dtype, device=emb.device))

@@ -16,6 +16,7 @@ from torch.utils.checkpoint import checkpoint
 
 from streamvln_tpu_torch.configs import SigLIPConfig
 from streamvln_tpu_torch.ops.attention import mha_attention
+from streamvln_tpu_torch.ops.linear import matmul_f32
 
 Params = dict
 
@@ -43,7 +44,7 @@ def forward(params: Params, cfg: SigLIPConfig, images: torch.Tensor,
             attn_impl: str = "auto", remat: bool = False) -> torch.Tensor:
     """images [B, H, W, 3] preprocessed pixels -> [B, 729, hidden]."""
     x = patchify(images, cfg.patch_size)
-    x = (torch.matmul(x, params["patch_w"]).float()
+    x = (matmul_f32(x, params["patch_w"])
          + params["patch_b"].float()).to(images.dtype)
     return forward_embeddings(params, cfg, x, attn_impl, remat)
 

@@ -16,6 +16,15 @@ the same public API for this slice: `generate`, `generate_batch(_async)` /
 - **Buckets**: prompts pad to a few lengths, as in the reference.
 - **Pending token**: the last generated token of a call is not fed in
   that call; it is prepended to the next call's tokens.
+- **Weights**: float, or quantized by models/quant.py (int8, packed
+  int4: decode streams the int4 projections through K6); q/k/v and
+  gate/up are fused in the constructor (models/fuse.py), as the
+  reference's default `fuse_proj=True` does. The fused stacks are copies
+  of the caller's.
+- **attn_impl**: "auto" (K1 tower, K2 prefill, dense decode), "dense",
+  or "decode_kernel" (K1 tower, dense prefill, K8 decode over the live
+  prefix; opt-in, as in the reference, where its own decode loop never
+  reaches the kernel).
 
 Sampling, speculative decode, `continue_decode`, fused preprocessing and
 the int8 KV cache are later slices of the port.
@@ -30,6 +39,7 @@ import torch
 
 from streamvln_tpu_torch.configs import StreamVLNConfig, resolve_device
 from streamvln_tpu_torch.models import qwen2, streamvln
+from streamvln_tpu_torch.models.fuse import fuse_projections
 from streamvln_tpu_torch.models.qwen2 import KVCache
 from streamvln_tpu_torch.ops.preprocess import preprocess_frames
 
@@ -136,7 +146,10 @@ class StreamingEngine:
                  device="cuda"):
         self.device = resolve_device(device)
         qwen2.check_supported(cfg.llm)
-        self.params = params
+        # one qkv and one gate/up product per layer, as the reference's
+        # default fuse_proj=True; no-op for groups it cannot fuse
+        # (LoRA-carrying) and for a fused tree
+        self.params = fuse_projections(params)
         self.cfg = cfg
         self.n_envs = n_envs
         self.max_new = max_new_tokens

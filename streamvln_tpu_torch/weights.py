@@ -16,25 +16,29 @@ from streamvln_tpu_torch.configs import StreamVLNConfig, resolve_device
 from streamvln_tpu_torch.models.lora import is_lora_path
 from streamvln_tpu_torch.models.projector import parse_type
 
-_FUSED = ("qkv_w", "qkv_b", "gu_w")
+_FUSED = {"qkv_w": ("q_w", "k_w", "v_w"), "gu_w": ("gate_w", "up_w")}
 
 
 def from_jax_params(tree, cfg: StreamVLNConfig, device="cuda",
                     dtype: Optional[torch.dtype] = None) -> dict:
     """Convert the pytree of `streamvln_tpu.models.streamvln.init` (leaves
     as numpy arrays, e.g. after `jax.tree.map(np.asarray, params)`) into
-    torch tensors on `device`, cast to `dtype` when given. The stacked
-    layer weights are taken as they are. Fused projections (the
-    reference's models/fuse.py) are refused: pass the unfused tree. LoRA
-    adapter stacks (`*_lora_a/_lora_b`) and `lora_scale` are carried across
-    in their own dtype (f32 adapters stay f32 over bf16 base weights)."""
+    torch tensors on `device`, float leaves cast to `dtype` when given.
+    The stacked layer weights are taken as they are, fused projections
+    (`qkv_w`, `gu_w`; models/fuse.py) included; a tree that holds a fused
+    stack beside one of its unfused members is refused. Quantized leaves
+    (int8, packed-int4 uint8) keep their dtype, and so do every `*_scale`
+    (f32 from models/quant.py), the LoRA adapter stacks
+    (`*_lora_a/_lora_b`) and `lora_scale` (f32 adapters stay f32 over
+    bf16 base weights)."""
     device = resolve_device(device)
     layers = tree["llm"]["layers"]
-    fused = [k for k in _FUSED if k in layers]
-    if fused:
-        raise ValueError(
-            f"fused projection stacks {fused} are not accepted; convert the "
-            f"params before fuse_projections")
+    for fused, members in _FUSED.items():
+        both = [m for m in members if m in layers]
+        if fused in layers and both:
+            raise ValueError(
+                f"fused stack {fused!r} beside its unfused members {both}; "
+                f"pass a tree from before or after fuse_projections")
 
     def conv(x, keep_dtype):
         t = torch.from_numpy(np.array(x, copy=True))
@@ -47,10 +51,11 @@ def from_jax_params(tree, cfg: StreamVLNConfig, device="cuda",
             return {k: walk(v, k) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [walk(v) for v in node]
-        return conv(node, is_lora_path(key))
+        return conv(node, is_lora_path(key) or key.endswith("_scale"))
     for part, want in (("llm", cfg.llm.num_layers),
                        ("vision", cfg.vision.num_layers)):
-        got = np.shape(tree[part]["layers"]["q_w"])[0]
+        stack = tree[part]["layers"]
+        got = np.shape(stack["ln1" if part == "llm" else "ln1_s"])[0]
         if got != want:
             raise ValueError(f"{part} stack has {got} layers, config "
                              f"says {want}")

@@ -326,3 +326,139 @@ def test_cuda_grads_flow_through_both_wrappers(dev):
     for t, w, term, name in zip((q, k, v), want, terms, "qkv"):
         assert t.grad is not None and t.grad.abs().max() > 0
         _assert_grad_close(t.grad, w, term, "d" + name)
+
+
+# ---------------------------------------------------------------------------
+# int4 kernels K6 (dequant-matmul) and K7 (unpack), decode kernel K8
+#
+# K6 vs its plain version: the same weights rounded once to x's type on
+# both sides and f32 out, so only the f32 summation order differs:
+# |err| <= 1e-5 * sum_k |x_k w_k| + 1e-6. K7: bit-equal. K8 vs its plain
+# version run in f32 on the same inputs: |err| <= 2^-8 |ref| + 1e-5 (half
+# a bf16 ulp of the kernel's output, f32 summation order).
+# ---------------------------------------------------------------------------
+
+def _int4_weight(din, dout, dev, seed, L=2):
+    from streamvln_tpu_torch.models import quant
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn((L, din, dout), generator=g, device=dev) * din ** -0.5
+    return quant.quantize_weight_int4(w)
+
+
+@pytest.mark.parametrize("M,din,dout,dtype", [
+    (1, 1024, 1536, torch.bfloat16), (5, 512, 2048, torch.bfloat16),
+    (128, 1024, 512, torch.bfloat16), (3, 512, 512, torch.float32),
+    (1, 3584, 4608, torch.bfloat16)])
+def test_int4_kernels_match_plain(dev, M, din, dout, dtype):
+    from streamvln_tpu_torch.ops import int4_matmul as i4
+    wp, s = _int4_weight(din, dout, dev, M)
+    x = torch.randn((M, din), device=dev).to(dtype)
+    n6, n7 = i4.launches, i4.dequant_launches
+    for layer in (0, 1):
+        out = i4.int4_matmul(x, wp, s, layer)
+        torch.cuda.synchronize()
+        ref = i4.int4_matmul_plain(x, wp, s, layer)
+        lo, hi = i4._scaled_halves(wp[layer], s[layer], dtype)
+        term = x[:, 0::2].float().abs() @ lo.float().abs() \
+            + x[:, 1::2].float().abs() @ hi.float().abs()
+        assert out.dtype == torch.float32 and out.shape == (M, dout)
+        assert bool(((out - ref).abs() <= 1e-5 * term + 1e-6).all())
+        split = i4.int4_dequant_split(wp, s, layer, dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(split, i4.int4_dequant_split_plain(wp, s, layer,
+                                                              dtype))
+    assert (i4.launches - n6, i4.dequant_launches - n7) == (2, 2)
+
+
+def test_int4_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from streamvln_tpu_torch.ops import int4_matmul as i4
+    wp, s = _int4_weight(512, 512, dev, 0)
+    x = torch.zeros((2, 512), device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        i4.int4_matmul(x, wp, s, 0)
+    with pytest.raises(ValueError, match="eligible"):
+        i4.int4_matmul(x.float(), wp[:, :, :384].contiguous(),
+                       s[:, :, :384].contiguous(), 0)
+    with pytest.raises(NotImplementedError, match="QLoRA"):
+        i4.int4_matmul(x.float().requires_grad_(), wp, s, 0)
+
+
+@pytest.mark.parametrize("Hq,Hkv,dtype", [(28, 4, torch.bfloat16),
+                                          (8, 8, torch.float32),
+                                          (16, 1, torch.bfloat16)])
+def test_decode_kernel_matches_plain(dev, Hq, Hkv, dtype):
+    from streamvln_tpu_torch.ops import decode_attention as da
+    lengths = torch.tensor([0, 1, 31, 129, 511, 513, 1024, 2000],
+                           dtype=torch.int32, device=dev)
+    B, cap, D = lengths.numel(), 1024, 128
+    rng = np.random.default_rng(8)
+    q = torch.from_numpy(rng.standard_normal((B, 1, Hq, D))
+                         .astype(np.float32)).to(dev, dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((B, Hkv, cap, D))
+                             .astype(np.float32)).to(dev, dtype)
+            for _ in range(2))
+    n0 = da.launches
+    out = da.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert da.launches == n0 + 1 and out.dtype == dtype
+    ref = da.decode_attention_plain(q.float(), k.float(), v.float(), lengths)
+    assert torch.all(out[0] == 0)
+    err = (out.float() - ref).abs()
+    assert bool((err <= 2.0 ** -8 * ref.abs() + 1e-5).all()), err.max()
+
+
+def test_int4_engine_on_card_matches_dequantized_dense(dev):
+    """int4 weights on the card through K6/K7 (fused by the engine)
+    against the same weights dequantized to bf16 on the dense path:
+    prefill logits agree (cosine > 0.99) on every call, and the launch
+    counts follow the path: per call K7 for the 4 fused projections of
+    each layer (prefill), K6 for the prefill's lm_head and 4 per layer + 1
+    per fed token. Under decode_kernel, K8 runs once per layer per fed
+    token."""
+    from streamvln_tpu_torch.data import chatml
+    from streamvln_tpu_torch.data.tokenizer import ByteTokenizer
+    from streamvln_tpu_torch.models import quant
+    from streamvln_tpu_torch.ops import decode_attention as da
+    from streamvln_tpu_torch.ops import int4_matmul as i4
+    from streamvln_tpu_torch.streaming.engine import StreamingEngine
+    from streamvln_tpu_torch.weights import init
+
+    import dataclasses
+    wide = _small_wide_cfg()      # hidden 512: every din, dout % 512 == 0
+    cfg = dataclasses.replace(wide, llm=dataclasses.replace(
+        wide.llm, hidden_size=512))
+    L = cfg.llm.num_layers
+    params = init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    q4 = quant.quantize_llm(params, bits=4)
+    tok = ByteTokenizer()
+    frames = np.random.default_rng(4).integers(0, 256, (4, 48, 64, 3),
+                                               np.uint8)
+    logits = {}
+    for name, tree, impl in (("int4", q4, "auto"),
+                             ("dense", quant.dequantize_llm(
+                                 q4, torch.bfloat16), "dense"),
+                             ("decode_kernel", q4, "decode_kernel")):
+        eng = StreamingEngine(tree, cfg, cache_capacity=2048,
+                              max_new_tokens=4, stop_ids=(tok.im_end_id,),
+                              buckets=(256, 512, 1024), attn_impl=impl)
+        n6, n7, n8 = i4.launches, i4.dequant_launches, da.launches
+        logits[name], fed = [], 0
+        for call, frame in enumerate(frames):
+            ids, _ = chatml.tokenize_dialogue(
+                tok, [("user", chatml.observation_prompt(None, "go"))],
+                add_system=call == 0, with_labels=False)
+            ids = np.concatenate([ids, np.asarray(
+                chatml.generation_prompt(tok), np.int32)])
+            out = eng.generate(0, frame, ids, step_id=call)
+            fed += len(out) - 1
+            logits[name].append(eng.last_logits.float())
+        n = len(frames)
+        if name == "int4":
+            assert i4.dequant_launches - n7 == 4 * L * n
+            assert i4.launches - n6 == n + (4 * L + 1) * fed
+        if name == "decode_kernel":
+            assert da.launches - n8 == L * fed
+            assert i4.dequant_launches - n7 == 4 * L * n
+    for a, b in zip(logits["int4"], logits["dense"]):
+        cos = torch.nn.functional.cosine_similarity(a, b, dim=-1).min()
+        assert cos.item() > 0.99, cos.item()
