@@ -4,12 +4,18 @@
 
 Phases (any failure exits non-zero before the result line):
   1. check for a card, build every CUDA kernel from `streamvln_tpu_torch/
-     csrc` (one nvcc per source, all at once), print the build seconds and
-     the card's name and power limit;
+     csrc` (one nvcc per source, all at once), print the build seconds,
+     each kernel's registers, shared memory and spill (ptxas), the counts
+     of wgmma (HGMMA) and TMA load (UTMALDG) instructions in the SASS of
+     the K1 and K2/K3 libraries (both must be there), and the card's name
+     and power limit;
   2. hold each serving kernel against its plain PyTorch version at the
      main path's shapes (max abs error vs tolerance), and time the kernel,
      the plain version and, as a yardstick only, one PyTorch library call
-     on the same work (the port never calls it): K1 and K2 in bf16; K6
+     on the same work (the port never calls it): K1 in bf16 at batch 1, 9
+     and the training tower batch of phase 4b (32 frames), K2 in bf16 (K1
+     and K2 by device time, with their event time and host cost per
+     call); K6
      (int4 dequant-matmul) at every int4 projection's decode shape and
      gate/up at 128 rows, K7 (int4 unpack) for gate/up and down, K8
      (decode attention) at four live lengths of a 4096-slot cache; K6, K7
@@ -48,11 +54,13 @@ Phases (any failure exits non-zero before the result line):
      updates and exact launch counts, a kernels-vs-dense check of one
      micro-batch's loss and LoRA gradients, per-step times, tokens/s and
      peak memory, and one micro-step under torch.profiler;
-  5. print the kernels JSON line (K1-K8), the card line, and the result
-     line.
+  5. print the kernels JSON line (K1-K8; each with bound_share = bound_ms
+     / ms and vs_library = ms / library_ms), the card line, and the
+     result line.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -80,6 +88,9 @@ REF_MIN_COSINE = 0.99
 # amplified where dP - Dsum cancels), + 1e-5 for f32 summation order
 LSE_ATOL, LSE_RTOL = 1e-4, 1e-5
 GRAD_RTOL, GRAD_FLIP, GRAD_ATOL = 2.0 ** -6, 2.0 ** -7, 1e-5
+# frames through the tower per training micro-batch (phase 4b): 2 VLN
+# windows x (8 <memory> + 8 current frames)
+TRAIN_TOWER_BATCH = 32
 # LoRA training, kernels vs dense attention on one micro-batch
 TRAIN_LOSS_RTOL, TRAIN_GRAD_MIN_COSINE = 1e-2, 0.99
 # K6 vs its plain version: both f32 from the same bf16-rounded weights,
@@ -116,10 +127,16 @@ def ptxas_summary(log_text: str) -> str:
     for mangled, body in re.findall(
             r"Compiling entry function '(_ZN3svt\w+)'(.*?)"
             r"(?=Compiling entry function|\Z)", log_text, re.S):
-        head = re.match(r"_ZN3svt(\d+)", mangled)
-        n = int(head.group(1))
-        name = mangled[head.end():head.end() + n]
-        targs = mangled[head.end() + n:].split("EE")[0]
+        # nested names after svt::, skipping an anonymous namespace
+        pos, name = len("_ZN3svt"), ""
+        while True:
+            head = re.match(r"\d+", mangled[pos:])
+            n = int(head.group(0))
+            name = mangled[pos + head.end():pos + head.end() + n]
+            pos += head.end() + n
+            if not name.startswith("_GLOBAL__N"):
+                break
+        targs = mangled[pos:].split("EE")[0]
         args = (["bf16"] if "__nv_bfloat16" in targs else
                 ["f32"] if targs.startswith("If") else []) \
             + re.findall(r"Li(\d+)E?", targs)
@@ -132,6 +149,31 @@ def ptxas_summary(log_text: str) -> str:
                        f"{smem.group(1) if smem else 0} B smem, "
                        f"{spill.group(1) if spill else '?'} B spill")
     return "; ".join(out) or "no ptxas output (library was already built)"
+
+
+def sass_counts(path: str) -> dict:
+    """Counts of wgmma (HGMMA) and TMA load (UTMALDG) instructions in the
+    SASS of a built library (cuobjdump -sass)."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", path], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed on {path}: {out.stderr}")
+    return {op: out.stdout.count(op) for op in ("HGMMA", "UTMALDG")}
+
+
+def host_us(torch, fn, calls=200) -> float:
+    """Wall time per call of back-to-back calls (one synchronize at the
+    end): the wrapper's host cost (checks, tensor-map encodes, launch)
+    where that exceeds the kernel's device time."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
 
 
 def time_ms(torch, fn, iters=10, warmup=2) -> float:
@@ -172,6 +214,10 @@ def tol_text(c: dict) -> str:
 
 
 def check_vit(torch, F, va, B, rng_seed=0):
+    """K1 against its plain version at the SigLIP shape, batch B. Times:
+    the kernel's device time (torch.profiler; at batch 1 the wrapper's
+    host cost exceeds it, so an event time would measure the host), its
+    event time and host cost per call, SDPA's device and event time."""
     S, H, D = 729, 16, 72
     g = torch.Generator(device="cuda").manual_seed(rng_seed)
     q, k, v = (torch.randn((B, S, H, D), generator=g, device="cuda")
@@ -179,17 +225,26 @@ def check_vit(torch, F, va, B, rng_seed=0):
     out = va.vit_attention(q, k, v)
     torch.cuda.synchronize()
     c = compare(out, va.vit_attention_plain(q, k, v))
-    ms = time_ms(torch, lambda: va.vit_attention(q, k, v))
+
+    def kernel():
+        return va.vit_attention(q, k, v)
+    ms, event_ms, h_us = device_ms(torch, [kernel]), time_ms(torch, kernel), \
+        host_us(torch, kernel)
     plain = time_ms(torch, lambda: va.vit_attention_plain(q, k, v), iters=3)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt)
+    lib, lib_event = device_ms(torch, [sdpa]), time_ms(torch, sdpa)
     b_ms, b_by = bound(4.0 * S * S * D * H * B, 4.0 * B * S * H * D * 2)
     rec = {"shape": f"B={B} S={S} H={H} D={D} bf16", **c,
-           "ms": ms, "plain_ms": plain, "library_ms": lib,
-           "bound_ms": b_ms, "bound_by": b_by}
+           "ms": ms, "event_ms": event_ms, "host_us": h_us,
+           "plain_ms": plain, "library_ms": lib,
+           "library_event_ms": lib_event, "bound_ms": b_ms, "bound_by": b_by}
     log(f"K1 vit_attention {rec['shape']}: {tol_text(c)} kernel {ms:.4f} "
-        f"ms plain {plain:.4f} ms sdpa {lib:.4f} ms bound {b_ms:.4f} ms "
-        f"({b_by})")
+        f"ms device ({event_ms:.4f} event-timed, {h_us:.1f} us host per "
+        f"call) plain {plain:.4f} ms sdpa {lib:.4f} ms device "
+        f"({lib_event:.4f} event-timed) bound {b_ms:.4f} ms ({b_by})")
     if not c["tol_share"] <= 1.0:
         raise AssertionError(f"vit_attention disagrees: {c}")
     return rec
@@ -213,8 +268,11 @@ def check_flash(torch, F, fa, Sq, cap=4096, off=300, seed=1):
         raise AssertionError("flash_attention: row with no visible key "
                              "is not zero")
     c = compare(out, ref)
-    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, q_pos, k_pos,
-                                                   kv_major=True))
+
+    def kernel():
+        return fa.flash_attention(q, k, v, q_pos, k_pos, kv_major=True)
+    ms, event_ms, h_us = device_ms(torch, [kernel]), time_ms(torch, kernel), \
+        host_us(torch, kernel)
     plain = time_ms(torch, lambda: fa.flash_attention_plain(
         q, k, v, q_pos, k_pos, kv_major=True), iters=3)
     # yardstick on the live prefix only (the slots the kernel reads),
@@ -224,23 +282,29 @@ def check_flash(torch, F, fa, Sq, cap=4096, off=300, seed=1):
     kl, vl = k[:, :, :k_live], v[:, :, :k_live]
     qt = q.transpose(1, 2).contiguous()
     if _version(torch) >= (2, 5):
-        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kl, vl, attn_mask=mask, enable_gqa=True))
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kl, vl, attn_mask=mask, enable_gqa=True)
     else:
         kx, vx = (x.repeat_interleave(Hq // Hkv, dim=1) for x in (kl, vl))
-        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kx, vx, attn_mask=mask))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kx, vx,
+                                                  attn_mask=mask)
+    lib, lib_event = device_ms(torch, [sdpa]), time_ms(torch, sdpa)
     pairs = mask.sum().item()                 # visible (query, key) pairs
     nbytes = 2 * (2 * B * Sq * Hq * D + 2 * B * Hkv * k_live * D) \
         + 4 * (B * Sq + B * cap)
     b_ms, b_by = bound(4.0 * pairs * D * Hq, nbytes)
     rec = {"shape": f"Sq={Sq} Hq={Hq} Hkv={Hkv} D={D} kv_major "
                     f"cache={cap} offset={off} bf16",
-           **c, "ms": ms, "plain_ms": plain,
-           "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
+           **c, "ms": ms, "event_ms": event_ms, "host_us": h_us,
+           "plain_ms": plain, "library_ms": lib,
+           "library_event_ms": lib_event, "bound_ms": b_ms, "bound_by": b_by}
     log(f"K2 flash_attention {rec['shape']}: {tol_text(c)} kernel {ms:.4f} "
-        f"ms plain {plain:.4f} ms sdpa {lib:.4f} ms bound {b_ms:.4f} ms "
-        f"({b_by})")
+        f"ms device ({event_ms:.4f} event-timed, {h_us:.1f} us host per "
+        f"call) plain {plain:.4f} ms sdpa {lib:.4f} ms device "
+        f"({lib_event:.4f} event-timed) bound {b_ms:.4f} ms ({b_by})")
     if not c["tol_share"] <= 1.0:
         raise AssertionError(f"flash_attention disagrees: {c}")
     return rec
@@ -704,6 +768,11 @@ def train_full_width(torch, np, params, cfg, tok, fa, va):
         f"{tuple(batches[0]['images'].shape)}")
     if T != 4096:
         raise AssertionError(f"expected the 4096 bucket, got {T}")
+    tower_batch = batches[0]["images"].shape[0] * \
+        batches[0]["images"].shape[1]            # windows x frames
+    if tower_batch != TRAIN_TOWER_BATCH:
+        raise AssertionError("phase 2 times K1 at a tower batch of "
+                             f"{TRAIN_TOWER_BATCH}; 4b feeds {tower_batch}")
 
     # kernels vs dense attention on one micro-batch (also the warm-up)
     ref = {}
@@ -727,7 +796,7 @@ def train_full_width(torch, np, params, cfg, tok, fa, va):
     step = make_train_step(cfg, tcfg, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     fa.launches = fa.lse_launches = fa.dq_launches = fa.dkv_launches = 0
-    va.launches = 0
+    va.launches, va.launches_by_batch = 0, {}
     metrics, micro_ms = [], []
     for i in range(n_micro):
         torch.cuda.synchronize()
@@ -743,6 +812,7 @@ def train_full_width(torch, np, params, cfg, tok, fa, va):
               "flash_attention_lse": fa.lse_launches,
               "flash_bwd_dq": fa.dq_launches,
               "flash_bwd_dkv": fa.dkv_launches}
+    vit_by_batch = by_batch(va)
     peak = torch.cuda.max_memory_allocated()
     L, Lv = cfg.llm.num_layers, cfg.vision.num_layers
     # per micro-step: the frozen tower runs K1 once per layer (no grad, so
@@ -752,7 +822,8 @@ def train_full_width(torch, np, params, cfg, tok, fa, va):
     want = {"vit_attention": Lv * n_micro, "flash_attention": 0,
             "flash_attention_lse": 2 * L * n_micro,
             "flash_bwd_dq": L * n_micro, "flash_bwd_dkv": L * n_micro}
-    log(f"4b launches on the training path: {counts} (want {want})")
+    log(f"4b launches on the training path: {counts} (want {want}); K1 "
+        f"by batch {vit_by_batch}")
     opt_ms = [sum(micro_ms[i:i + 2]) for i in range(0, n_micro, 2)]
     tok_step = [valid[i] + valid[i + 1] for i in range(0, n_micro, 2)]
     rates = [n / ms * 1e3 for ms, n in zip(opt_ms, tok_step)]
@@ -773,7 +844,8 @@ def train_full_width(torch, np, params, cfg, tok, fa, va):
         f"weights bit-identical {frozen_ok}; LoRA B stacks changed {moved} "
         f"of {len(lora_b0)}")
     if not (finite and frozen_ok and moved == len(lora_b0)
-            and counts == want):
+            and counts == want
+            and sum(vit_by_batch.values()) == counts["vit_attention"]):
         raise AssertionError("LoRA training checks failed")
 
     prof = profile_call(torch, lambda: step(state, batches[-1]),
@@ -788,6 +860,7 @@ def train_full_width(torch, np, params, cfg, tok, fa, va):
             "median_step_ms": med,
             "tokens_per_s": med_rate,
             "peak_memory_bytes": peak, "launches": counts,
+            "vit_launches_by_batch": vit_by_batch,
             "reference": {"loss_rel_diff": rel, "lora_grad_cosine": cos},
             "profile": prof}
 
@@ -1127,13 +1200,28 @@ def kernel_entry(name, src, replaces, launches, recs, head=0, **extra):
     """One kernel's record of the kernels line: the numbers of its head
     shape, every shape under "shapes"."""
     r = recs[head]
+    for x in recs:
+        x.update(shares(x))
     return {"name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(x["max_abs_err"] for x in recs),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": r["shape"],
+            "library_ms": r["library_ms"], **shares(r), "shape": r["shape"],
             "shapes": recs, **extra}
+
+
+def by_batch(va) -> dict:
+    """K1's launches by batch size since its counts were last reset."""
+    return {f"B={b}": n for b, n in sorted(va.launches_by_batch.items())}
+
+
+def shares(r) -> dict:
+    """bound_share = bound_ms / ms (the share of the card's bound the
+    kernel reaches); vs_library = ms / library_ms (null without one)."""
+    lib = r.get("library_ms")
+    return {"bound_share": r["bound_ms"] / r["ms"],
+            "vs_library": r["ms"] / lib if lib else None}
 
 
 def main() -> int:
@@ -1164,7 +1252,7 @@ def main() -> int:
 
     def reset_counts():
         va.launches = fa.launches = i4.launches = i4.dequant_launches = 0
-        da.launches = 0
+        da.launches, va.launches_by_batch = 0, {}
 
     def serving_counts():
         return {"vit_attention": va.launches, "flash_attention": fa.launches,
@@ -1174,16 +1262,21 @@ def main() -> int:
 
     # 1. build
     t0 = time.perf_counter()
-    build.build_all()
+    libs = build.build_all()
     log(f"phase 1: built {list(build.KERNELS)} in "
         f"{time.perf_counter() - t0:.2f} s")
     for name in build.KERNELS:
         log(f"  {name}: {ptxas_summary(build.build_logs.get(name, ''))}")
+    sass = {n: sass_counts(libs[n]) for n in ("vit_attention",
+                                               "flash_attention")}
+    log(f"  SASS instruction counts (wgmma HGMMA, TMA load UTMALDG): {sass}")
+    if not all(c["HGMMA"] and c["UTMALDG"] for c in sass.values()):
+        raise AssertionError("the attention libraries lack wgmma or TMA")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     # 2. kernels against their plain versions at main-path shapes
-    vit = [check_vit(torch, F, va, B) for B in (1, 9)]
+    vit = [check_vit(torch, F, va, B) for B in (1, 9, TRAIN_TOWER_BATCH)]
     flash = [check_flash(torch, F, fa, Sq) for Sq in (768, 2560)]
     int4_recs, dequant_recs = check_int4(torch, i4, quant)
     decode_recs = check_decode(torch, F, da)
@@ -1209,14 +1302,16 @@ def main() -> int:
     calls, wall = drive_calls(torch, agent, engine, cfg, frames,
                               instruction, reset_counts)
     counts = serving_counts()
+    vit_by_batch = by_batch(va)
     n_vit, n_flash = counts["vit_attention"], counts["flash_attention"]
     n_calls = len(calls)
     want = {"vit_attention": cfg.vision.num_layers * n_calls,
             "flash_attention": cfg.llm.num_layers * n_calls,
             "int4_matmul": 0, "int4_dequant_split": 0,
             "decode_attention": 0}
-    log(f"launches on the main path: {counts} (want {want})")
-    if counts != want:
+    log(f"launches on the main path: {counts} (want {want}); K1 by "
+        f"batch {vit_by_batch}")
+    if counts != want or sum(vit_by_batch.values()) != n_vit:
         raise AssertionError("kernel launch counts do not match the path")
 
     # the profiled call is a mid-window call: compare with calls 1..7
@@ -1255,6 +1350,10 @@ def main() -> int:
         "bf16": engine, "bf16_decode_kernel": engine_dk,
         "int4": engine4}, cfg, tok, frames, instruction)
     del engine, engine_dk, engine4, fused
+    # the call recorders leave each engine in a reference cycle (its
+    # restored bound `collect`): collect them now, or their weights and
+    # caches stay allocated through phase 4 and its peak memory
+    gc.collect()
     torch.cuda.empty_cache()
 
     # 4. training: the kernels at the train step's shape, then LoRA SFT
@@ -1266,6 +1365,9 @@ def main() -> int:
         kernel_entry("vit_attention",
                      "streamvln_tpu_torch/csrc/vit_attention.cu",
                      "streamvln_tpu/ops/vit_attention.py:37", n_vit, vit,
+                     launches_by_batch=vit_by_batch,
+                     launches_by_batch_training=train[
+                         "vit_launches_by_batch"],
                      launches_int4=int4["launches"]["vit_attention"],
                      launches_decode_kernel=dk["launches"]["vit_attention"],
                      launches_training=train["launches"]["vit_attention"]),
@@ -1288,7 +1390,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": r["shape"], "library": r["library"]})
+            **shares(r), "shape": r["shape"], "library": r["library"]})
     kernels += [
         kernel_entry("int4_matmul",
                      "streamvln_tpu_torch/csrc/int4_matmul.cu",
@@ -1309,7 +1411,8 @@ def main() -> int:
     log(f"chip_smoke: all phases passed in {seconds:.1f} s")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "kernels": kernels, "calls": calls,
+        json.dump({"card": card, "sass": sass, "kernels": kernels,
+                   "calls": calls,
                    "wall_ms": wall, "profile": prof, "reference": ref3,
                    "decode_kernel": dk, "int4": int4, "paired": paired,
                    "training_kernels": train_k, "training": train,

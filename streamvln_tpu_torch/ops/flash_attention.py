@@ -2,15 +2,15 @@
 training path's K3 (forward with logsumexp), K4 (dQ) and K5 (dK/dV).
 
 K2 replaces `streamvln_tpu/ops/flash_attention.py::_flash_kernel`. The
-CUDA kernel (`csrc/flash_attention.cu` over `csrc/attention_tile.cuh`)
-runs one block per (batch, q head, 64-row q tile), reads the
+CUDA kernel (`csrc/flash_attention.cu` over `csrc/attention_fwd.cuh`)
+runs one block per (batch, q head, 128-row q tile), reads the
 KV-head-major cache in place (`kv_major=True`) or the [B, Sk, Hkv, D]
 layout, and skips key tiles whose smallest position exceeds the block's
 largest query position, so a prefill over a 4096-slot cache costs only
-the live prefix. At prefill shapes the tensor cores bound it; the simple
-kernel feeds them bf16 operands through mma.sync with f32 accumulation
-(the TPU kernel upcasts to f32), which puts its error at bf16 rounding
-of P.
+the live prefix. At prefill shapes the tensor cores bound it; the
+kernel feeds them bf16 operands through wgmma from TMA-loaded tiles,
+with f32 accumulation (the TPU kernel upcasts to f32), which puts its
+error at bf16 rounding of P.
 
 K3, K4 and K5 replace `_flash_kernel_lse`, `_flash_bwd_dq_kernel` and
 `_flash_bwd_dkv_kernel` (with the TPU wrapper's sum of the G query heads

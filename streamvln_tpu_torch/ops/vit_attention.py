@@ -1,16 +1,17 @@
 """K1: whole-sequence bidirectional attention for the vision tower.
 
 Replaces `streamvln_tpu/ops/vit_attention.py::_kernel`. The CUDA kernel
-(`csrc/vit_attention.cu` over `csrc/attention_tile.cuh`) streams 64-key
+(`csrc/vit_attention.cu` over `csrc/attention_fwd.cuh`) streams key
 tiles through shared memory with an online softmax: the TPU kernel's
 trick of holding a (batch, head)'s whole 729 x 729 score matrix on chip
 does not fit a Hopper block's 227 KB. At SigLIP shapes the work is
-~360 FLOP per byte of q/k/v/o, so the tensor cores bound it; the simple
-kernel issues mma.sync on bf16 operands with f32 accumulation.
+~360 FLOP per byte of q/k/v/o, so the tensor cores bound it; the kernel
+feeds them with wgmma (bf16 operands, f32 accumulation) from tiles that
+a producer warp loads with TMA behind an mbarrier pipeline.
 
 `vit_attention` is the wrapper: on CPU tensors it runs `vit_attention_plain`;
 on CUDA tensors it launches the kernel or raises. `launches` counts kernel
-launches. It is differentiable (`_VitAttentionFn`): the backward is the
+launches, `launches_by_batch` the same launches by batch size. It is differentiable (`_VitAttentionFn`): the backward is the
 dense torch-math recompute of the JAX package's custom VJP
 (`streamvln_tpu/ops/vit_attention.py:95-103`), which has no Pallas
 backward either, so there is no backward kernel to port.
@@ -24,6 +25,7 @@ import torch
 from streamvln_tpu_torch.kernels import build
 
 launches = 0
+launches_by_batch: dict = {}       # batch size -> kernel launches
 KERNEL_HEAD_DIMS = (64, 72)        # CLIP, SigLIP
 
 
@@ -96,6 +98,7 @@ def _forward(q, k, v, scale: float) -> torch.Tensor:
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "vit_attention")
     launches += 1
+    launches_by_batch[B] = launches_by_batch.get(B, 0) + 1
     return out
 
 

@@ -40,15 +40,22 @@ def _rand(rng, shape, dev):
         .to(dev, torch.bfloat16)
 
 
-@pytest.mark.parametrize("B,S,H,D", [(1, 729, 16, 72), (2, 50, 4, 64),
-                                     (1, 16, 2, 72)])
+# the query tiles' ragged edges (64- and 128-row tiles), the serving
+# batches (1 and 9 frames) and the training tower batch (2 windows x 16
+# frames), at both kernel head dims
+@pytest.mark.parametrize("B,S,H,D", [
+    (1, 729, 16, 72), (2, 50, 4, 64), (1, 16, 2, 72),
+    (1, 65, 4, 64), (1, 65, 4, 72), (1, 129, 4, 64), (1, 129, 4, 72),
+    (1, 191, 4, 64), (1, 191, 4, 72), (1, 729, 16, 64),
+    (9, 729, 16, 72), (9, 191, 16, 64), (32, 729, 16, 72)])
 def test_vit_kernel_matches_plain(dev, B, S, H, D):
     rng = np.random.default_rng(0)
     q, k, v = (_rand(rng, (B, S, H, D), dev) for _ in range(3))
-    n0 = va.launches
+    n0, nb0 = va.launches, va.launches_by_batch.get(B, 0)
     out = va.vit_attention(q, k, v)
     torch.cuda.synchronize()
     assert va.launches == n0 + 1
+    assert va.launches_by_batch[B] == nb0 + 1
     _assert_close(out, va.vit_attention_plain(q, k, v),
                   va.vit_attention_plain(q, k, v.abs()))
 
@@ -76,6 +83,42 @@ def test_flash_kernel_matches_plain(dev, Sq, cap, off, kv_major, soft_cap):
     ref = fa.flash_attention_plain(q, k, v, q_pos, k_pos, kv_major=kv_major,
                                    logits_soft_cap=soft_cap)
     assert torch.all(out[1, 3] == 0)
+    _assert_close(out, ref, fa.flash_attention_plain(
+        q, k, v.abs(), q_pos, k_pos, kv_major=kv_major,
+        logits_soft_cap=soft_cap))
+
+
+@pytest.mark.parametrize("off", [0, 300])
+@pytest.mark.parametrize("kv_major,soft_cap,fused_q", [
+    (True, None, True), (False, None, True), (True, 30.0, False),
+    (False, 50.0, True)])
+def test_flash_kernel_tiling_edges(dev, off, kv_major, soft_cap, fused_q):
+    """Qwen2's GQA (28/4 heads) at Sq=700 (a ragged last query tile):
+    key tiles wholly below the diagonal (no per-element mask), straddling
+    it, holding the padded tail (INVALID_POS) and wholly above it
+    (skipped); q sliced out of a fused qkv projection (row stride
+    (Hq + 2 Hkv) D); a row that sees no key."""
+    rng = np.random.default_rng(11)
+    B, Sq, Hq, Hkv, D, cap = 1, 700, 28, 4, 128, 1500
+    if fused_q:
+        q = _rand(rng, (B, Sq, Hq + 2 * Hkv, D), dev)[:, :, :Hq]
+        assert q.stride(1) == (Hq + 2 * Hkv) * D
+    else:
+        q = _rand(rng, (B, Sq, Hq, D), dev)
+    kshape = (B, Hkv, cap, D) if kv_major else (B, cap, Hkv, D)
+    k, v = _rand(rng, kshape, dev), _rand(rng, kshape, dev)
+    q_pos = (off + torch.arange(Sq, device=dev, dtype=torch.int32))[None]
+    q_pos[0, 5] = -1                      # a row that sees no key
+    k_pos = torch.arange(cap, device=dev, dtype=torch.int32)[None]
+    k_pos[:, off + Sq + 40:] = fa.INVALID_POS
+    n0 = fa.launches
+    out = fa.flash_attention(q, k, v, q_pos, k_pos, kv_major=kv_major,
+                             logits_soft_cap=soft_cap)
+    torch.cuda.synchronize()
+    assert fa.launches == n0 + 1
+    ref = fa.flash_attention_plain(q, k, v, q_pos, k_pos, kv_major=kv_major,
+                                   logits_soft_cap=soft_cap)
+    assert torch.all(out[0, 5] == 0)
     _assert_close(out, ref, fa.flash_attention_plain(
         q, k, v.abs(), q_pos, k_pos, kv_major=kv_major,
         logits_soft_cap=soft_cap))
