@@ -6,9 +6,11 @@ Phases (any failure exits non-zero before the result line):
   1. check for a card, build every CUDA kernel from `streamvln_tpu_torch/
      csrc` (one nvcc per source, all at once), print the build seconds,
      each kernel's registers, shared memory and spill (ptxas), the counts
-     of wgmma (HGMMA) and TMA load (UTMALDG) instructions in the SASS of
-     the K1 and K2/K3 libraries (both must be there), and the card's name
-     and power limit;
+     of tensor-core (HGMMA wgmma, HMMA mma.sync) and asynchronous copy
+     (UTMALDG TMA, UBLKCP bulk, LDGSTS) instructions in the SASS of every
+     library: the K1 and K2/K3 libraries must hold HGMMA and UTMALDG, the
+     K6/K7 and the K8 libraries a tensor-core op and an asynchronous copy;
+     and the card's name and power limit;
   2. hold each serving kernel against its plain PyTorch version at the
      main path's shapes (max abs error vs tolerance), and time the kernel,
      the plain version and, as a yardstick only, one PyTorch library call
@@ -20,7 +22,9 @@ Phases (any failure exits non-zero before the result line):
      gate/up at 128 rows, K7 (int4 unpack) for gate/up and down, K8
      (decode attention) at four live lengths of a 4096-slot cache; K6, K7
      and K8 timed over enough operand copies to miss the L2 cache, as the
-     decode path does;
+     decode path does, with their host cost per call; every K6 and K8
+     shape also checks that a second call is bit-equal to the first and
+     that a call launches one kernel;
   3. drive the main path at full width: streamvln_7b (SigLIP-so400m +
      Qwen2-7B) with random bf16 weights made on the card (q/k/v and
      gate/up fused, as the engine does), a ByteTokenizer and a 4096-slot
@@ -151,16 +155,44 @@ def ptxas_summary(log_text: str) -> str:
     return "; ".join(out) or "no ptxas output (library was already built)"
 
 
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP", "LDGSTS")
+
+
 def sass_counts(path: str) -> dict:
-    """Counts of wgmma (HGMMA) and TMA load (UTMALDG) instructions in the
-    SASS of a built library (cuobjdump -sass)."""
+    """Counts of tensor-core (HGMMA wgmma, HMMA mma.sync) and asynchronous
+    copy (UTMALDG TMA, UBLKCP bulk copy, LDGSTS cp.async) instructions in
+    the SASS of a built library (cuobjdump -sass)."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "-sass", path], capture_output=True,
                          text=True, timeout=300)
     if out.returncode != 0:
         raise RuntimeError(f"cuobjdump failed on {path}: {out.stderr}")
-    return {op: out.stdout.count(op) for op in ("HGMMA", "UTMALDG")}
+    import re
+    return {op: len(re.findall(rf"\b{op}\b", out.stdout)) for op in SASS_OPS}
+
+
+def sass_ok(name: str, c: dict) -> bool:
+    """What each library's design relies on: wgmma and TMA in the
+    attention forward (K1, K2/K3); a tensor-core op and an asynchronous
+    copy in K6 (int4_matmul, with K7) and in K8 (decode_attention)."""
+    mma = c["HGMMA"] or c["HMMA"]
+    copy = c["UTMALDG"] or c["UBLKCP"] or c["LDGSTS"]
+    if name in ("vit_attention", "flash_attention"):
+        return bool(c["HGMMA"] and c["UTMALDG"])
+    return bool(mma and copy)
+
+
+def kernels_per_call(torch, fn) -> int:
+    """CUDA kernels one call of `fn` launches (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == DeviceType.CUDA for e in prof.events())
 
 
 def host_us(torch, fn, calls=200) -> float:
@@ -368,7 +400,8 @@ def check_int4(torch, i4, quant):
     gate/up, o, down, lm_head) and gate/up at M=128, and K7 for gate/up and
     down, against their plain versions. K6: f32 out on both sides from the
     same bf16-rounded weights, so only the f32 summation order differs:
-    |err| <= 1e-5 * sum_k |x_k w_k| + 1e-6 elementwise. K7: bit-equal."""
+    |err| <= 1e-5 * sum_k |x_k w_k| + 1e-6 elementwise; a second call
+    bit-equal; one kernel per call. K7: bit-equal."""
     weights, recs, dq = {}, [], []
     for i, (name, din, dout, M) in enumerate(INT4_SHAPES):
         if (din, dout) not in weights:
@@ -379,7 +412,10 @@ def check_int4(torch, i4, quant):
         x = torch.randn((M, din), generator=g, device="cuda") \
             .to(torch.bfloat16)
         out = i4.int4_matmul(x, wp, s, 0)
+        again = i4.int4_matmul(x, wp, s, 0)
         torch.cuda.synchronize()
+        bit_equal = torch.equal(out, again)
+        del again
         ref = i4.int4_matmul_plain(x, wp, s, 0)
         lo, hi = i4._scaled_halves(wp[0], s[0], torch.bfloat16)
         term = x[:, 0::2].float().abs() @ lo.float().abs() \
@@ -394,6 +430,8 @@ def check_int4(torch, i4, quant):
         kfns = [(lambda a=a, b=b: i4.int4_matmul(x, a, b, 0))
                 for a, b, _ in ops]
         ms, event_ms = device_ms(torch, kfns), time_cold_ms(torch, kfns)
+        h_us, per_call = host_us(torch, kfns[0]), kernels_per_call(
+            torch, kfns[0])
         plain = time_ms(torch, lambda: i4.int4_matmul_plain(x, wp, s, 0),
                         iters=3, warmup=1)
         xs = i4._split_cols(x)
@@ -414,26 +452,30 @@ def check_int4(torch, i4, quant):
         b_ms, b_by = bound(2.0 * M * din * dout, nbytes)
         rec = {"shape": f"{name} M={M} din={din} dout={dout} bf16 x, int4 "
                         f"group 64", "max_abs_err": err.max().item(),
-               "tol_share": share, "ms": ms, "event_ms": event_ms,
-               "plain_ms": plain,
+               "tol_share": share, "bit_equal": bit_equal, "ms": ms,
+               "event_ms": event_ms, "host_us": h_us,
+               "kernels_per_call": per_call, "plain_ms": plain,
                "library_ms": pack_ms if pack_ms is not None else mm_ms,
                "library": "torch._weight_int4pack_mm" if pack_ms is not None
                else "torch.mm on the bf16-dequantized weight",
                "int4pack_ms": pack_ms, "int4pack_max_rel_err": pack_err,
                "int4pack_note": pack_note, "mm_bf16_ms": mm_ms,
                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-               "splits": i4._splits(M, half, dout), "rotation": n}
+               "rotation": n}
         log(f"K6 int4_matmul {rec['shape']}: max_abs_err "
             f"{rec['max_abs_err']:.3e} ({share:.3f} of 1e-5*sum|xw| + 1e-6) "
-            f"kernel {ms:.4f} ms device ({event_ms:.4f} ms event-timed) "
-            f"plain {plain:.4f} ms int4pack {pack_ms} ms "
+            f"bit-equal {bit_equal}, {per_call} kernel(s) per call; kernel "
+            f"{ms:.4f} ms device ({event_ms:.4f} ms event-timed, {h_us:.1f} "
+            f"us host per call) plain {plain:.4f} ms int4pack {pack_ms} ms "
             f"(max rel err {pack_err}) mm bf16 {mm_ms:.4f} ms bound "
-            f"{b_ms:.4f} ms ({b_by}); {rec['splits']} splits, {n} copies")
+            f"{b_ms:.4f} ms ({b_by}); {n} copies")
         if pack_note:
             log(f"  {pack_note}")
         recs.append(rec)
-        if not share <= 1.0:
-            raise AssertionError(f"int4_matmul disagrees at {rec['shape']}")
+        if not (share <= 1.0 and bit_equal and per_call == 1):
+            raise AssertionError(f"int4_matmul disagrees, is not "
+                                 f"deterministic or takes more than one "
+                                 f"launch at {rec['shape']}")
         del ops, wb, xs, out, ref, err
         if M == 1 and name in ("gu", "down"):
             dq.append(check_dequant(torch, i4, name, wp, s))
@@ -479,8 +521,8 @@ def check_decode(torch, F, da, lengths=(300, 1900, 4096, 2049), L=28,
     """K8 against its plain version run in f32 on the same (upcast) inputs,
     at a 28-layer bf16 cache's shapes: |err| <= 2^-8 |ref| + 1e-5 (the
     kernel's one bf16 output rounding, half an ulp, plus f32 summation
-    order). Timed over the 28 layers in turn, beside SDPA on the live
-    prefix (enable_gqa)."""
+    order); a second call bit-equal; one kernel per call. Timed over the
+    28 layers in turn, beside SDPA on the live prefix (enable_gqa)."""
     B, Hq, Hkv, D = 1, 28, 4, 128
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((L, B, 1, Hq, D), generator=g, device="cuda") \
@@ -491,7 +533,9 @@ def check_decode(torch, F, da, lengths=(300, 1900, 4096, 2049), L=28,
     for n in lengths:
         lens = torch.full((B,), n, dtype=torch.int32, device="cuda")
         out = da.decode_attention(q[0], k[0], v[0], lens)
+        again = da.decode_attention(q[0], k[0], v[0], lens)
         torch.cuda.synchronize()
+        bit_equal = torch.equal(out, again)
         ref = da.decode_attention_plain(q[0].float(), k[0].float(),
                                         v[0].float(), lens)
         err = (out.float() - ref).abs()
@@ -500,6 +544,8 @@ def check_decode(torch, F, da, lengths=(300, 1900, 4096, 2049), L=28,
                 for i in range(L)]
         ms, event_ms = device_ms(torch, kfns, 2 * L), \
             time_cold_ms(torch, kfns, iters=2 * L)
+        h_us, per_call = host_us(torch, kfns[0]), kernels_per_call(
+            torch, kfns[0])
         plain = time_ms(torch, lambda: da.decode_attention_plain(
             q[0], k[0], v[0], lens), iters=3, warmup=1)
         qt = [q[i].transpose(1, 2) for i in range(L)]
@@ -511,17 +557,23 @@ def check_decode(torch, F, da, lengths=(300, 1900, 4096, 2049), L=28,
         b_ms, b_by = bound(4.0 * B * Hq * n * D, nbytes)
         rec = {"shape": f"B={B} Hq={Hq} Hkv={Hkv} D={D} length={n} "
                         f"cache={cap} bf16", "max_abs_err": err.max().item(),
-               "tol_share": share, "ms": ms, "event_ms": event_ms,
+               "tol_share": share, "bit_equal": bit_equal, "ms": ms,
+               "event_ms": event_ms, "host_us": h_us,
+               "kernels_per_call": per_call,
                "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
                "bound_by": b_by, "bytes": nbytes}
         log(f"K8 decode_attention {rec['shape']}: max_abs_err "
             f"{rec['max_abs_err']:.3e} ({share:.3f} of 2^-8|ref| + 1e-5) "
-            f"kernel {ms:.4f} ms device ({event_ms:.4f} ms event-timed) "
+            f"bit-equal {bit_equal}, {per_call} kernel(s) per call; kernel "
+            f"{ms:.4f} ms device ({event_ms:.4f} ms event-timed, {h_us:.1f} "
+            f"us host per call) "
             f"plain {plain:.4f} ms sdpa {lib:.4f} ms bound {b_ms:.4f} ms "
             f"({b_by})")
         recs.append(rec)
-        if not share <= 1.0:
-            raise AssertionError(f"decode_attention disagrees at length {n}")
+        if not (share <= 1.0 and bit_equal and per_call == 1):
+            raise AssertionError(f"decode_attention disagrees, is not "
+                                 f"deterministic or takes more than one "
+                                 f"launch at length {n}")
     del q, k, v
     torch.cuda.empty_cache()
     return recs
@@ -907,7 +959,8 @@ def profile_call(torch, fn, unprofiled_ms) -> dict:
            "device_idle_share_profiled_wall": 1.0 - busy / wall,
            "kernel_launches": len(spans),
            "top": [{"name": n[:120], "ms": t, "count": c}
-                   for n, (t, c) in top]}
+                   for n, (t, c) in top],
+           "kernel_names": sorted(n[:120] for n in by_name)}
     log(f"profile: device busy {busy:.2f} ms; idle share "
         f"{rec['device_idle_share']:.3f} of the unprofiled median wall "
         f"{unprofiled_ms:.2f} ms ({rec['device_idle_share_profiled_wall']:.3f}"
@@ -1268,10 +1321,14 @@ def main() -> int:
     for name in build.KERNELS:
         log(f"  {name}: {ptxas_summary(build.build_logs.get(name, ''))}")
     sass = {n: sass_counts(libs[n]) for n in ("vit_attention",
-                                               "flash_attention")}
-    log(f"  SASS instruction counts (wgmma HGMMA, TMA load UTMALDG): {sass}")
-    if not all(c["HGMMA"] and c["UTMALDG"] for c in sass.values()):
-        raise AssertionError("the attention libraries lack wgmma or TMA")
+                                               "flash_attention",
+                                               "int4_matmul",
+                                               "decode_attention")}
+    log(f"  SASS instruction counts (wgmma HGMMA, mma.sync HMMA, TMA load "
+        f"UTMALDG, bulk copy UBLKCP, cp.async LDGSTS): {sass}")
+    if not all(sass_ok(n, c) for n, c in sass.items()):
+        raise AssertionError("a library lacks the instructions its design "
+                             "relies on")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
@@ -1345,6 +1402,12 @@ def main() -> int:
     # 3c. int4 weight-only serving of the same weights
     int4, engine4 = serve_int4(torch, np, params, cfg, tok, frames,
                                instruction, serving_counts, reset_counts)
+    # K6 and K8 merge their splits inside their one launch
+    second_pass = [n for n in int4["profile"]["kernel_names"]
+                   if "sum_splits" in n or "decode_combine" in n]
+    if second_pass:
+        raise AssertionError(f"second-pass kernels in the profiled int4 "
+                             f"call: {second_pass}")
     # 3d. the three serving variants in turns
     paired = paired_timing(torch, np, {
         "bf16": engine, "bf16_decode_kernel": engine_dk,

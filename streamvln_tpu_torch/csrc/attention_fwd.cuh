@@ -50,6 +50,7 @@
 
 #include "attention_plan.cuh"
 #include "attention_tile.cuh"
+#include "pipeline.cuh"   // smem_u32, the mbarrier wrappers, ex2
 
 namespace svt {
 // Internal linkage: the K1 and K2/K3 libraries both instantiate this code,
@@ -89,43 +90,6 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 // ---- PTX wrappers --------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile(
-      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n"
-      ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "{\n.reg .b64 st;\n"
-      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n"
-      ::"r"(bar), "r"(bytes) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed. A wait that never
-// ends (a fault in the pipeline) traps after ~2^24 tries, so the launch
-// fails with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t tries = 0; !done; ++tries) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (tries == (1u << 24)) __trap();
-  }
-}
-
 __device__ __forceinline__ void tma_load_4d(uint32_t dst,
                                             const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1,
@@ -135,12 +99,6 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3) : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 template <int N>
@@ -466,7 +424,7 @@ attention_fwd_kernel(__grid_constant__ const FwdMaps maps, const FwdArgs a) {
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, kConsumers * 4);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 

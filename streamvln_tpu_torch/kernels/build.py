@@ -41,13 +41,13 @@ ARGTYPES = {
     "svt_flash_bwd_dq": [_P] * 10 + [_I] * 6 + [_F, _P],
     # q, k, v, dO, lse, dsum, dK, dV | q_pos, k_pos, 21 strides
     "svt_flash_bwd_dkv": [_P] * 11 + [_I] * 6 + [_F, _P],
-    # x, w, scales, out, part | M, din, dout, splits, is_bf16
-    "svt_int4_matmul": [_P] * 5 + [_I] * 5 + [_P],
+    # x, w, scales, out | M, din, dout, is_bf16
+    "svt_int4_matmul": [_P] * 4 + [_I] * 4 + [_P],
     # w, scales, out | half, dout, is_bf16
     "svt_int4_dequant_split": [_P] * 3 + [_I] * 3 + [_P],
-    # q, k, v, lengths, out, part_m, part_l, part_acc, 8 strides (an
-    # array) | B, Hq, Hkv, Smax, D, scale, is_bf16
-    "svt_decode_attention": [_P] * 9 + [_I] * 5 + [_F, _I, _P],
+    # q, k, v, lengths, out, 8 strides (an array) | B, Hq, Hkv, Smax, D,
+    # scale, is_bf16
+    "svt_decode_attention": [_P] * 6 + [_I] * 5 + [_F, _I, _P],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

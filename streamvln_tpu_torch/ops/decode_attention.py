@@ -2,7 +2,11 @@
 
 Replaces `streamvln_tpu/ops/decode_attention.py::_decode_kernel` with
 `csrc/decode_attention.cu::svt_decode_attention` (its notes give the
-bound on the H100 and the design). q [B, 1, Hq, D] attends over keys
+bound on the H100 and the design: a cluster of blocks per (row, KV head)
+splits the live prefix, read on the device, streams K and V through a
+ring of asynchronous copies, computes on the tensor cores for bf16 and merges its
+splits in a fixed order inside the one launch; `csrc/kernel_plan.cuh`
+sizes the grid and the shares). q [B, 1, Hq, D] attends over keys
 0..length[b]-1 of k/v [B, Hkv, Smax, D], GQA kv head = q head // G, f32
 math, output in q's dtype; a row of length 0 gives zeros. Keys are
 masked by index (< length), not by position: the two agree because the
@@ -25,7 +29,6 @@ from streamvln_tpu_torch.kernels import build
 NEG_INF = -1e30
 HEAD_DIM = 128        # the kernel's head dim
 MAX_GROUP = 16        # query heads per KV head the kernel takes
-SPLIT = 128           # keys of the capacity per kernel block
 
 launches = 0
 
@@ -96,19 +99,14 @@ def decode_attention(q, k, v, lengths,
     if scale is None:
         scale = D ** -0.5
     lengths = lengths.to(torch.int32).contiguous()
-    ns = -(-Smax // SPLIT)
     dev = q.device
     out = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=dev)
-    part_m = torch.empty((B, Hq, ns), dtype=torch.float32, device=dev)
-    part_l = torch.empty((B, Hq, ns), dtype=torch.float32, device=dev)
-    part_acc = torch.empty((B, Hq, ns, D), dtype=torch.float32, device=dev)
     strides = (ctypes.c_longlong * 8)(
         q.stride(0), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2))
     rc = build.load("decode_attention").svt_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-        part_acc.data_ptr(), strides, B, Hq, Hkv, Smax, D, float(scale),
+        out.data_ptr(), strides, B, Hq, Hkv, Smax, D, float(scale),
         int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "decode_attention")

@@ -4,18 +4,23 @@
 K6 replaces `streamvln_tpu/ops/int4_matmul.py::_kernel` and K7 its
 `_dequant_kernel`; both live in `csrc/int4_matmul.cu`
 (`svt_int4_matmul`, `svt_int4_dequant_split`), whose notes give the bound
-on the H100 and the design. Layout (models/quant.py): packed uint8
-[L, din/2, dout], byte r = w[2r] (low nibble) | w[2r+1] (high nibble),
-signed in [-7, 7]; f32 scales [L, din/64, dout]. A product is taken as
-`x[:, 0::2] @ lo + x[:, 1::2] @ hi` (the same sum reordered), where each
-weight is `nibble * scale` computed in f32 and rounded once to x's dtype,
-with f32 accumulation and an f32 [M, dout] result, as the TPU kernel does.
+on the H100 and the design: K6 streams the packed weights through a ring
+of asynchronous copies, multiplies on the tensor cores (bf16 x; f32 x takes a
+CUDA-core kernel) and merges the splits of its contraction inside one
+launch, in a fixed order; its grid comes from `csrc/kernel_plan.cuh`.
+Layout (models/quant.py): packed uint8 [L, din/2, dout], byte r = w[2r]
+(low nibble) | w[2r+1] (high nibble), signed in [-7, 7]; f32 scales
+[L, din/64, dout]. A product is taken as `x[:, 0::2] @ lo + x[:, 1::2] @
+hi` (the same sum reordered), where each weight is `nibble * scale`
+computed in f32 and rounded once to x's dtype, with f32 accumulation and
+an f32 [M, dout] result, as the TPU kernel does.
 
 Dispatch, as in the JAX package (`models/qwen2.py::_proj`): at most
 KERNEL_MAX_ROWS rows go to K6 (`int4_matmul`); more go to
 `int4_prefill_matmul`, i.e. K7 plus one f32-accumulating product against
 the column-split x (`_split_cols`). KERNEL_MAX_ROWS is the TPU's value,
-kept until it is re-derived on the H100.
+kept until it is re-derived on the H100; K6 takes at most that many bf16
+rows.
 
 Forward only: a call that needs a gradient raises (the JAX custom VJPs
 come with QLoRA, a later slice of the port). Each wrapper runs its plain
@@ -31,10 +36,8 @@ from streamvln_tpu_torch.ops.linear import matmul_f32
 
 GROUP = 64            # unpacked rows per scale group (quant.INT4_GROUP)
 SUB = 256             # packed rows per TPU sub-chunk: din % 512 == 0
-BLOCK_N = 512         # output columns per block (one warp of 16-byte loads)
+BLOCK_N = 512         # dout multiple (the TPU kernel's column block)
 KERNEL_MAX_ROWS = 128
-_WARPS = 8            # warps per K6 block (svt_int4_matmul)
-_TARGET_BLOCKS = 264  # two K6 blocks per SM of the H100's 132
 
 launches = 0
 dequant_launches = 0
@@ -121,15 +124,6 @@ def _check(what, w_packed, scales, layer, x=None, dtype=None):
             raise ValueError(f"{what}: tensors on different devices")
 
 
-def _splits(M: int, half: int, dout: int) -> int:
-    """K6's split of the contraction over blocks: enough blocks to fill
-    the card, at least one 32-row scale group per warp of a block."""
-    mt = 1 if M == 1 else 4
-    tiles = (dout // BLOCK_N) * -(-M // mt)
-    want = -(-_TARGET_BLOCKS // tiles)
-    return max(1, min(want, (half // (GROUP // 2)) // _WARPS))
-
-
 def int4_matmul(x, w_packed, scales, layer: int) -> torch.Tensor:
     """K6: x [M, din] @ dequant(w_packed[layer]) -> f32 [M, dout]."""
     global launches
@@ -142,15 +136,19 @@ def int4_matmul(x, w_packed, scales, layer: int) -> torch.Tensor:
     if din != 2 * half:
         raise ValueError(f"int4_matmul: x {tuple(x.shape)} does not match "
                          f"weight {tuple(w_packed.shape)}")
+    if x.dtype == torch.bfloat16 and M > KERNEL_MAX_ROWS:
+        raise ValueError(f"int4_matmul kernel takes at most "
+                         f"{KERNEL_MAX_ROWS} bf16 rows, got {M} (more go "
+                         f"to int4_prefill_matmul)")
     x = x.contiguous()
-    ks = _splits(M, half, dout)
+    w, s = w_packed[layer], scales[layer]
+    if any(t.data_ptr() % 16 for t in (x, w, s)):
+        raise ValueError("int4_matmul: x, weight and scales must be 16-byte "
+                         "aligned (the kernel copies 16-byte chunks)")
     out = torch.empty((M, dout), dtype=torch.float32, device=x.device)
-    part = torch.empty((ks, M, dout), dtype=torch.float32,
-                       device=x.device) if ks > 1 else None
     rc = build.load("int4_matmul").svt_int4_matmul(
-        x.data_ptr(), w_packed[layer].data_ptr(), scales[layer].data_ptr(),
-        out.data_ptr(), part.data_ptr() if part is not None else None,
-        M, din, dout, ks, int(x.dtype == torch.bfloat16),
+        x.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(), M, din,
+        dout, int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "int4_matmul")
     launches += 1

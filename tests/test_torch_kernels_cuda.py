@@ -388,10 +388,19 @@ def _int4_weight(din, dout, dev, seed, L=2):
     return quant.quantize_weight_int4(w)
 
 
+# K6 at the main path's o (3584->3584) and down (18944->3584) decode
+# shapes, both n-tile variants of the bf16 kernel (rows 1-8 and 9-128,
+# ragged), one cluster and none (splits), and the f32 kernel; every case
+# also checks that a second call is bit-equal (the splits merge in a fixed
+# order)
 @pytest.mark.parametrize("M,din,dout,dtype", [
     (1, 1024, 1536, torch.bfloat16), (5, 512, 2048, torch.bfloat16),
     (128, 1024, 512, torch.bfloat16), (3, 512, 512, torch.float32),
-    (1, 3584, 4608, torch.bfloat16)])
+    (1, 3584, 4608, torch.bfloat16), (1, 3584, 3584, torch.bfloat16),
+    (1, 18944, 3584, torch.bfloat16), (2, 3584, 3584, torch.bfloat16),
+    (8, 3584, 3584, torch.bfloat16), (20, 1024, 1536, torch.bfloat16),
+    (40, 512, 37888, torch.bfloat16), (128, 3584, 3584, torch.bfloat16),
+    (1, 1024, 1536, torch.float32), (11, 512, 1024, torch.float32)])
 def test_int4_kernels_match_plain(dev, M, din, dout, dtype):
     from streamvln_tpu_torch.ops import int4_matmul as i4
     wp, s = _int4_weight(din, dout, dev, M)
@@ -399,7 +408,9 @@ def test_int4_kernels_match_plain(dev, M, din, dout, dtype):
     n6, n7 = i4.launches, i4.dequant_launches
     for layer in (0, 1):
         out = i4.int4_matmul(x, wp, s, layer)
+        again = i4.int4_matmul(x, wp, s, layer)
         torch.cuda.synchronize()
+        assert torch.equal(out, again)
         ref = i4.int4_matmul_plain(x, wp, s, layer)
         lo, hi = i4._scaled_halves(wp[layer], s[layer], dtype)
         term = x[:, 0::2].float().abs() @ lo.float().abs() \
@@ -410,7 +421,7 @@ def test_int4_kernels_match_plain(dev, M, din, dout, dtype):
         torch.cuda.synchronize()
         assert torch.equal(split, i4.int4_dequant_split_plain(wp, s, layer,
                                                               dtype))
-    assert (i4.launches - n6, i4.dequant_launches - n7) == (2, 2)
+    assert (i4.launches - n6, i4.dequant_launches - n7) == (4, 2)
 
 
 def test_int4_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -426,14 +437,27 @@ def test_int4_wrappers_refuse_what_the_kernels_do_not_take(dev):
         i4.int4_matmul(x.float().requires_grad_(), wp, s, 0)
 
 
-@pytest.mark.parametrize("Hq,Hkv,dtype", [(28, 4, torch.bfloat16),
-                                          (8, 8, torch.float32),
-                                          (16, 1, torch.bfloat16)])
-def test_decode_kernel_matches_plain(dev, Hq, Hkv, dtype):
+_LENGTHS = (0, 1, 31, 129, 511, 513, 1024, 2000)
+
+
+# K8 at ragged lengths of a small cache (16-key chunks, 64-key tiles,
+# shares, a row of length 0, a length past the capacity), and at B = 1 of
+# the main path's 4096-slot cache with 300, 4095 and 4096 live keys and a
+# batch whose length-0 row sits beside full rows; every case also checks
+# that a second call is bit-equal
+@pytest.mark.parametrize("Hq,Hkv,dtype,lengths,cap", [
+    (28, 4, torch.bfloat16, _LENGTHS, 1024),
+    (8, 8, torch.float32, _LENGTHS, 1024),
+    (16, 1, torch.bfloat16, _LENGTHS, 1024),
+    (28, 4, torch.bfloat16, (300,), 4096),
+    (28, 4, torch.bfloat16, (4095,), 4096),
+    (28, 4, torch.bfloat16, (4096,), 4096),
+    (28, 4, torch.bfloat16, (4096, 0, 4096), 4096),
+    (28, 4, torch.float32, (4096, 0, 300), 4096)])
+def test_decode_kernel_matches_plain(dev, Hq, Hkv, dtype, lengths, cap):
     from streamvln_tpu_torch.ops import decode_attention as da
-    lengths = torch.tensor([0, 1, 31, 129, 511, 513, 1024, 2000],
-                           dtype=torch.int32, device=dev)
-    B, cap, D = lengths.numel(), 1024, 128
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    B, D = lengths.numel(), 128
     rng = np.random.default_rng(8)
     q = torch.from_numpy(rng.standard_normal((B, 1, Hq, D))
                          .astype(np.float32)).to(dev, dtype)
@@ -442,10 +466,12 @@ def test_decode_kernel_matches_plain(dev, Hq, Hkv, dtype):
             for _ in range(2))
     n0 = da.launches
     out = da.decode_attention(q, k, v, lengths)
+    again = da.decode_attention(q, k, v, lengths)
     torch.cuda.synchronize()
-    assert da.launches == n0 + 1 and out.dtype == dtype
+    assert da.launches == n0 + 2 and out.dtype == dtype
+    assert torch.equal(out, again)
     ref = da.decode_attention_plain(q.float(), k.float(), v.float(), lengths)
-    assert torch.all(out[0] == 0)
+    assert torch.all(out[lengths == 0] == 0)
     err = (out.float() - ref).abs()
     assert bool((err <= 2.0 ** -8 * ref.abs() + 1e-5).all()), err.max()
 
