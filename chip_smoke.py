@@ -8,9 +8,11 @@ Phases (any failure exits non-zero before the result line):
      each kernel's registers, shared memory and spill (ptxas), the counts
      of tensor-core (HGMMA wgmma, HMMA mma.sync) and asynchronous copy
      (UTMALDG TMA, UBLKCP bulk, LDGSTS) instructions in the SASS of every
-     library: the K1 and K2/K3 libraries must hold HGMMA and UTMALDG, the
-     K6/K7 and the K8 libraries a tensor-core op and an asynchronous copy;
-     and the card's name and power limit;
+     library: the K1, K2/K3 and K4/K5 libraries must hold HGMMA and
+     UTMALDG, the K6/K7 and the K8 libraries a tensor-core op and an
+     asynchronous copy; the K4/K5 kernels must spill no register and keep
+     their wgmma unserialized (ptxas); and the card's name and power
+     limit;
   2. hold each serving kernel against its plain PyTorch version at the
      main path's shapes (max abs error vs tolerance), and time the kernel,
      the plain version and, as a yardstick only, one PyTorch library call
@@ -38,7 +40,8 @@ Phases (any failure exits non-zero before the result line):
      median unprofiled mid-window call, kernel launches and the top
      kernels by device time (in chiprun_out/chip_smoke.json);
      3b. two agent calls of an engine with attn_impl="decode_kernel" on
-     the same weights: K8 exactly 28 times per fed token, and a decode
+     the same weights: K8 exactly 28 times per fed token, no K1 (the
+     tower runs dense under that impl, as in the reference), and a decode
      step's logits through K8 against the dense path on the same cache;
      3c. int4 weight-only serving: the weights quantized on the card by
      quant.quantize_llm(bits=4), the engine's default fusion, the same 9
@@ -50,7 +53,8 @@ Phases (any failure exits non-zero before the result line):
      K5 (dK/dV) against their plain versions at the train step's shape
      (B=2, S=4096, 28/4 heads, D=128, bf16, 3,900 valid tokens, padded
      keys at INVALID_POS, one row that sees no key), each timed beside
-     its plain version and SDPA's forward / backward under autograd;
+     its plain version and SDPA's forward / backward under autograd; dQ,
+     dK and dV bit-equal over two calls;
      (b) LoRA SFT of streamvln_7b on the phase-3 weights (rank 16 on the
      seven default targets): 3 optimizer steps of 2 micro-batches of two
      VLN windows (8 <memory> + 8 current 480x640 frames each, bucket
@@ -172,15 +176,29 @@ def sass_counts(path: str) -> dict:
     return {op: len(re.findall(rf"\b{op}\b", out.stdout)) for op in SASS_OPS}
 
 
+WGMMA_TMA_LIBS = ("vit_attention", "flash_attention", "flash_attention_bwd")
+
+
 def sass_ok(name: str, c: dict) -> bool:
     """What each library's design relies on: wgmma and TMA in the
-    attention forward (K1, K2/K3); a tensor-core op and an asynchronous
-    copy in K6 (int4_matmul, with K7) and in K8 (decode_attention)."""
+    attention forward (K1, K2/K3) and backward (K4/K5); a tensor-core op
+    and an asynchronous copy in K6 (int4_matmul, with K7) and in K8
+    (decode_attention)."""
     mma = c["HGMMA"] or c["HMMA"]
     copy = c["UTMALDG"] or c["UBLKCP"] or c["LDGSTS"]
-    if name in ("vit_attention", "flash_attention"):
+    if name in WGMMA_TMA_LIBS:
         return bool(c["HGMMA"] and c["UTMALDG"])
     return bool(mma and copy)
+
+
+def registers_ok(log_text: str) -> bool:
+    """No register spill and no wgmma serialized for want of registers in
+    a library's kernels, from nvcc's -Xptxas -v output."""
+    import re
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores",
+                                         log_text)]
+    return bool(spills) and not any(spills) and \
+        "serialized due to insufficient register" not in log_text
 
 
 def kernels_per_call(torch, fn) -> int:
@@ -658,6 +676,11 @@ def check_training_kernels(torch, F, fa, B=2, S=4096, n_valid=3900,
     dq = fa.flash_bwd_dq(*args)
     dk, dv = fa.flash_bwd_dkv(*args)
     torch.cuda.synchronize()
+    # no atomics and a fixed order of sums: a second call is bit-equal
+    dk2, dv2 = fa.flash_bwd_dkv(*args)
+    bit_equal = torch.equal(fa.flash_bwd_dq(*args), dq) and \
+        torch.equal(dk2, dk) and torch.equal(dv2, dv)
+    del dk2, dv2
     t_dq, t_dk, t_dv = bwd_rounding_terms(torch, fa, *args)
     c_dq = grad_compare(dq, fa.flash_bwd_dq_plain(*args), t_dq)
     rdk, rdv = fa.flash_bwd_dkv_plain(*args)
@@ -736,12 +759,16 @@ def check_training_kernels(torch, F, fa, B=2, S=4096, n_valid=3900,
             f"{plain:.4f} ms sdpa {lib:.4f} ms bound {b_ms:.4f} ms ({b_by})")
     recs["flash_attention_lse"]["checks"] = {"out": c_out, "lse": c_lse}
     log(f"4a LSE: {json.dumps(c_lse)}; the row that sees no key gives "
-        f"out 0, LSE -1e30, dQ 0: {unseen_ok}")
+        f"out 0, LSE -1e30, dQ 0: {unseen_ok}; dQ, dK, dV bit-equal over "
+        f"two calls: {bit_equal}")
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        recs[name]["bit_equal"] = bit_equal
     shares = [c_out["tol_share"], c_lse["tol_share"], c_dq["tol_share"],
               c_dk["tol_share"], c_dv["tol_share"]]
-    if not (unseen_ok and all(x <= 1.0 for x in shares)):
+    if not (unseen_ok and bit_equal and all(x <= 1.0 for x in shares)):
         raise AssertionError(f"training kernels disagree: {shares} "
-                             f"unseen row ok {unseen_ok}")
+                             f"unseen row ok {unseen_ok}, bit-equal "
+                             f"{bit_equal}")
     return recs
 
 
@@ -1063,8 +1090,9 @@ def tree_bytes(tree) -> int:
 def serve_decode_kernel(torch, fused, cfg, tok, frames, instruction,
                         counts, reset):
     """Phase 3b: two agent calls of an engine under
-    attn_impl="decode_kernel" (K8 at every decode step, dense prefill) on
-    the phase-3 weights; K8 must run exactly 28 times per fed token. Then
+    attn_impl="decode_kernel" (K8 at every decode step, dense tower and
+    prefill) on the phase-3 weights; K8 must run exactly 28 times per fed
+    token and K1 never. Then
     one more decode step from that engine's cache, through K8 and through
     the dense path on identical copies of the cache: the logits must agree
     (cosine > 0.99)."""
@@ -1080,8 +1108,8 @@ def serve_decode_kernel(torch, fused, cfg, tok, frames, instruction,
     got = counts()
     fed = fed_tokens(calls)
     L = cfg.llm.num_layers
-    want = {"vit_attention": cfg.vision.num_layers * len(calls),
-            "flash_attention": 0, "int4_matmul": 0,
+    # the tower runs dense under decode_kernel (the reference's dispatch)
+    want = {"vit_attention": 0, "flash_attention": 0, "int4_matmul": 0,
             "int4_dequant_split": 0, "decode_attention": L * fed}
     log(f"3b launches under decode_kernel ({len(calls)} calls, {fed} fed "
         f"tokens): {got} (want {want})")
@@ -1320,15 +1348,17 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
     for name in build.KERNELS:
         log(f"  {name}: {ptxas_summary(build.build_logs.get(name, ''))}")
-    sass = {n: sass_counts(libs[n]) for n in ("vit_attention",
-                                               "flash_attention",
-                                               "int4_matmul",
-                                               "decode_attention")}
+    sass = {n: sass_counts(libs[n]) for n in build.KERNELS}
     log(f"  SASS instruction counts (wgmma HGMMA, mma.sync HMMA, TMA load "
         f"UTMALDG, bulk copy UBLKCP, cp.async LDGSTS): {sass}")
     if not all(sass_ok(n, c) for n, c in sass.items()):
         raise AssertionError("a library lacks the instructions its design "
                              "relies on")
+    # K4/K5 keep dK, dV (or dQ) and two score tiles in registers
+    bwd_log = build.build_logs.get("flash_attention_bwd")
+    if bwd_log is not None and not registers_ok(bwd_log):
+        raise AssertionError("the K4/K5 kernels spill registers or "
+                             "serialize their wgmma")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 

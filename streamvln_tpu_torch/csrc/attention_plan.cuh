@@ -1,7 +1,9 @@
-// Launch plan of the attention forward (attention_fwd.cuh): the order of
-// the work items (query tile, batch x head) and the size of the grid that
-// walks them. Plain C++ with no CUDA types, so the host compiler can build it
-// too (tests/test_torch_attention_plan.py).
+// Launch plans of the attention kernels: the order of the work items of
+// the forward (attention_fwd.cuh; query tile, batch x head) and of the
+// backward (flash_attention_bwd.cu; K4 takes the forward's, K5 key tile,
+// batch x KV head), and the size of the forward's grid. Plain C++ with no
+// CUDA types, so the host compiler can build it too
+// (tests/test_torch_attention_plan.py).
 #pragma once
 
 #ifdef __CUDACC__
@@ -13,7 +15,7 @@
 namespace svt {
 
 struct TileCoord {
-  int tile;   // query tile: rows from tile * (rows per block)
+  int tile;   // query (or key) tile: rows from tile * (rows per block)
   int hb;     // batch * heads + head
 };
 
@@ -34,6 +36,17 @@ SVT_HD TileCoord plan_tile(int item, int n_tiles, int heads_batch,
     c.tile = item % n_tiles;
     c.hb = item / n_tiles;
   }
+  return c;
+}
+
+// Work item `item` of the backward's dK/dV kernel (key tile, batch x KV
+// head), one block each. Under positions the first key tiles, which the
+// most queries see, come first, all heads and batches of one tile before
+// the next, so the short tiles fill the tail.
+SVT_HD TileCoord plan_key_tile(int item, int heads_batch) {
+  TileCoord c;
+  c.tile = item / heads_batch;
+  c.hb = item % heads_batch;
   return c;
 }
 

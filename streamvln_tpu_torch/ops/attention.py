@@ -11,7 +11,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
+from streamvln_tpu_torch.ops import flash_attention as fa
 from streamvln_tpu_torch.ops import vit_attention as va
 
 NEG_INF = -1e30  # large-but-finite; avoids NaN from (-inf) - (-inf) rows
@@ -69,16 +71,39 @@ def dense_attention_kvmajor(q, k, v, mask: Optional[torch.Tensor] = None,
 def mha_attention(q, k, v, mask: Optional[torch.Tensor] = None,
                   scale: Optional[float] = None, impl: str = "auto",
                   logits_soft_cap: Optional[float] = None) -> torch.Tensor:
-    """Encoder attention dispatch: 'dense' | 'vit' | 'auto'. 'auto' takes
-    the vit kernel (K1) for full attention over short sequences (the
-    reference's shape rule, by shape alone); on CPU tensors the wrapper
-    runs the plain version, on CUDA tensors it launches or raises."""
-    if impl != "dense" and mask is None and logits_soft_cap is None \
-            and q.shape[1] == k.shape[1] and q.shape[3] <= 128 \
-            and q.shape[2] == k.shape[2] and q.shape[1] <= 1024:
+    """Encoder attention dispatch, branch for branch the reference's
+    (`streamvln_tpu/ops/attention.py::mha_attention`):
+    - "dense": dense;
+    - "auto" or "vit" under the shape rule (no mask, no soft cap,
+      Sq == Sk, D <= 128, equal heads, S <= 1024): the vit kernel (K1).
+      The port's "auto" stands where the reference's "auto" on the TPU
+      stands, whatever the tensors' device;
+    - "flash" with no mask: the flash kernel (K2) with every position 0,
+      i.e. full attention, the head dim zero-padded to a kernel head dim
+      (exact, as the reference's wrapper pads it); shapes it does not take
+      raise NotImplementedError;
+    - anything else ("decode_kernel", "chunked", "flash" with a mask, ...):
+      dense.
+    On CPU tensors the wrappers run their plain versions, on CUDA tensors
+    they launch or raise."""
+    if impl == "dense":
+        return dense_attention(q, k, v, mask, scale, logits_soft_cap)
+    B, Sq, H, D = q.shape
+    if impl in ("auto", "vit") and mask is None and logits_soft_cap is None \
+            and Sq == k.shape[1] and D <= 128 and H == k.shape[2] \
+            and Sq <= 1024:
         return va.vit_attention(q, k, v, scale=scale)
-    if impl not in ("auto", "dense"):
-        raise NotImplementedError(
-            f"attention impl {impl!r} for q={tuple(q.shape)} "
-            f"k={tuple(k.shape)} is not in this slice of the port")
+    if impl == "flash" and mask is None:
+        if D != k.shape[3] or H % k.shape[2]:
+            raise NotImplementedError(
+                f"flash kernel does not support shapes q={tuple(q.shape)} "
+                f"k={tuple(k.shape)}")
+        dp = next((d for d in fa.KERNEL_HEAD_DIMS if d >= D), D)
+        qp, kp = (torch.zeros((B, x.shape[1]), dtype=torch.int32,
+                              device=q.device) for x in (q, k))
+        out = fa.flash_attention(
+            *(F.pad(x, (0, dp - D)) for x in (q, k, v)), qp, kp,
+            scale=D ** -0.5 if scale is None else scale,
+            logits_soft_cap=logits_soft_cap)
+        return out[..., :D]
     return dense_attention(q, k, v, mask, scale, logits_soft_cap)

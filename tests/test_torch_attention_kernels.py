@@ -11,10 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+from streamvln_tpu.ops.attention import mha_attention as jax_mha
 from streamvln_tpu.ops.flash_attention import flash_attention as jax_flash
 from streamvln_tpu.ops.vit_attention import vit_attention as jax_vit
 from streamvln_tpu_torch.ops import flash_attention as fa
 from streamvln_tpu_torch.ops import vit_attention as va
+from streamvln_tpu_torch.ops.attention import mha_attention
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -103,3 +105,58 @@ def test_dispatch_by_shape_alone_reaches_wrappers(dtype):
     assert out.device.type == "meta"
     with pytest.raises(ValueError, match="device"):
         qwen2._attend(cfg, "auto", q, kv, kv, qp, kp, kv_major=True)
+
+
+# The encoder dispatch, branch for branch the reference's
+# (streamvln_tpu/ops/attention.py::mha_attention): "vit" (and "auto") take
+# K1, "flash" takes K2 with every position 0, every other impl is dense.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("impl,wrapper", [
+    ("vit", "vit_attention"), ("flash", "flash_attention"),
+    ("decode_kernel", None), ("chunked", None)])
+def test_encoder_dispatch_follows_the_reference(impl, wrapper, dtype):
+    """Meta tensors stand in for device tensors: a kernel wrapper refuses
+    them (so a call that reaches one raises), the dense path runs on
+    them. SigLIP's head dim 72 reaches K2 zero-padded."""
+    x = torch.zeros((1, 16, 2, 72), dtype=dtype, device="meta")
+    if wrapper is None:
+        assert mha_attention(x, x, x, impl=impl).device.type == "meta"
+    else:
+        with pytest.raises(ValueError, match=f"{wrapper}: unsupported"):
+            mha_attention(x, x, x, impl=impl)
+
+
+def test_flash_dispatch_with_a_mask_or_unsupported_shapes():
+    """As the reference: "flash" with a mask runs dense; without one, a
+    shape the flash kernel does not take raises NotImplementedError."""
+    x = torch.zeros((1, 16, 2, 72), device="meta")
+    mask = torch.ones((1, 16, 16), dtype=torch.bool, device="meta")
+    assert mha_attention(x, x, x, mask, impl="flash").device.type == "meta"
+    k = torch.zeros((1, 16, 2, 64), device="meta")
+    with pytest.raises(NotImplementedError, match="flash kernel"):
+        mha_attention(x, k, k, impl="flash")
+    with pytest.raises(NotImplementedError, match="flash kernel"):
+        mha_attention(torch.zeros((1, 16, 3, 72), device="meta"), x, x,
+                      impl="flash")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("impl", ["vit", "flash", "decode_kernel",
+                                  "chunked"])
+def test_encoder_dispatch_matches_jax(impl, dtype):
+    """The port's mha_attention against the JAX package's on the same
+    inputs at SigLIP's head dim (72), the Pallas kernels in interpret mode;
+    tolerances as above."""
+    rng = np.random.default_rng(2)
+    B, S, H, D = 2, 24, 3, 72
+    x = [rng.standard_normal((B, S, H, D)).astype(np.float32)
+         for _ in range(3)]
+    want = np.asarray(jax_mha(*(jnp.asarray(a, dtype) for a in x),
+                              impl=impl, interpret=True).astype(jnp.float32))
+    got = mha_attention(*(torch.from_numpy(a).to(getattr(torch, dtype))
+                          for a in x), impl=impl)
+    assert got.shape == (B, S, H, D)
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want, atol=2e-2)

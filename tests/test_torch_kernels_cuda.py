@@ -277,32 +277,46 @@ def _assert_grad_close(out, ref, term, what):
     assert bool((err <= tol).all()), (what, (err / tol).max().item())
 
 
-def _train_positions(B, Sq, Sk, n_valid, dev):
+def _train_positions(B, Sq, Sk, n_valid, dev, blind=None):
     """Training layout (as forward_train): valid tokens at positions
     0..n-1, padded queries at position 0, padded keys at INVALID_POS; one
-    query row of batch 1 sees no key."""
+    query row of batch 1 sees no key, and so do the rows `blind` (a
+    slice) of batch 0."""
     pos = torch.arange(Sq, device=dev, dtype=torch.int32)
     q_pos = torch.where(pos < n_valid, pos, 0)[None].repeat(B, 1)
     kp = torch.arange(Sk, device=dev, dtype=torch.int32)
     k_pos = torch.where(kp < n_valid, kp, fa.INVALID_POS)[None].repeat(B, 1)
     q_pos[1, 3] = -1
+    if blind is not None:
+        q_pos[0, blind] = -1
     return q_pos.contiguous(), k_pos.contiguous()
 
 
-@pytest.mark.parametrize("S,n_valid,Hq,Hkv,kv_major", [
-    (200, 170, 14, 2, False),
-    (256, 256, 4, 4, True),
-    (130, 100, 7, 1, False),
+# The backward's tiling edges: K4 takes 128-row query tiles against 64-key
+# stages, K5 128-key tiles against 64-row query stages. S not a multiple
+# of 128 (130, 200) or of 64 (130, 200, 300); G = 1, 2, 4 and 7; both k/v
+# layouts; D = 64 and 128; whole key tiles of padding (300 keys, 150
+# valid: K5's third 128-key tile and K4's last two 64-key tiles hold none);
+# a whole 128-row query tile that sees no key (rows 128..255 of batch 0:
+# no key stage reaches K4's block, K5 skips both 64-row tiles).
+@pytest.mark.parametrize("S,n_valid,Hq,Hkv,kv_major,D,blind", [
+    (200, 170, 14, 2, False, 128, None),
+    (256, 256, 4, 4, True, 128, None),
+    (130, 100, 7, 1, False, 128, None),
+    (130, 130, 4, 2, True, 64, None),
+    (200, 190, 8, 1, False, 64, None),
+    (300, 150, 8, 2, False, 128, None),
+    (384, 384, 4, 1, True, 128, slice(128, 256)),
 ])
 def test_flash_training_kernels_match_plain(dev, S, n_valid, Hq, Hkv,
-                                            kv_major):
+                                            kv_major, D, blind):
     rng = np.random.default_rng(5)
-    B, D = 2, 128
+    B = 2
     q = _rand(rng, (B, S, Hq, D), dev)
     kshape = (B, Hkv, S, D) if kv_major else (B, S, Hkv, D)
     k, v = _rand(rng, kshape, dev), _rand(rng, kshape, dev)
     dout = _rand(rng, (B, S, Hq, D), dev)
-    q_pos, k_pos = _train_positions(B, S, S, n_valid, dev)
+    q_pos, k_pos = _train_positions(B, S, S, n_valid, dev, blind)
     n3, n4, n5 = fa.lse_launches, fa.dq_launches, fa.dkv_launches
     out, lse = fa.flash_attention_lse(q, k, v, q_pos, k_pos,
                                       kv_major=kv_major)
@@ -326,12 +340,18 @@ def test_flash_training_kernels_match_plain(dev, S, n_valid, Hq, Hkv,
     assert (fa.lse_launches - n3, fa.dq_launches - n4,
             fa.dkv_launches - n5) == (1, 1, 1)
     assert torch.all(dq[1, 3] == 0)
+    if blind is not None:
+        assert torch.all(dq[0, blind] == 0)
     t_dq, t_dk, t_dv = _rounding_terms(*args, kv_major)
     _assert_grad_close(dq, fa.flash_bwd_dq_plain(*args, kv_major=kv_major),
                        t_dq, "dq")
     rdk, rdv = fa.flash_bwd_dkv_plain(*args, kv_major=kv_major)
     _assert_grad_close(dk, rdk, t_dk, "dk")
     _assert_grad_close(dv, rdv, t_dv, "dv")
+    # no atomics and a fixed order: a second call is bit-equal
+    dk2, dv2 = fa.flash_bwd_dkv(*args, kv_major=kv_major)
+    assert torch.equal(fa.flash_bwd_dq(*args, kv_major=kv_major), dq)
+    assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
 
 
 def test_cuda_grads_flow_through_both_wrappers(dev):

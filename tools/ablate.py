@@ -8,7 +8,9 @@ times the kernels of the libraries a variant changes through their
 wrappers at the main path's shapes by device time (torch.profiler), beside
 the kernels as they are ("base", every library). The attention forward
 (`attention_fwd.cuh`: K1 vit_attention, K2/K3 flash_attention) is timed at
-the SigLIP and prefill shapes and the train step's; K6 (int4 dequant-matmul,
+the SigLIP and prefill shapes and the train step's, the backward
+(`flash_attention_bwd.cu`: K4 dQ, K5 dK/dV) at the train step's shape; K6
+(int4 dequant-matmul,
 `int4_matmul.cu`) and K8 (decode attention, `decode_attention.cu`) at the
 decode path's shapes over a rotation of operand copies that misses the L2
 cache. An ablated kernel computes wrong results: the point is how much of
@@ -32,14 +34,16 @@ from chip_smoke import device_ms  # noqa: E402
 from streamvln_tpu_torch.kernels import build  # noqa: E402
 
 ATTN = ("vit_attention", "flash_attention")
+BWD = "flash_attention_bwd"
 K6, K8 = "int4_matmul", "decode_attention"
 FWD, PLAN = "attention_fwd.cuh", "kernel_plan.cuh"
+BWD_CU = f"{BWD}.cu"
 _SKIP = ("      if (n > 0) {{ __syncwarp(); if (lane == 0) "
          "mbar_arrive(empty0 + 8 * st); continue; }}\n{}")
 _PACK = "    d[b] = pack_bf16x2(q[2 * b] * sc[b], q[2 * b + 1] * sc[b]);"
 # name: (libraries it changes, edits as (file in csrc/, old text, new text))
 VARIANTS = {
-    "base": ((*ATTN, K6, K8), []),
+    "base": ((*ATTN, BWD, K6, K8), []),
     # attention forward: ex2 -> a multiply (the MUFU pipe's share)
     "noexp": (ATTN, [(
         "pipeline.cuh",
@@ -65,6 +69,36 @@ VARIANTS = {
     "noping": (ATTN, [(FWD, "named_sync(1 + cw, 256);", ""),
                       (FWD, "named_arrive(2 - cw, 256);", ""),
                       (FWD, "if (cw == 1) named_arrive(1, 256);", "")]),
+    # K4/K5: the exponentials (P = S * scale - LSE instead)
+    "bwd_noexp": ((BWD,), [(BWD_CU, "ex2(fmaf(", "(fmaf(")]),
+    # K4/K5: the products fed from registers (dS K; P^T dO and dS^T Q)
+    "bwd_nods": ((BWD,), [
+        (BWD_CU, "issue_rs<NW, BN / 16>(acc, f,",
+         "if (0) issue_rs<NW, BN / 16>(acc, f,"),
+        (BWD_CU, "issue_rs<NW, BQ / 16>(dv, pf,",
+         "if (0) issue_rs<NW, BQ / 16>(dv, pf,"),
+        (BWD_CU, "issue_rs<NW, BQ / 16>(dk, sf,",
+         "if (0) issue_rs<NW, BQ / 16>(dk, sf,")]),
+    # K4/K5: consumers release every stage unread (the ring alone)
+    "bwd_noconsume": ((BWD,), [
+        (BWD_CU, "  int prev = -1;\n  if (meta_k0[stage] >= 0) {",
+         "  int prev = -1;\n  while (meta_k0[stage] >= 0) {\n"
+         "    release(empty0 + 8 * stage, lane);\n"
+         "    if (leader) { prefetch(); commit(); }\n"
+         "    if (++stage == ST) { stage = 0; phase ^= 1; }\n"
+         "    mbar_wait(full0 + 8 * stage, phase);\n  }\n  if (0) {"),
+        (BWD_CU, "    if (meta_q0[stage] < 0) break;\n",
+         "    if (meta_q0[stage] < 0) break;\n"
+         "    release(empty0 + 8 * stage, lane);\n"
+         "    if (leader) commit();\n"
+         "    if (++stage == ST) { stage = 0; phase ^= 1; }\n"
+         "    continue;\n")]),
+    # K4/K5: the launch alone (same grid and shared memory)
+    "bwd_empty": ((BWD,), [
+        (BWD_CU, "  using S = DqShape<DP>;\n  constexpr",
+         "  if (a.B > 0) return;\n  using S = DqShape<DP>;\n  constexpr"),
+        (BWD_CU, "  using S = DkvShape<DP>;\n  constexpr",
+         "  if (a.B > 0) return;\n  using S = DkvShape<DP>;\n  constexpr")]),
     # K6: the nibble -> bf16 arithmetic (the raw word goes to the products)
     "k6_nodequant": ((K6,), [(f"{K6}.cu", _PACK, "    d[b] = w >> b;")]),
     # K6: the scale multiplies only
@@ -164,7 +198,7 @@ def use_variant(procs: dict) -> None:
 def cases(torch) -> dict:
     """{case: (library, [calls], calls timed)}: K1 at batch 1 and 9
     (SigLIP), K2 at the prefill buckets 768 and 2560 over a 4096-slot cache
-    from position 300, K3 at the train step's shape; K6 at every int4
+    from position 300, K3, K4 and K5 at the train step's shape; K6 at every int4
     projection's decode shape and gate/up at 128 rows, K8 at 300 and 4096
     live keys of a 4096-slot cache, each over operand copies past 2.5x the
     50 MB L2 cache."""
@@ -199,6 +233,11 @@ def cases(torch) -> dict:
     out["K3"] = ("flash_attention", [
         lambda q=q, k=k, v=v, qp=qp: fa.flash_attention_lse(
             q, k, v, qp, kp3)], 10)
+    o, lse = fa.flash_attention_lse(q, k, v, qp, kp3)
+    do = rnd(2, S, 28, 128)
+    bwd = (q, k, v, do, lse, fa._dsum(do, o), qp, kp3)
+    out["K4"] = (BWD, [lambda: fa.flash_bwd_dq(*bwd)], 10)
+    out["K5"] = (BWD, [lambda: fa.flash_bwd_dkv(*bwd)], 10)
     for name, din, dout, M in (("qkv", 3584, 4608, 1), ("o", 3584, 3584, 1),
                                ("gu", 3584, 37888, 1),
                                ("down", 18944, 3584, 1),
