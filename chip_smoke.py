@@ -16,12 +16,15 @@ Phases (any failure exits non-zero before the result line):
   2. hold each serving kernel against its plain PyTorch version at the
      main path's shapes (max abs error vs tolerance), and time the kernel,
      the plain version and, as a yardstick only, one PyTorch library call
-     on the same work (the port never calls it): K1 in bf16 at batch 1, 9
-     and the training tower batch of phase 4b (32 frames), K2 in bf16 (K1
+     on the same work (the port never calls it): K1 in bf16 at batch 1,
+     the history backfill's num_history (8 frames, phase 5) and the
+     training tower batch of phase 4b (32 frames); every batch a main
+     path sends K1 must be one of these; K2 in bf16 (K1
      and K2 by device time, with their event time and host cost per
      call); K6
-     (int4 dequant-matmul) at every int4 projection's decode shape and
-     gate/up at 128 rows, K7 (int4 unpack) for gate/up and down, K8
+     (int4 dequant-matmul) at every int4 projection's decode shape, the
+     four layer projections at the speculative verify's 7 rows and
+     gate/up at 128 rows, K7 (int4 unpack) for qkv, o, gate/up and down, K8
      (decode attention) at four live lengths of a 4096-slot cache; K6, K7
      and K8 timed over enough operand copies to miss the L2 cache, as the
      decode path does, with their host cost per call; every K6 and K8
@@ -49,6 +52,17 @@ Phases (any failure exits non-zero before the result line):
      weight GiB and peak memory, the first call's prefill logits against
      the int4 weights dequantized to bf16 on the dense path, and one
      profiled mid-window call;
+     3d. the serving variants in turns over the same steps: bf16,
+     decode_kernel, int4 and bf16_spec (spec_lookup=6), each with decode ms
+     per emitted token, tokens per decode forward and call wall;
+     3e. speculative decode against greedy: two bf16 engines (spec_lookup 6
+     and 0) take the 9 calls in lockstep; where a call differs, the
+     greedy gap at its first differing position must lie within
+     SPEC_FLIP_BOUND x the largest logit difference of the two paths at
+     the positions where they agree, with the speculative token the
+     greedy runner-up;
+     3f. sampling: a temperature 0.7 / top-p 0.9 call deterministic by seed,
+     and a greedy row beside a sampled row equal to a greedy engine's;
   4. training: (a) the training kernels K3 (forward + LSE), K4 (dQ) and
      K5 (dK/dV) against their plain versions at the train step's shape
      (B=2, S=4096, 28/4 heads, D=128, bf16, 3,900 valid tokens, padded
@@ -62,7 +76,13 @@ Phases (any failure exits non-zero before the result line):
      updates and exact launch counts, a kernels-vs-dense check of one
      micro-batch's loss and LoRA gradients, per-step times, tokens/s and
      peak memory, and one micro-step under torch.profiler;
-  5. print the kernels JSON line (K1-K8; each with bound_share = bound_ms
+  5. the evaluation entry point: eval_cli.main (--model_size 7b
+     --env_backend fake --num_episodes 2 --max_steps_per_episode 36, the
+     default --spec_lookup 6) in-process on the phase's own streamvln_7b
+     weights (random bf16, steered to walk: steer_to_walk), with
+     result.json, exact K1/K2 launch counts, model-call p50/p90, tokens per
+     verify forward and peak memory;
+  6. print the kernels JSON line (K1-K8; each with bound_share = bound_ms
      / ms and vs_library = ms / library_ms), the card line, and the
      result line.
 """
@@ -106,6 +126,17 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_MIN_COSINE = 1e-2, 0.99
 K6_SUM_RTOL, K6_ATOL = 1e-5, 1e-6
 # K8 vs its plain version in f32: half a bf16 ulp of the output + f32 order
 K8_RTOL, K8_ATOL = 2.0 ** -8, 1e-5
+# speculative vs greedy decode in bf16 (spec_vs_greedy): where a call
+# differs, the greedy gap between its token and the speculative one must lie
+# within 2 x the two paths' largest logit difference measured at the
+# positions where they agree (the most that rounding can move a gap between
+# two tokens), and every compared position must point the same way
+SPEC_FLIP_BOUND, SPEC_MIN_COSINE = 2.0, 0.999
+# phase 5's walking weights (steer_to_walk): the 56 residual writes (norm
+# ~30 each at random init) scaled by 2^-12 add at most ~0.4, as a random
+# walk ~0.06, to a unit embedding; the chain's next token gains ~12 logits
+# against random logits of unit spread
+STEER_RESIDUAL, STEER_LOGIT = 2.0 ** -12, 12.0
 
 
 def log(*a):
@@ -201,16 +232,64 @@ def registers_ok(log_text: str) -> bool:
         "serialized due to insufficient register" not in log_text
 
 
-def kernels_per_call(torch, fn) -> int:
-    """CUDA kernels one call of `fn` launches (torch.profiler)."""
+def require(what: str, **conditions):
+    """Fail naming each condition of `what` that does not hold."""
+    failed = [name for name, ok in conditions.items() if not ok]
+    if failed:
+        raise AssertionError(f"{what}: {', '.join(failed)} failed")
+
+
+def cuda_events(torch, run, attempts=3) -> list:
+    """The CUDA kernel events torch.profiler records while `run()` runs.
+    A capture that recorded no kernel at all (taken to be the card's
+    tracing dropping the whole window) is logged and taken again, up to
+    `attempts` times; work that launches nothing still reads as no
+    event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+        log(f"  profiler capture {attempt + 1} of {attempts} recorded no "
+            f"CUDA kernel")
+    return events
+
+
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+                    4: "graph", 5: "empty"}
+
+
+def launches_per_call(torch, fn) -> list:
+    """The operations one call of `fn` puts on its stream (kernels,
+    copies, memsets), by type: the nodes of a CUDA graph captured from
+    the call (cuGraphGetNodes). Capture sees every enqueued operation,
+    so unlike a torch.profiler window it cannot drop or gain one."""
+    import ctypes
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
         fn()
-        torch.cuda.synchronize()
-    return sum(e.device_type == DeviceType.CUDA for e in prof.events())
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    rc = cu.cuGraphGetNodes(handle, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    rc = rc or cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n))
+    kinds = []
+    for node in nodes[:n.value]:
+        t = ctypes.c_int(-1)
+        rc = rc or cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                         ctypes.byref(t))
+        kinds.append(GRAPH_NODE_TYPES.get(t.value, f"type {t.value}"))
+    graph.reset()
+    if rc:
+        raise RuntimeError(f"counting captured graph nodes failed: CUDA "
+                           f"driver error {rc}")
+    return kinds
 
 
 def host_us(torch, fn, calls=200) -> float:
@@ -287,7 +366,7 @@ def check_vit(torch, F, va, B, rng_seed=0):
         return F.scaled_dot_product_attention(qt, kt, vt)
     lib, lib_event = device_ms(torch, [sdpa]), time_ms(torch, sdpa)
     b_ms, b_by = bound(4.0 * S * S * D * H * B, 4.0 * B * S * H * D * 2)
-    rec = {"shape": f"B={B} S={S} H={H} D={D} bf16", **c,
+    rec = {"shape": f"B={B} S={S} H={H} D={D} bf16", "batch": B, **c,
            "ms": ms, "event_ms": event_ms, "host_us": h_us,
            "plain_ms": plain, "library_ms": lib,
            "library_event_ms": lib_event, "bound_ms": b_ms, "bound_by": b_by}
@@ -408,18 +487,25 @@ def int4pack_yardstick(torch, i4, wp, s):
     return lambda x: torch._weight_int4pack_mm(x, packed, 64, sz)
 
 
+# every int4 projection at one row (greedy decode), the four layer
+# projections at 7 rows (the speculative verify forward: spec_lookup 6 + 1)
+# and gate/up at 128 rows (the top of K6's range)
 INT4_SHAPES = (("qkv", 3584, 4608, 1), ("o", 3584, 3584, 1),
                ("gu", 3584, 37888, 1), ("down", 18944, 3584, 1),
-               ("lm_head", 3584, 152064, 1), ("gu", 3584, 37888, 128))
+               ("lm_head", 3584, 152064, 1), ("gu", 3584, 37888, 128),
+               ("qkv", 3584, 4608, 7), ("o", 3584, 3584, 7),
+               ("gu", 3584, 37888, 7), ("down", 18944, 3584, 7))
 
 
 def check_int4(torch, i4, quant):
     """K6 at every int4 projection's decode shape (M=1; fused qkv and
-    gate/up, o, down, lm_head) and gate/up at M=128, and K7 for gate/up and
-    down, against their plain versions. K6: f32 out on both sides from the
+    gate/up, o, down, lm_head), the layer projections at the speculative
+    verify's M=7 and gate/up at M=128, and K7 for qkv, o, gate/up and down,
+    against their plain versions. K6: f32 out on both sides from the
     same bf16-rounded weights, so only the f32 summation order differs:
     |err| <= 1e-5 * sum_k |x_k w_k| + 1e-6 elementwise; a second call
-    bit-equal; one kernel per call. K7: bit-equal."""
+    bit-equal; one kernel and nothing else enqueued per call (a captured
+    CUDA graph's nodes). K7: bit-equal."""
     weights, recs, dq = {}, [], []
     for i, (name, din, dout, M) in enumerate(INT4_SHAPES):
         if (din, dout) not in weights:
@@ -448,7 +534,7 @@ def check_int4(torch, i4, quant):
         kfns = [(lambda a=a, b=b: i4.int4_matmul(x, a, b, 0))
                 for a, b, _ in ops]
         ms, event_ms = device_ms(torch, kfns), time_cold_ms(torch, kfns)
-        h_us, per_call = host_us(torch, kfns[0]), kernels_per_call(
+        h_us, per_call = host_us(torch, kfns[0]), launches_per_call(
             torch, kfns[0])
         plain = time_ms(torch, lambda: i4.int4_matmul_plain(x, wp, s, 0),
                         iters=3, warmup=1)
@@ -472,7 +558,8 @@ def check_int4(torch, i4, quant):
                         f"group 64", "max_abs_err": err.max().item(),
                "tol_share": share, "bit_equal": bit_equal, "ms": ms,
                "event_ms": event_ms, "host_us": h_us,
-               "kernels_per_call": per_call, "plain_ms": plain,
+               "kernels_per_call": len(per_call), "enqueued": per_call,
+               "plain_ms": plain,
                "library_ms": pack_ms if pack_ms is not None else mm_ms,
                "library": "torch._weight_int4pack_mm" if pack_ms is not None
                else "torch.mm on the bf16-dequantized weight",
@@ -482,7 +569,7 @@ def check_int4(torch, i4, quant):
                "rotation": n}
         log(f"K6 int4_matmul {rec['shape']}: max_abs_err "
             f"{rec['max_abs_err']:.3e} ({share:.3f} of 1e-5*sum|xw| + 1e-6) "
-            f"bit-equal {bit_equal}, {per_call} kernel(s) per call; kernel "
+            f"bit-equal {bit_equal}, enqueues {per_call} per call; kernel "
             f"{ms:.4f} ms device ({event_ms:.4f} ms event-timed, {h_us:.1f} "
             f"us host per call) plain {plain:.4f} ms int4pack {pack_ms} ms "
             f"(max rel err {pack_err}) mm bf16 {mm_ms:.4f} ms bound "
@@ -490,12 +577,10 @@ def check_int4(torch, i4, quant):
         if pack_note:
             log(f"  {pack_note}")
         recs.append(rec)
-        if not (share <= 1.0 and bit_equal and per_call == 1):
-            raise AssertionError(f"int4_matmul disagrees, is not "
-                                 f"deterministic or takes more than one "
-                                 f"launch at {rec['shape']}")
+        require(f"int4_matmul at {rec['shape']}", agrees=share <= 1.0,
+                deterministic=bit_equal, one_launch=per_call == ["kernel"])
         del ops, wb, xs, out, ref, err
-        if M == 1 and name in ("gu", "down"):
+        if M == 1 and name != "lm_head":
             dq.append(check_dequant(torch, i4, name, wp, s))
     del weights
     torch.cuda.empty_cache()
@@ -562,7 +647,7 @@ def check_decode(torch, F, da, lengths=(300, 1900, 4096, 2049), L=28,
                 for i in range(L)]
         ms, event_ms = device_ms(torch, kfns, 2 * L), \
             time_cold_ms(torch, kfns, iters=2 * L)
-        h_us, per_call = host_us(torch, kfns[0]), kernels_per_call(
+        h_us, per_call = host_us(torch, kfns[0]), launches_per_call(
             torch, kfns[0])
         plain = time_ms(torch, lambda: da.decode_attention_plain(
             q[0], k[0], v[0], lens), iters=3, warmup=1)
@@ -577,21 +662,19 @@ def check_decode(torch, F, da, lengths=(300, 1900, 4096, 2049), L=28,
                         f"cache={cap} bf16", "max_abs_err": err.max().item(),
                "tol_share": share, "bit_equal": bit_equal, "ms": ms,
                "event_ms": event_ms, "host_us": h_us,
-               "kernels_per_call": per_call,
+               "kernels_per_call": len(per_call), "enqueued": per_call,
                "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
                "bound_by": b_by, "bytes": nbytes}
         log(f"K8 decode_attention {rec['shape']}: max_abs_err "
             f"{rec['max_abs_err']:.3e} ({share:.3f} of 2^-8|ref| + 1e-5) "
-            f"bit-equal {bit_equal}, {per_call} kernel(s) per call; kernel "
+            f"bit-equal {bit_equal}, enqueues {per_call} per call; kernel "
             f"{ms:.4f} ms device ({event_ms:.4f} ms event-timed, {h_us:.1f} "
             f"us host per call) "
             f"plain {plain:.4f} ms sdpa {lib:.4f} ms bound {b_ms:.4f} ms "
             f"({b_by})")
         recs.append(rec)
-        if not (share <= 1.0 and bit_equal and per_call == 1):
-            raise AssertionError(f"decode_attention disagrees, is not "
-                                 f"deterministic or takes more than one "
-                                 f"launch at length {n}")
+        require(f"decode_attention at length {n}", agrees=share <= 1.0,
+                deterministic=bit_equal, one_launch=per_call == ["kernel"])
     del q, k, v
     torch.cuda.empty_cache()
     return recs
@@ -922,10 +1005,9 @@ def train_full_width(torch, np, params, cfg, tok, fa, va):
     log(f"4b checks: finite losses and grad norms > 0 {finite}; base "
         f"weights bit-identical {frozen_ok}; LoRA B stacks changed {moved} "
         f"of {len(lora_b0)}")
-    if not (finite and frozen_ok and moved == len(lora_b0)
-            and counts == want
-            and sum(vit_by_batch.values()) == counts["vit_attention"]):
-        raise AssertionError("LoRA training checks failed")
+    require("LoRA training", finite=finite, frozen_weights=frozen_ok,
+            adapters_moved=moved == len(lora_b0), launch_counts=counts == want,
+            k1_batches=sum(vit_by_batch.values()) == counts["vit_attention"])
 
     prof = profile_call(torch, lambda: step(state, batches[-1]),
                         float(np.median(micro_ms[1:])))
@@ -1215,8 +1297,10 @@ def paired_timing(torch, np, engines, cfg, tok, frames, instruction):
     """Phase 3d: the serving variants in turns on one host and card. Each
     engine gets a fresh agent; for steps 0..32 every agent takes the same
     step, and at each model call the order of the engines rotates, so
-    host noise falls on all of them alike. Returns per-engine call
-    records and medians over the mid-window calls 1..7."""
+    host noise falls on all of them alike. Decode ms per token is per
+    emitted token (a speculative forward emits several); tokens per
+    forward is the decode loop's emitted tokens over its forwards. Returns
+    per-engine call records and medians over the mid-window calls 1..7."""
     from streamvln_tpu_torch.agent import VLNAgent
     names = list(engines)
     agents = {n: VLNAgent(engines[n], tok) for n in names}
@@ -1229,6 +1313,7 @@ def paired_timing(torch, np, engines, cfg, tok, frames, instruction):
         order = names[k % len(names):] + names[:k % len(names)]
         for n in order:
             calls, restore = record_calls(torch, engines[n])
+            f0 = engines[n].decode_forwards
             t0 = time.perf_counter()
             agents[n].step(0, frames[step], instruction, run_model=run)
             if run:
@@ -1236,25 +1321,380 @@ def paired_timing(torch, np, engines, cfg, tok, frames, instruction):
                 wall = (time.perf_counter() - t0) * 1e3
                 c = calls[0]
                 vis, pre, dec = c["phase_ms"]
+                emitted = len(c["tokens"]) - 1
+                forwards = engines[n].decode_forwards - f0
                 recs[n].append({"wall_ms": wall, "vision_ms": vis,
                                 "prefill_ms": pre, "decode_ms": dec,
                                 "tokens": len(c["tokens"]),
+                                "forwards": forwards,
+                                "tokens_per_forward":
+                                    emitted / max(forwards, 1),
                                 "decode_ms_per_token":
-                                    dec / max(len(c["tokens"]) - 1, 1)})
+                                    dec / max(emitted, 1)})
             restore()
         k += run
     out = {}
     for n in names:
         mid = recs[n][1:8]
         med = {key: float(np.median([r[key] for r in mid])) for key in (
-            "wall_ms", "vision_ms", "prefill_ms", "decode_ms_per_token")}
+            "wall_ms", "vision_ms", "prefill_ms", "decode_ms_per_token",
+            "tokens_per_forward")}
+        emitted = sum(r["tokens"] - 1 for r in recs[n])
+        forwards = sum(r["forwards"] for r in recs[n])
         out[n] = {"calls": recs[n], "median_mid_window": med,
-                  "memory_call": recs[n][-1]}
+                  "memory_call": recs[n][-1],
+                  "tokens_per_forward": emitted / max(forwards, 1)}
         log(f"3d {n}: mid-window medians wall {med['wall_ms']:.2f} ms, "
             f"vision {med['vision_ms']:.2f}, prefill {med['prefill_ms']:.2f},"
-            f" decode {med['decode_ms_per_token']:.2f} ms/token; <memory> "
-            f"call prefill {recs[n][-1]['prefill_ms']:.2f} ms")
+            f" decode {med['decode_ms_per_token']:.2f} ms per emitted token; "
+            f"{emitted} tokens in {forwards} decode forwards over the "
+            f"{len(recs[n])} calls ({out[n]['tokens_per_forward']:.3f} per "
+            f"forward); <memory> call prefill "
+            f"{recs[n][-1]['prefill_ms']:.2f} ms")
     return out
+
+
+def capture_decode(torch):
+    """Record, for batch row 0, the f32 logits of every decoder forward
+    (prefill and decode) and the drafts of every speculative iteration, by
+    wrapping qwen2.forward and the engine's drafter; returns (record,
+    stop)."""
+    from streamvln_tpu_torch.models import qwen2
+    from streamvln_tpu_torch.streaming import engine as eng_mod
+    rec = {"logits": [], "drafts": []}
+    fwd, drf = qwen2.forward, eng_mod._draft
+
+    def forward(*a, **k):
+        out = fwd(*a, **k)
+        rec["logits"].append(out[0][0].float())
+        return out
+
+    def draft(*a, **k):
+        d = drf(*a, **k)
+        rec["drafts"].append(d[0].tolist())
+        return d
+    qwen2.forward, eng_mod._draft = forward, draft
+
+    def stop():
+        qwen2.forward, eng_mod._draft = fwd, drf
+    return rec, stop
+
+
+def position_logits(rec, n_tokens, k, stop_ids, max_new):
+    """The logits that chose each emitted token of one call: the prefill's
+    for token 0, then per decode forward its one column (greedy) or the
+    columns it emitted (speculative: 1 + the accepted draft prefix, cut at
+    the first stop token and at the budget, as _spec_loop does)."""
+    logits = rec["logits"]
+    pos = [logits[0][0]]
+    for i, lg in enumerate(logits[1:]):
+        if not k:
+            pos.append(lg[0])
+            continue
+        truth, d = lg.argmax(-1).tolist(), rec["drafts"][i]
+        e = 1
+        while e <= k and d[e - 1] == truth[e - 1]:
+            e += 1
+        stops = [j for j in range(e) if truth[j] in stop_ids]
+        e = min(stops[0] + 1 if stops else e, max_new - len(pos))
+        pos += [lg[j] for j in range(e)]
+    if len(pos) != n_tokens:
+        raise AssertionError(f"{len(pos)} logit rows for {n_tokens} tokens")
+    return pos
+
+
+def spec_vs_greedy(torch, np, fused, cfg, tok, frames, instruction,
+                   steps=33, capacity=4096, buckets=None):
+    """Speculative decode (spec_lookup=6) against greedy: two engines on
+    the same weights take the agent's calls over `steps` steps in lockstep,
+    each call's per-position logits recorded. Speculation is exact only in
+    exact arithmetic: in bf16 the 7-query verify forward and the 1-query
+    step round differently, so a call may differ.
+
+    The two paths' rounding is measured where they agree: R is the largest
+    |g_v - p_v| (g: greedy logits, p: the verify forward's, over the whole
+    vocabulary) at every position up to, not including, each call's first
+    difference. At a first difference, the greedy top-1 token t must beat
+    the speculative choice s, s must be the greedy runner-up, and the
+    greedy gap must satisfy g_t - g_s <= SPEC_FLIP_BOUND x R: p orders s
+    over t only if g_t - g_s <= |p_t - g_t| + |p_s - g_s|, which is at most
+    2R where the rounding is no larger than at the agreeing positions. A
+    flip at a gap the observed rounding cannot explain fails. Every
+    position compared (up to the first difference) must also agree in
+    direction (cosine >= SPEC_MIN_COSINE). After a differing call the
+    speculative engine takes the greedy engine's KV cache, lengths and
+    pending token, and the greedy tokens into its shadow, so every call
+    starts from the same dialogue."""
+    from streamvln_tpu_torch.agent import VLNAgent
+    from streamvln_tpu_torch.streaming.engine import StreamingEngine
+    k = 6
+    kw = {} if buckets is None else {"buckets": buckets}
+    engines = {spec: StreamingEngine(fused, cfg, cache_capacity=capacity,
+                                     max_new_tokens=16, spec_lookup=spec,
+                                     stop_ids=(tok.im_end_id,), **kw)
+               for spec in (0, k)}
+    agents = {spec: VLNAgent(e, tok) for spec, e in engines.items()}
+    calls, identical, flips, agree_deltas = [], 0, [], []
+    for step in range(steps):
+        run = step % cfg.num_future_steps == 0
+        got = {}
+        for spec, agent in agents.items():
+            rec, stop = capture_decode(torch)
+            made, restore = record_calls(torch, engines[spec])
+            try:
+                agent.step(0, frames[step], instruction, run_model=run)
+            finally:
+                stop()
+                restore()
+            e = engines[spec]
+            if e.envs[0].kv_length != int(e.cache.length[0]):
+                raise AssertionError(f"spec_lookup={spec} step {step}: KV "
+                                     f"length {int(e.cache.length[0])} != "
+                                     f"bookkeeping {e.envs[0].kv_length}")
+            if run:
+                toks = made[0]["tokens"]
+                got[spec] = (toks, position_logits(
+                    rec, len(toks), spec, engines[spec].stop_ids, 16))
+        if not run:
+            continue
+        (gt, gl), (st, sl) = got[0], got[k]
+        n = min(len(gt), len(st))
+        first = next((i for i in range(n) if gt[i] != st[i]), None)
+        upto = n if first is None else first + 1
+        deltas = [float((gl[i] - sl[i]).abs().max()) for i in range(upto)]
+        cos = [float(torch.nn.functional.cosine_similarity(
+            gl[i], sl[i], dim=0)) for i in range(upto)]
+        c = {"call": len(calls), "greedy": gt, "spec": st,
+             "max_abs_logit_diff": max(deltas), "min_cosine": min(cos)}
+        calls.append(c)
+        if min(cos) < SPEC_MIN_COSINE:
+            raise AssertionError(f"spec call {c['call']}: logits disagree in "
+                                 f"direction ({min(cos):.6f})")
+        if first is None and len(gt) == len(st):
+            identical += 1
+            agree_deltas += deltas
+            continue
+        if first is None:
+            raise AssertionError(f"spec call {c['call']}: {st} vs {gt}")
+        agree_deltas += deltas[:first]
+        g, sp = gl[first], sl[first]
+        t, s_tok = gt[first], st[first]
+        c.update(position=first, greedy_token=t, spec_token=s_tok,
+                 greedy_top2=g.topk(2).indices.tolist(),
+                 greedy_gap=float(g[t] - g[s_tok]),
+                 spec_pick_gap=float(sp[s_tok] - sp[t]),
+                 logit_diff_there=deltas[first])
+        flips.append(c)
+        resync(engines[k], engines[0], gt)
+    if flips and not agree_deltas:
+        raise AssertionError("speculative decode differs from greedy with "
+                             "no agreeing position to measure rounding at")
+    rounding = max(agree_deltas, default=0.0)
+    bound = SPEC_FLIP_BOUND * rounding
+    for c in flips:
+        c["bound"] = bound
+        log(f"spec vs greedy: call {c['call']} differs at position "
+            f"{c['position']}: greedy {c['greedy_token']} (top-2 "
+            f"{c['greedy_top2']}), speculative {c['spec_token']}; greedy "
+            f"gap {c['greedy_gap']:.4f} <= bound {bound:.4f} (= "
+            f"{SPEC_FLIP_BOUND} x max |logit diff| {rounding:.4f} over "
+            f"{len(agree_deltas)} agreeing positions; "
+            f"{c['logit_diff_there']:.4f} there)?")
+        require(f"spec call {c['call']} against greedy",
+                greedy_top1=c["greedy_top2"][0] == c["greedy_token"],
+                spec_is_greedy_runner_up=c["greedy_top2"][1]
+                == c["spec_token"],
+                gap_within_rounding_bound=c["greedy_gap"] <= bound)
+    diffs = [c["call"] for c in flips]
+    emitted = engines[k].decode_tokens
+    forwards = engines[k].decode_forwards
+    log(f"spec vs greedy (spec_lookup={k}): {identical} of {len(calls)} "
+        f"calls identical; calls {diffs} differ within the bound; max "
+        f"|logit diff| over compared positions "
+        f"{max(c['max_abs_logit_diff'] for c in calls):.4f} (agreeing "
+        f"positions {rounding:.4f}), min cosine "
+        f"{min(c['min_cosine'] for c in calls):.6f}; spec engine {emitted} "
+        f"tokens in {forwards} verify forwards")
+    del engines, agents
+    return {"identical_calls": identical, "compared_calls": len(calls),
+            "calls": calls, "differing_calls": diffs,
+            "rounding_at_agreeing_positions": rounding,
+            "agreeing_positions": len(agree_deltas), "flip_bound": bound,
+            "spec_tokens": emitted, "spec_forwards": forwards}
+
+
+def resync(spec, greedy, tokens):
+    """Give the speculative engine the greedy engine's dialogue after a
+    call whose tokens differed: its KV cache, lengths and env bookkeeping,
+    and, in its token-id shadow, the greedy call's fed tokens (all but the
+    pending last one) after the prompt the two engines share."""
+    spec.cache.k.copy_(greedy.cache.k)
+    spec.cache.v.copy_(greedy.cache.v)
+    spec.cache.length = greedy.cache.length.clone()
+    a, b = spec.envs[0], greedy.envs[0]
+    a.pending_token, a.kv_length = b.pending_token, b.kv_length
+    fed = tokens[:-1]
+    start = b.kv_length - len(fed)
+    spec.ids_buf[0, start:b.kv_length] = spec.ids_buf.new_tensor(fed)
+
+
+def sampling_on_card(torch, fused, cfg, tok, frames, instruction):
+    """Sampled decode on the card: a temperature 0.7 / top-p 0.9 call on
+    two bf16 engines with the same sample_seed gives the same tokens; in one
+    generate_batch of two envs, a greedy row beside a sampled row equals a
+    greedy engine's row."""
+    import numpy as np
+    from streamvln_tpu_torch.data import chatml
+    from streamvln_tpu_torch.streaming.engine import StreamingEngine
+    ids, _ = chatml.tokenize_dialogue(
+        tok, [("user", chatml.observation_prompt(None, instruction))],
+        add_system=True, with_labels=False)
+    ids = np.concatenate([ids, np.asarray(chatml.generation_prompt(tok),
+                                          np.int32)])
+
+    def engine(n_envs=1):
+        e = StreamingEngine(fused, cfg, n_envs=n_envs, cache_capacity=4096,
+                            max_new_tokens=16, stop_ids=(tok.im_end_id,))
+        e.sample_seed = 5
+        return e
+    runs = [engine().generate(0, frames[0], ids, step_id=0, temperature=0.7,
+                              top_p=0.9) for _ in range(2)]
+    reqs = [(0, frames[0], ids, 0, ()), (1, frames[1], ids, 0, ())]
+    greedy = engine(2).generate_batch(reqs)
+    mixed = engine(2).generate_batch(reqs, temperature={1: 0.7},
+                                     top_p={1: 0.9})
+    rec = {"sampled": runs[0], "same_seed_equal": runs[0] == runs[1],
+           "greedy_row": greedy[0], "mixed_greedy_row": mixed[0],
+           "mixed_sampled_row": mixed[1],
+           "greedy_row_equal": mixed[0] == greedy[0]}
+    log(f"sampling on the card: T=0.7 top-p 0.9 tokens {runs[0]}; same seed "
+        f"same tokens {rec['same_seed_equal']}; greedy row beside a sampled "
+        f"row equals the greedy engine's {rec['greedy_row_equal']}")
+    require("sampled decode on the card", tokens_in_vocabulary=all(
+        0 <= t < cfg.llm.vocab_size for t in runs[0] + mixed[1]),
+        tokens_emitted=bool(runs[0]),
+        same_seed_same_tokens=rec["same_seed_equal"],
+        greedy_row_equal=rec["greedy_row_equal"])
+    return rec
+
+
+def steer_to_walk(params):
+    """Make random weights walk in the fake env: their text holds no action
+    glyph, so the agent would STOP at an episode's first step. The
+    residual writes of every decoder layer (o_w, down_w) are scaled by
+    STEER_RESIDUAL, so the final hidden state stays along the current
+    token's embedding, and the lm_head column of the next token of the
+    chain "\n" -> e2 -> 86 -> 91 -> e2 (the UTF-8 bytes of the up arrow)
+    gains STEER_LOGIT * e_cur / (|e_cur| sqrt(D)): about STEER_LOGIT logits
+    where the hidden state points along e_cur, against random logits of
+    unit spread. Calls then emit five up arrows; the towers, shapes and
+    kernels are unchanged."""
+    llm = params["llm"]
+    for name in ("o_w", "down_w"):
+        llm["layers"][name].mul_(STEER_RESIDUAL)
+    emb, head = llm["embed"].float(), llm["lm_head"]
+    for cur, nxt in ((10, 0xE2), (0xE2, 0x86), (0x86, 0x91), (0x91, 0xE2)):
+        e = emb[cur]
+        head[:, nxt] += (STEER_LOGIT * e / (e.norm() * e.numel() ** 0.5)
+                         ).to(head.dtype)
+
+
+def eval_entry_point(torch, va, counts, reset):
+    """Phase 5: the evaluation entry point as users run it,
+    eval_cli.main(--model_size 7b --env_backend fake --num_episodes 2
+    --max_steps_per_episode 36, default --spec_lookup 6), in-process on the
+    card: build_agent makes streamvln_7b's random bf16 weights (steered to
+    walk, steer_to_walk), and VLNEvaluator runs two 36-step episodes of
+    480x640 frames across the step-32 window reset and its <memory> call.
+    Checks result.json (2 episode lines + the aggregate), the launch counts
+    (K1 once per tower layer and K2 once per decoder layer per model call,
+    K1 once per tower layer per history backfill pass), and reports the
+    evaluator's model-call p50/p90, the realized tokens per verify forward
+    and peak memory."""
+    import contextlib
+    import io
+    from streamvln_tpu_torch import eval_cli, weights
+    out_dir = os.path.join("chiprun_out", "eval")
+    result = os.path.join(out_dir, "result.json")
+    if os.path.exists(result):
+        os.remove(result)               # result.json resumes otherwise
+    init0, build0 = weights.init, eval_cli.build_agent
+    box = {"calls": 0, "backfills": 0}
+
+    def steered_init(*a, **k):
+        p = init0(*a, **k)
+        steer_to_walk(p)
+        return p
+
+    def build_agent(*a, **k):
+        agent = build0(*a, **k)
+        eng = agent.engine
+        collect, backfill = eng.collect, eng.backfill_batch
+
+        def counted_collect(handle):
+            box["calls"] += 1
+            return collect(handle)
+
+        def counted_backfill(env, frames_u8, step_ids):
+            st = eng.envs[env]
+            box["backfills"] += any(s not in st.frame_slots
+                                    for s in step_ids)
+            return backfill(env, frames_u8, step_ids)
+        eng.collect, eng.backfill_batch = counted_collect, counted_backfill
+        box["engine"] = eng
+        return agent
+    weights.init, eval_cli.build_agent = steered_init, build_agent
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            final = eval_cli.main([
+                "--model_size", "7b", "--env_backend", "fake",
+                "--num_episodes", "2", "--max_steps_per_episode", "36",
+                "--output_path", out_dir])
+        torch.cuda.synchronize()
+    finally:
+        weights.init, eval_cli.build_agent = init0, build0
+    seconds = time.perf_counter() - t0
+    got, by_b = counts(), by_batch(va)
+    eng = box.pop("engine")
+    peak = torch.cuda.max_memory_allocated()
+    with open(result) as f:
+        lines = [json.loads(x) for x in f]
+    n, b = box["calls"], box["backfills"]
+    Lv, L = eng.cfg.vision.num_layers, eng.cfg.llm.num_layers
+    want = {"vit_attention": Lv * (n + b), "flash_attention": L * n,
+            "int4_matmul": 0, "int4_dequant_split": 0, "decode_attention": 0}
+    rec = {"final": final, "episodes": lines[:-1], "model_calls": n,
+           "backfill_passes": b, "launches": got,
+           "vit_launches_by_batch": by_b, "decode_tokens": eng.decode_tokens,
+           "decode_forwards": eng.decode_forwards,
+           "tokens_per_forward": eng.decode_tokens
+           / max(eng.decode_forwards, 1),
+           "peak_memory_bytes": peak, "seconds": seconds,
+           "printed": printed.getvalue().strip()}
+    log(f"phase 5: eval_cli.main printed {rec['printed']}")
+    log(f"phase 5: {len(lines) - 1} episodes ("
+        f"{[r['steps'] for r in lines[:-1]]} steps), {n} model calls, {b} "
+        f"history backfill passes in {seconds:.1f} s; launches {got} (want "
+        f"{want}), K1 by batch {by_b}; model call p50 "
+        f"{final.get('model_call_p50_ms', 0):.2f} ms p90 "
+        f"{final.get('model_call_p90_ms', 0):.2f} ms; {eng.decode_tokens} "
+        f"tokens in {eng.decode_forwards} verify forwards "
+        f"({rec['tokens_per_forward']:.3f} per forward); peak memory "
+        f"allocated {peak / 2**30:.2f} GiB")
+    del eng
+    require("the evaluation entry point",
+            episode_and_aggregate_lines=len(lines) == 3
+            and "episode_id" not in lines[-1] and lines[-1]["length"] == 2,
+            episodes_of_36_steps=all(r["steps"] == 36 for r in lines[:-1]),
+            history_backfill=b >= 1, launch_counts=got == want,
+            model_call_latency="model_call_p50_ms" in final)
+    return rec
 
 
 def device_ms(torch, fns, calls=None) -> float:
@@ -1262,18 +1702,20 @@ def device_ms(torch, fns, calls=None) -> float:
     of the CUDA kernels they launch (torch.profiler), so that a host
     slower than the kernels does not count; see time_cold_ms for the
     rotation."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     calls = calls or max(12, len(fns))
     for f in fns[:2]:
         f()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for i in range(calls):
             fns[i % len(fns)]()
-        torch.cuda.synchronize()
-    total_us = sum(e.time_range.end - e.time_range.start
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    events = cuda_events(torch, run)
+    if not events:
+        log("  no capture recorded a kernel: the time is taken with CUDA "
+            "events over the same rotation instead")
+        return time_cold_ms(torch, fns, iters=calls)
+    total_us = sum(e.time_range.end - e.time_range.start for e in events)
     return total_us / 1e3 / calls
 
 
@@ -1363,7 +1805,10 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     # 2. kernels against their plain versions at main-path shapes
-    vit = [check_vit(torch, F, va, B) for B in (1, 9, TRAIN_TOWER_BATCH)]
+    # K1 at each batch a main path sends: one frame per model call, the
+    # history backfill of num_history frames (phase 5), the training tower
+    vit = [check_vit(torch, F, va, B) for B in
+           (1, streamvln_7b().num_history, TRAIN_TOWER_BATCH)]
     flash = [check_flash(torch, F, fa, Sq) for Sq in (768, 2560)]
     int4_recs, dequant_recs = check_int4(torch, i4, quant)
     decode_recs = check_decode(torch, F, da)
@@ -1438,11 +1883,22 @@ def main() -> int:
     if second_pass:
         raise AssertionError(f"second-pass kernels in the profiled int4 "
                              f"call: {second_pass}")
-    # 3d. the three serving variants in turns
+    # 3d. the serving variants in turns (bf16_spec: prompt-lookup
+    # speculation, the evaluation entry point's default)
+    engine_spec = StreamingEngine(fused, cfg, cache_capacity=4096,
+                                  max_new_tokens=16, spec_lookup=6,
+                                  stop_ids=(tok.im_end_id,))
     paired = paired_timing(torch, np, {
         "bf16": engine, "bf16_decode_kernel": engine_dk,
-        "int4": engine4}, cfg, tok, frames, instruction)
-    del engine, engine_dk, engine4, fused
+        "int4": engine4, "bf16_spec": engine_spec}, cfg, tok, frames,
+        instruction)
+    del engine, engine_dk, engine4, engine_spec
+    gc.collect()
+    # 3e. speculative decode against greedy, call by call
+    spec = spec_vs_greedy(torch, np, fused, cfg, tok, frames, instruction)
+    # 3f. sampled decode
+    sampling = sampling_on_card(torch, fused, cfg, tok, frames, instruction)
+    del fused
     # the call recorders leave each engine in a reference cycle (its
     # restored bound `collect`): collect them now, or their weights and
     # caches stay allocated through phase 4 and its peak memory
@@ -1452,8 +1908,21 @@ def main() -> int:
     # 4. training: the kernels at the train step's shape, then LoRA SFT
     train_k = check_training_kernels(torch, F, fa)
     train = train_full_width(torch, np, params, cfg, tok, fa, va)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 5. summary
+    # 5. the evaluation entry point (it makes its own weights)
+    evaluation = eval_entry_point(torch, va, serving_counts, reset_counts)
+
+    sent = set(vit_by_batch) | set(train["vit_launches_by_batch"]) | \
+        set(evaluation["vit_launches_by_batch"])
+    unchecked = sent - {f"B={r['batch']}" for r in vit}
+    if unchecked:
+        raise AssertionError(f"the main paths sent K1 batches {unchecked} "
+                             f"that phase 2 did not check")
+
+    # 6. summary
     kernels = [
         kernel_entry("vit_attention",
                      "streamvln_tpu_torch/csrc/vit_attention.cu",
@@ -1463,12 +1932,15 @@ def main() -> int:
                          "vit_launches_by_batch"],
                      launches_int4=int4["launches"]["vit_attention"],
                      launches_decode_kernel=dk["launches"]["vit_attention"],
-                     launches_training=train["launches"]["vit_attention"]),
+                     launches_training=train["launches"]["vit_attention"],
+                     launches_eval=evaluation["launches"]["vit_attention"]),
         kernel_entry("flash_attention",
                      "streamvln_tpu_torch/csrc/flash_attention.cu",
                      "streamvln_tpu/ops/flash_attention.py:49", n_flash,
                      flash,
-                     launches_int4=int4["launches"]["flash_attention"])]
+                     launches_int4=int4["launches"]["flash_attention"],
+                     launches_eval=evaluation["launches"][
+                         "flash_attention"])]
     for name, src in (
             ("flash_attention_lse",
              "streamvln_tpu_torch/csrc/flash_attention.cu"),
@@ -1493,7 +1965,8 @@ def main() -> int:
         kernel_entry("int4_dequant_split",
                      "streamvln_tpu_torch/csrc/int4_matmul.cu",
                      "streamvln_tpu/ops/int4_matmul.py:170",
-                     int4["launches"]["int4_dequant_split"], dequant_recs),
+                     int4["launches"]["int4_dequant_split"], dequant_recs,
+                     head=2),
         kernel_entry("decode_attention",
                      "streamvln_tpu_torch/csrc/decode_attention.cu",
                      "streamvln_tpu/ops/decode_attention.py:31",
@@ -1508,7 +1981,9 @@ def main() -> int:
                    "calls": calls,
                    "wall_ms": wall, "profile": prof, "reference": ref3,
                    "decode_kernel": dk, "int4": int4, "paired": paired,
+                   "spec_vs_greedy": spec, "sampling": sampling,
                    "training_kernels": train_k, "training": train,
+                   "evaluation": evaluation,
                    "seconds": seconds}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -101,6 +101,20 @@ def qwen2_7b() -> Qwen2Config:
     return Qwen2Config()
 
 
+def qwen2_1_5b() -> Qwen2Config:
+    return Qwen2Config(
+        vocab_size=151936, hidden_size=1536, intermediate_size=8960,
+        num_layers=28, num_heads=12, num_kv_heads=2, head_dim=128,
+        tie_word_embeddings=True)
+
+
+def qwen2_0_5b() -> Qwen2Config:
+    return Qwen2Config(
+        vocab_size=151936, hidden_size=896, intermediate_size=4864,
+        num_layers=24, num_heads=14, num_kv_heads=2, head_dim=64,
+        tie_word_embeddings=True)
+
+
 def siglip_so400m() -> SigLIPConfig:
     return SigLIPConfig()
 
@@ -128,6 +142,28 @@ def tiny_streamvln(vocab_size: int = 512) -> StreamVLNConfig:
     return StreamVLNConfig(
         vision=tiny_vision(), llm=tiny_llm(vocab_size),
         num_frames=8, num_future_steps=2, num_history=2)
+
+
+def build_config(args) -> StreamVLNConfig:
+    """The stack a CLI's arguments name (a twin of the reference's
+    `train.py::build_config`): `args.model_size` is "7b", "1.5b", "0.5b" or
+    "tiny" (tiny tower too), with `spatial_pool_mode`, `num_frames`,
+    `num_future_steps` and `num_history`. The reference's other LLM
+    families (its `llm_config` registry) are a later slice of the port."""
+    short = {"7b": qwen2_7b, "1.5b": qwen2_1_5b, "0.5b": qwen2_0_5b,
+             "tiny": tiny_llm}
+    if args.model_size not in short:
+        raise NotImplementedError(
+            f"model_size {args.model_size!r}: the LLM family registry is "
+            f"ROADMAP queue 1 item 10 of the PyTorch port; choose one of "
+            f"{sorted(short)}")
+    vision = tiny_vision() if args.model_size == "tiny" else siglip_so400m()
+    return StreamVLNConfig(
+        vision=vision, llm=short[args.model_size](),
+        spatial_pool_mode=args.spatial_pool_mode,
+        num_frames=args.num_frames,
+        num_future_steps=args.num_future_steps,
+        num_history=args.num_history)
 
 
 DTYPE_MAP = {

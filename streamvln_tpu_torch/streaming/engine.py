@@ -1,8 +1,9 @@
-"""Streaming inference engine of the PyTorch port (greedy path).
+"""Streaming inference engine of the PyTorch port.
 
 Counterpart of `streamvln_tpu/streaming/engine.py::StreamingEngine`, with
-the same public API for this slice: `generate`, `generate_batch(_async)` /
-`collect`, `reset`, `reset_for_env`, `reset_episode`, `backfill(_batch)`.
+the same public API: `generate`, `generate_batch(_async)` / `collect`,
+`continue_decode`, `reset`, `reset_for_env`, `reset_episode`,
+`backfill(_batch)`.
 
 - **KV cache** (models/qwen2.KVCache): fixed capacity, per-row lengths; a
   window reset sets the env's length to 0.
@@ -11,11 +12,21 @@ the same public API for this slice: `generate`, `generate_batch(_async)` /
   slow memory gathers `num_history` cached frames. The last slot is
   reserved scratch for inactive batch rows.
 - **One call** (`_prefill_decode`): preprocess + encode the frame, splice,
-  prefill into the cache at per-row offsets, then greedy decode with
-  stop-token early exit, as an eager loop (one host check per token).
+  prefill into the cache at per-row offsets, then decode, an eager loop
+  with one host check per iteration: one token per forward, greedy or
+  sampled (temperature / top-p; `_token_loop`), or prompt-lookup
+  speculative (`spec_lookup > 0`, `_spec_loop`).
+- **Speculative decode** drafts `spec_lookup` tokens from `ids_buf`, a
+  token-id shadow of the KV slots, verifies them in one cached forward and
+  keeps the longest prefix that greedy decoding would emit. The reference
+  appends into a scratch cache merged once; the port appends in place, so
+  rejected drafts stay written past the row's length and a rollback only
+  sets the length (visibility `k_pos <= q_pos` with slot == position keeps
+  them unseen, and the next write overwrites them).
 - **Buckets**: prompts pad to a few lengths, as in the reference.
 - **Pending token**: the last generated token of a call is not fed in
-  that call; it is prepended to the next call's tokens.
+  that call; it is prepended to the next call's tokens, or fed first by
+  `continue_decode`.
 - **Weights**: float, or quantized by models/quant.py (int8, packed
   int4: decode streams the int4 projections through K6); q/k/v and
   gate/up are fused in the constructor (models/fuse.py), as the
@@ -24,10 +35,14 @@ the same public API for this slice: `generate`, `generate_batch(_async)` /
 - **attn_impl**: "auto" (K1 tower, K2 prefill, dense decode), "dense",
   or "decode_kernel" (K1 tower, dense prefill, K8 decode over the live
   prefix; opt-in, as in the reference, where its own decode loop never
-  reaches the kernel).
+  reaches the kernel). The speculative verify forward has spec_lookup + 1
+  queries, so it is dense under every impl.
+- **Sampling** draws from a `torch.Generator` on the engine's device,
+  seeded from (`sample_seed`, the engine's sampled-call count): the
+  support, the greedy gate and determinism by seed are the reference's,
+  the bits of `jax.random` are not.
 
-Sampling, speculative decode, `continue_decode`, fused preprocessing and
-the int8 KV cache are later slices of the port.
+Fused preprocessing and the int8 KV cache are later slices of the port.
 """
 from __future__ import annotations
 
@@ -82,44 +97,206 @@ def _encode(params, cfg, frames_u8, attn_impl, dtype):
                           -1).to(dtype)
 
 
-def _greedy_loop(params, cfg, cache, last_logits, max_new: int,
-                 stop_ids, attn_impl, dtype, force_done):
-    """Greedy decode from `last_logits`. Returns (out [B, max_new],
-    n_out [B]); appends the fed tokens' KV in place. Rows done (stopped,
-    or in force_done) never advance their KV length and are not written."""
+def _is_stop(t: torch.Tensor, stop: torch.Tensor) -> torch.Tensor:
+    """Elementwise: is t one of the stop ids (any shape)."""
+    return (t[..., None] == stop).any(dim=-1)
+
+
+def _n_out(out: torch.Tensor, stop: torch.Tensor, n_steps: int):
+    """Tokens per row up to and including the first stop, else n_steps."""
+    stop_mask = _is_stop(out, stop)
+    has_stop = stop_mask.any(dim=1)
+    first_stop = stop_mask.int().argmax(dim=1).to(torch.int32)
+    return torch.where(has_stop, first_stop + 1,
+                       torch.full_like(first_stop, n_steps))
+
+
+def _shadow_write(ids_buf: torch.Tensor, vals: torch.Tensor,
+                  offsets: torch.Tensor, active: torch.Tensor) -> None:
+    """Masked in-place write into the token-id shadow: row b gets vals[b]
+    ([B, W]) at offsets[b]; rows with active[b] False keep what they hold.
+    The start is clamped to capacity - W as the reference's
+    dynamic_update_slice clamps it, so both write the same slots."""
+    W = vals.shape[1]
+    start = offsets.long().clamp(0, ids_buf.shape[1] - W)
+    idx = start[:, None] + torch.arange(W, device=ids_buf.device)[None]
+    new = torch.where(active[:, None], vals.to(ids_buf.dtype),
+                      ids_buf.gather(1, idx))
+    ids_buf.scatter_(1, idx, new)
+
+
+def _decode_step(params, cfg, cache, fed, live, attn_impl, dtype,
+                 advance=True):
+    """One cached forward of `fed` [B, S] at each row's length. Rows with
+    live False are not written; with `advance` the live rows' lengths
+    grow by S. Returns f32 logits [B, S, V]."""
+    emb = qwen2.embed_tokens(params["llm"], fed).to(dtype)
+    S = fed.shape[1]
+    pos = cache.length[:, None] + torch.arange(
+        S, dtype=torch.int32, device=fed.device)[None]
+    grow = live.to(torch.int32) * S if advance else \
+        torch.zeros_like(cache.length)
+    logits, _ = qwen2.forward(params["llm"], cfg.llm, emb, pos, cache=cache,
+                              new_lengths=grow, attn_impl=attn_impl,
+                              write_mask=live)
+    return logits
+
+
+def _argmax(logits: torch.Tensor) -> torch.Tensor:
+    return logits.argmax(dim=-1).to(torch.int32)
+
+
+def _token_loop(params, cfg, cache, last_logits, max_new: int, stop_ids,
+                attn_impl, dtype, force_done, pick, ids_buf=None):
+    """One token per forward from `last_logits`, each chosen by
+    `pick(logits [B, V])`: `_argmax` (the reference's `_greedy_loop`) or a
+    sampler (its `_sample_loop`). Returns (out [B, max_new], n_out [B],
+    iters [B]); appends the fed tokens' KV in place. Rows done (stopped,
+    or in force_done) never advance their KV length and are not written.
+    When the engine keeps the speculative shadow (sampled calls of a
+    speculative engine), each fed token is recorded there first, so that a
+    later speculative call drafts from fresh context."""
     B = last_logits.shape[0]
-    dev = last_logits.device
-    stop = torch.tensor(stop_ids, dtype=torch.int32, device=dev)
-
-    def is_stop(t):
-        return (t[:, None] == stop[None, :]).any(dim=-1) if len(stop_ids) \
-            else torch.zeros_like(t, dtype=torch.bool)
-
-    first = last_logits.argmax(dim=-1).to(torch.int32)
-    out = torch.zeros((B, max_new), dtype=torch.int32, device=dev)
+    stop = torch.tensor(stop_ids, dtype=torch.int32,
+                        device=last_logits.device)
+    first = pick(last_logits)
+    out = torch.zeros((B, max_new), dtype=torch.int32,
+                      device=last_logits.device)
     out[:, 0] = first
-    done = is_stop(first) | force_done
+    done = _is_stop(first, stop) | force_done
     cur = first
     n = 1
     while n < max_new and not bool(done.all()):
-        emb = qwen2.embed_tokens(params["llm"], cur[:, None]).to(dtype)
-        live = ~done
-        logits, _ = qwen2.forward(
-            params["llm"], cfg.llm, emb, cache.length[:, None], cache=cache,
-            new_lengths=live.to(torch.int32), attn_impl=attn_impl,
-            write_mask=live)
-        nxt = logits[:, 0].argmax(dim=-1).to(torch.int32)
+        if ids_buf is not None:
+            _shadow_write(ids_buf, cur[:, None], cache.length, ~done)
+        logits = _decode_step(params, cfg, cache, cur[:, None], ~done,
+                              attn_impl, dtype)
+        nxt = pick(logits[:, 0])
         out[:, n] = torch.where(done, out[:, n], nxt)
-        done = done | is_stop(nxt)
+        done = done | _is_stop(nxt, stop)
         cur = torch.where(done, cur, nxt)
         n += 1
-    stop_mask = (out[:, :, None] == stop[None, None, :]).any(dim=-1) \
-        if len(stop_ids) else torch.zeros_like(out, dtype=torch.bool)
-    has_stop = stop_mask.any(dim=1)
-    first_stop = stop_mask.int().argmax(dim=1).to(torch.int32)
-    n_out = torch.where(has_stop, first_stop + 1,
-                        torch.full_like(first_stop, n))
-    return out, n_out
+    n_out = _n_out(out, stop, n)
+    return out, n_out, (n_out - 1).clamp(min=0)
+
+
+def _nucleus(logits: torch.Tensor, temp: torch.Tensor,
+             top_p: torch.Tensor) -> torch.Tensor:
+    """f32 logits / temp with the tokens outside the top-p nucleus at -inf,
+    as the reference's `_sample_tok` cuts them: sort descending, drop a
+    token once the probability before it exceeds top_p, always keep the
+    best. The cut is by sorted index (a stable sort, so among logits tied
+    at the cutoff the lower token ids stay). HF's TopPLogitsWarper keeps
+    as many tokens but, sorting ascending, the higher ids of such a tie."""
+    lg = (logits / temp.clamp(min=1e-6)[:, None]).float()
+    order = torch.argsort(-lg, dim=-1, stable=True)
+    pr = torch.softmax(lg.gather(-1, order), dim=-1)
+    before = torch.cumsum(pr, dim=-1) - pr
+    kth = ((before <= top_p[:, None]).sum(dim=-1) - 1).clamp(min=0)
+    ranks = torch.empty_like(order)
+    ranks.scatter_(-1, order, torch.arange(
+        lg.shape[-1], device=lg.device).expand_as(order))
+    return torch.where(ranks <= kth[:, None], lg,
+                       torch.full_like(lg, float("-inf")))
+
+
+def _sample_tok(logits: torch.Tensor, temp: torch.Tensor,
+                top_p: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    """Temperature + nucleus pick (`_nucleus`) drawn by Gumbel-max with
+    `gen`; rows with temp <= 1e-3 take the argmax (HF's do_sample gate)."""
+    greedy = _argmax(logits)
+    masked = _nucleus(logits, temp, top_p)
+    u = torch.rand(masked.shape, generator=gen, device=masked.device,
+                   dtype=torch.float32)
+    gumbel = -torch.log(-torch.log(u.clamp(min=1e-20)))
+    sampled = (masked + gumbel).argmax(dim=-1).to(torch.int32)
+    return torch.where(temp > 1e-3, sampled, greedy)
+
+
+def _draft(ids_buf: torch.Tensor, length: torch.Tensor, p: torch.Tensor,
+           c: torch.Tensor, k: int) -> torch.Tensor:
+    """Prompt-lookup drafts [B, k] for every row at once: the k shadow ids
+    after the most recent trigram match of (ids[length-2], p, c) below the
+    row's length, else after the most recent bigram match of (p, c), else
+    the impossible id -7 (the row makes plain one-token progress). The
+    window starts at most at capacity - k, as the reference's slice."""
+    B, cap = ids_buf.shape
+    dev = ids_buf.device
+    idx = torch.arange(cap, device=dev)[None]
+    fill = torch.full((B, 2), -2, dtype=ids_buf.dtype, device=dev)
+    prev1 = torch.cat([fill[:, :1], ids_buf[:, :-1]], dim=1)
+    prev2 = torch.cat([fill, ids_buf[:, :-2]], dim=1)
+    length = length.long()
+    p2 = ids_buf.gather(1, (length - 2).clamp(0, cap - 1)[:, None])
+    m2 = (prev1 == p[:, None]) & (ids_buf == c[:, None]) & \
+        (idx < length[:, None])
+    m3 = m2 & (prev2 == p2) & (length >= 2)[:, None]
+    none = torch.full_like(idx.expand(B, -1), -1)
+    j3 = torch.where(m3, idx, none).max(dim=1).values
+    j2 = torch.where(m2, idx, none).max(dim=1).values
+    j = torch.where(j3 >= 0, j3, j2)
+    start = (j + 1).clamp(0, cap - k)
+    dr = ids_buf.gather(1, start[:, None] + torch.arange(k, device=dev)[None])
+    return torch.where((j >= 0)[:, None], dr, torch.full_like(dr, -7))
+
+
+def _spec_loop(params, cfg, cache, ids_buf, last_logits, p0, max_new: int,
+               k: int, stop_ids, attn_impl, dtype, force_done):
+    """Prompt-lookup speculative greedy decode (the reference's
+    `_spec_loop`). Each iteration drafts k tokens (`_draft`), feeds
+    [cur, d_1..d_k] through one cached forward and keeps the longest
+    prefix on which argmax agrees with the draft, trimmed at the first
+    stop token and at the token budget: 1 to k+1 tokens per forward, each
+    the greedy continuation. The fed ids go into the shadow; the KV
+    rollback keeps exactly the emitted entries by setting the length.
+    Done rows write neither KV nor shadow. Returns (out [B, max_new],
+    n_out [B], iters [B]: verify forwards per row)."""
+    B = last_logits.shape[0]
+    dev = last_logits.device
+    stop = torch.tensor(stop_ids, dtype=torch.int32, device=dev)
+    first = _argmax(last_logits)
+    out = torch.zeros((B, max_new + k + 1), dtype=torch.int32, device=dev)
+    out[:, 0] = first
+    n = torch.ones((B,), dtype=torch.int32, device=dev)
+    done = _is_stop(first, stop) | force_done | (n >= max_new)
+    iters = torch.zeros((B,), dtype=torch.int32, device=dev)
+    ar = torch.arange(k + 1, dtype=torch.int32, device=dev)[None]
+    c0, p0 = first, p0.to(torch.int32)
+    while not bool(done.all()):
+        live = ~done
+        drafts = _draft(ids_buf, cache.length, p0, c0, k)
+        fed = torch.cat([c0[:, None], drafts], dim=1)          # [B, k+1]
+        old = cache.length
+        logits = _decode_step(params, cfg, cache, fed, live, attn_impl,
+                              dtype, advance=False)
+        truth = _argmax(logits)                                # [B, k+1]
+        # longest accepted prefix: d_{i+1} must equal truth[i]
+        match = (drafts == truth[:, :k]).to(torch.int32)
+        raw_emit = torch.cumprod(match, dim=1).sum(dim=1).to(torch.int32) + 1
+        stop_in = _is_stop(truth, stop) & (ar < raw_emit[:, None])
+        has_stop = stop_in.any(dim=1)
+        first_stop = stop_in.int().argmax(dim=1).to(torch.int32)
+        emit = torch.where(has_stop, first_stop + 1, raw_emit)
+        emit = torch.minimum(emit, max_new - n)
+        emit = torch.where(done, torch.zeros_like(emit), emit)
+        stopped = has_stop & (first_stop + 1 <= emit)
+        # emitted tokens go to out[b, n_b : n_b + emit_b]; the rest of the
+        # k+1 columns land in the spill columns past max_new
+        col = torch.where(ar < emit[:, None], n[:, None] + ar,
+                          torch.full_like(ar, max_new).expand(B, -1))
+        out.scatter_(1, col.long(), truth)
+        _shadow_write(ids_buf, fed, old, live)
+        cache.length = old + emit
+        last_i = (emit - 1).clamp(min=0)[:, None].long()
+        last_tok = truth.gather(1, last_i)[:, 0]
+        prev_tok = truth.gather(1, (last_i - 1).clamp(min=0))[:, 0]
+        new_c0 = torch.where(emit > 0, last_tok, c0)
+        p0 = torch.where(emit > 1, prev_tok, torch.where(emit == 1, c0, p0))
+        c0 = new_c0
+        iters = iters + live.to(torch.int32)
+        n = n + emit
+        done = done | stopped | (n >= max_new)
+    return out[:, :max_new], n, iters
 
 
 @dataclasses.dataclass
@@ -143,6 +320,7 @@ class StreamingEngine:
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
                  compute_dtype=torch.bfloat16,
                  attn_impl: str = "auto",
+                 spec_lookup: int = 0,
                  device="cuda"):
         self.device = resolve_device(device)
         qwen2.check_supported(cfg.llm)
@@ -159,6 +337,14 @@ class StreamingEngine:
         self.compute_dtype = compute_dtype
         self.cache = KVCache.create(cfg.llm, n_envs, cache_capacity,
                                     compute_dtype, self.device)
+        # prompt-lookup speculative decoding: verify spec_lookup drafted
+        # tokens per decode forward (greedy-exact; _spec_loop); 0 = one
+        # token per forward. Its token-id shadow of the KV slots (-1 for
+        # vision slots and never-written ones) exists only then.
+        self.spec_lookup = int(spec_lookup)
+        self.ids_buf = torch.full((n_envs, cache_capacity), -1,
+                                  dtype=torch.int32, device=self.device) \
+            if self.spec_lookup else None
         # +1 scratch slot: inactive batch rows write their dummy-frame
         # encoding there; hosts never assign it
         self.feat_slots = feat_slots
@@ -171,6 +357,15 @@ class StreamingEngine:
         # events; None on CPU), and its prefill's last-position logits
         self.last_phase_ms = None
         self.last_logits = None
+        # decode telemetry: tokens emitted by the decode loops against the
+        # forwards that produced them (greedy and sampled: one each;
+        # speculative: up to spec_lookup + 1)
+        self.decode_tokens = 0
+        self.decode_forwards = 0
+        # sampling RNG stream: seed + per-call counter (deterministic given
+        # the seed and the order of sampled calls)
+        self.sample_seed = 0
+        self._sample_calls = 0
 
     # -- reset ----------------------------------------------------------
     def reset(self):
@@ -245,6 +440,35 @@ class StreamingEngine:
                 self.cfg.num_history * self.cfg.tokens_per_frame)
         return layout, hist_slots, write_slot
 
+    def _sample_params(self, temperature, top_p):
+        """(temp [B], top_p [B], generator) for a sampling call, or None
+        for greedy (HF's do_sample gate: temperature <= 0.001 is greedy).
+        Scalars apply to every row; dicts ({env: value}) give per-row
+        settings, and rows at temperature 0 take the exact argmax. Each
+        sampling call draws from a generator on the engine's device seeded
+        from (sample_seed, the count of sampling calls so far)."""
+        B = self.n_envs
+
+        def row_values(v, default):
+            out = np.full((B,), default, np.float32)
+            if isinstance(v, dict):
+                for e, x in v.items():
+                    out[int(e)] = float(x)
+            elif v is not None:
+                out[:] = float(v)
+            return out
+
+        temps = row_values(temperature, 0.0)
+        if not np.any(temps > 1e-3):
+            return None
+        self._sample_calls += 1
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed((int(self.sample_seed) * 1_000_003
+                         + self._sample_calls) % (1 << 63))
+        return (torch.from_numpy(temps).to(self.device),
+                torch.from_numpy(row_values(top_p, 1.0)).to(self.device),
+                gen)
+
     def generate(self, env: int, frame_u8: np.ndarray, turn_ids: np.ndarray,
                  step_id: int, history_steps: Sequence[int] = (),
                  temperature: Optional[float] = None,
@@ -263,13 +487,11 @@ class StreamingEngine:
     def generate_batch_async(self, requests, temperature=None,
                              top_p=None) -> dict:
         """Run model calls for several envs in one batch. requests:
-        iterable of (env, frame_u8, turn_ids, step_id, history_steps).
-        The decode loop checks its stop condition on the host each token,
-        so the work is done on return; `collect` settles bookkeeping."""
-        if temperature is not None and float(temperature) > 1e-3:
-            raise NotImplementedError(
-                "sampled decoding is a later slice of the PyTorch port")
-        del top_p   # only read by sampled decoding
+        iterable of (env, frame_u8, turn_ids, step_id, history_steps);
+        temperature / top_p: a scalar for every row or {env: value}. The
+        decode loops check their stop condition on the host each
+        iteration, so the work is done on return; `collect` settles
+        bookkeeping."""
         requests = list(requests)
         envs = [r[0] for r in requests]
         if not envs or len(set(envs)) != len(envs):
@@ -292,7 +514,7 @@ class StreamingEngine:
             self._expanded_len(ids_with_pending(r[0], r[2]))
             for r in requests))
         cap = self.cache.capacity
-        scr = _scratch_size(self.max_new)
+        scr = _scratch_size(self.max_new + self.spec_lookup)
         for env, frame_u8, turn_ids, step_id, history_steps in requests:
             length = self._expanded_len(ids_with_pending(env, turn_ids))
             worst = self.envs[env].kv_length + length + scr
@@ -332,15 +554,16 @@ class StreamingEngine:
         result = self._prefill_decode(
             torch.from_numpy(frames).to(self.device),
             torch.from_numpy(packed).to(self.device),
-            torch.from_numpy(meta).to(self.device), timer)
+            torch.from_numpy(meta).to(self.device), timer,
+            self._sample_params(temperature, top_p))
         return {"result": result, "envs": envs,
                 "prefill_lens": prefill_lens, "timer": timer}
 
     @torch.no_grad()
-    def _prefill_decode(self, frames, packed, meta, timer):
-        """One streaming call. Returns [B, 1 + max_new] int32: n_out, then
-        the tokens. Inactive rows keep their KV lengths and feature
-        slots."""
+    def _prefill_decode(self, frames, packed, meta, timer, sample):
+        """One streaming call. Returns [B, 2 + max_new] int32: n_out, the
+        tokens, then the row's verify forwards. Inactive rows keep their KV
+        lengths, shadow and feature slots."""
         cfg, params, dt = self.cfg, self.params, self.compute_dtype
         token_ids = packed[:, 0]
         is_vision = packed[:, 1].bool()
@@ -371,22 +594,51 @@ class StreamingEngine:
                                          vision_index).to(dt)
         positions = self.cache.length[:, None] + torch.arange(
             T, dtype=torch.int32, device=self.device)[None]
+        offsets = self.cache.length
         logits, _ = qwen2.forward(
             params["llm"], cfg.llm, embeds, positions, cache=self.cache,
             new_lengths=lengths, attn_impl=self.attn_impl,
             write_mask=active, logits_positions=lengths - 1)
         self.last_logits = logits[:, 0]
+        if self.ids_buf is not None:
+            # the prompt's ids (vision slots -1) on every call that keeps a
+            # shadow: sampled calls advance the KV too, and a stale shadow
+            # would collapse later acceptance; idle rows keep theirs
+            _shadow_write(self.ids_buf, torch.where(
+                is_vision, torch.full_like(token_ids, -1), token_ids),
+                offsets, active)
 
-        # 4. greedy decode; inactive rows are done from the start
+        # 4. decode; inactive rows are done from the start
         timer.mark()
-        out, n_out = _greedy_loop(params, cfg, self.cache, logits[:, 0],
-                                  self.max_new, self.stop_ids,
-                                  self.attn_impl, dt, force_done=~active)
+        p0 = token_ids.gather(1, (lengths - 1).clamp(min=0)[:, None]
+                              .long())[:, 0]
+        result = self._decode(logits[:, 0], p0, active, sample)
         timer.mark()
         self.cache.length = torch.where(active, self.cache.length,
                                         saved_length)
-        n_out = torch.where(active, n_out, torch.zeros_like(n_out))
-        return torch.cat([n_out[:, None], out], dim=1)
+        return result
+
+    def _decode(self, last_logits, p0, active, sample):
+        """The decode loop this call takes: sampled when `sample` is set,
+        else speculative with spec_lookup > 0, else greedy. p0 is the token
+        before the one `last_logits` continues (the speculative drafter's
+        context). Returns [B, 2 + max_new]: n_out, tokens, verify
+        forwards; zeros in the counts of inactive rows."""
+        if sample is None and self.spec_lookup:
+            out, n_out, iters = _spec_loop(
+                self.params, self.cfg, self.cache, self.ids_buf, last_logits,
+                p0, self.max_new, self.spec_lookup, self.stop_ids,
+                self.attn_impl, self.compute_dtype, ~active)
+        else:
+            pick = _argmax if sample is None else \
+                (lambda lg: _sample_tok(lg, *sample))
+            out, n_out, iters = _token_loop(
+                self.params, self.cfg, self.cache, last_logits, self.max_new,
+                self.stop_ids, self.attn_impl, self.compute_dtype, ~active,
+                pick, self.ids_buf)
+        zero = torch.zeros_like(n_out)
+        return torch.cat([torch.where(active, n_out, zero)[:, None], out,
+                          torch.where(active, iters, zero)[:, None]], dim=1)
 
     def collect(self, handle) -> dict:
         """Bring a call's results to the host ({env: token list}) and
@@ -396,16 +648,66 @@ class StreamingEngine:
         out = {}
         self._inflight.difference_update(handle["envs"])
         for env in handle["envs"]:
-            n_out = int(res[env, 0])
-            toks = [int(t) for t in res[env, 1: 1 + n_out]]
-            if toks:
-                self.envs[env].pending_token = toks[-1]
+            toks = self._settle(env, res)
             # KV grew by the prefill plus each decode token fed (the last
             # emitted token is pending, not yet in KV)
             self.envs[env].kv_length += handle["prefill_lens"][env] \
-                + max(n_out - 1, 0)
+                + max(len(toks) - 1, 0)
             out[env] = toks
         return out
+
+    def _settle(self, env: int, res: np.ndarray) -> List[int]:
+        """Tokens of one env from a call's result rows; settles the pending
+        token and the decode telemetry."""
+        n_out = int(res[env, 0])
+        toks = [int(t) for t in res[env, 1: 1 + n_out]]
+        self.decode_tokens += max(n_out - 1, 0)
+        self.decode_forwards += int(res[env, 1 + self.max_new])
+        if toks:
+            self.envs[env].pending_token = toks[-1]
+        return toks
+
+    @torch.no_grad()
+    def continue_decode(self, env: int,
+                        temperature: Optional[float] = None,
+                        top_p: Optional[float] = None) -> List[int]:
+        """Decode one more chunk (up to max_new_tokens) for `env` from its
+        pending token, without a new frame or turn: feed the pending token,
+        then run the same decode loop as a call. generate() followed by
+        continue_decode() chunks equals one generate() with a larger
+        budget, token for token."""
+        st = self.envs[env]
+        if st.pending_token is None:
+            raise RuntimeError(
+                f"env {env}: no pending token; call generate() first")
+        if env in self._inflight:
+            raise RuntimeError(f"env {env} has an uncollected async handle")
+        worst = st.kv_length + 1 + _scratch_size(
+            self.max_new + self.spec_lookup)
+        if worst > self.cache.capacity:
+            raise RuntimeError(
+                f"env {env}: KV cache would overflow ({worst} > "
+                f"capacity {self.cache.capacity})")
+        B = self.n_envs
+        pending = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        pending[env] = st.pending_token
+        active = torch.zeros((B,), dtype=torch.bool, device=self.device)
+        active[env] = True
+        sample = self._sample_params(temperature, top_p)
+        saved_length = self.cache.length.clone()
+        if self.ids_buf is not None:
+            _shadow_write(self.ids_buf, pending[:, None], self.cache.length,
+                          active)
+        # inactive rows are not written; their lengths are restored below
+        logits = _decode_step(self.params, self.cfg, self.cache,
+                              pending[:, None], active, self.attn_impl,
+                              self.compute_dtype)
+        result = self._decode(logits[:, 0], pending, active, sample)
+        self.cache.length = torch.where(active, self.cache.length,
+                                        saved_length)
+        toks = self._settle(env, result.cpu().numpy())
+        st.kv_length += 1 + max(len(toks) - 1, 0)
+        return toks
 
     def backfill(self, env: int, frame_u8: np.ndarray, step_id: int):
         """Encode a history frame never seen at a model call."""

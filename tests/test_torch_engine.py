@@ -145,9 +145,12 @@ def test_engine_refuses_overflow_and_sampling(params):
     with pytest.raises(ValueError, match="exceeds largest bucket"):
         te.generate(0, frame, np.asarray(tok.encode("x" * 1100), np.int32),
                     step_id=0)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        te.generate(0, frame, _turn(tok, "hi", True), step_id=0,
-                    temperature=0.7)
+    # sampled decoding is served now: a sampled call returns in-vocabulary
+    # tokens and settles the same bookkeeping as a greedy one
+    toks = te.generate(0, frame, _turn(tok, "hi", True), step_id=0,
+                       temperature=0.7)
+    assert toks and all(0 <= t < te.cfg.llm.vocab_size for t in toks)
+    assert te.envs[0].kv_length == int(te.cache.length[0])
 
 
 def test_cuda_entry_points_raise_without_a_card(params):

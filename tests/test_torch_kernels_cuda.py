@@ -551,3 +551,50 @@ def test_int4_engine_on_card_matches_dequantized_dense(dev):
     for a, b in zip(logits["int4"], logits["dense"]):
         cos = torch.nn.functional.cosine_similarity(a, b, dim=-1).min()
         assert cos.item() > 0.99, cos.item()
+
+
+# K6 at the speculative verify's 7 rows (spec_lookup 6 + the fed token) at
+# the four layer projections of the main path: fused qkv, o, fused gate/up
+# and down; the tolerance, bit-equality and one launch per call as above
+@pytest.mark.parametrize("din,dout", [(3584, 4608), (3584, 3584),
+                                      (3584, 37888), (18944, 3584)])
+def test_int4_kernel_at_the_spec_verify_rows(dev, din, dout):
+    from streamvln_tpu_torch.ops import int4_matmul as i4
+    wp, s = _int4_weight(din, dout, dev, 7, L=1)
+    x = torch.randn((7, din), device=dev).to(torch.bfloat16)
+    n6 = i4.launches
+    out = i4.int4_matmul(x, wp, s, 0)
+    again = i4.int4_matmul(x, wp, s, 0)
+    torch.cuda.synchronize()
+    assert i4.launches == n6 + 2 and torch.equal(out, again)
+    ref = i4.int4_matmul_plain(x, wp, s, 0)
+    lo, hi = i4._scaled_halves(wp[0], s[0], torch.bfloat16)
+    term = x[:, 0::2].float().abs() @ lo.float().abs() \
+        + x[:, 1::2].float().abs() @ hi.float().abs()
+    assert bool(((out - ref).abs() <= 1e-5 * term + 1e-6).all())
+
+
+def test_spec_engine_call_on_card_matches_greedy(dev):
+    """Speculative calls (spec_lookup=6) against the greedy calls of the
+    same weights and inputs, bf16 through the kernels on a small stack at
+    the real head dims, over 9 agent steps (5 calls, a window reset with
+    <memory>): chip_smoke.spec_vs_greedy holds every call equal, or, where
+    bf16 rounding of the 7-query verify forward and the 1-query step part
+    them, the first differing token the greedy runner-up at a greedy gap
+    within SPEC_FLIP_BOUND x the largest logit difference of the two paths
+    at the positions where they agree; the logits point the same way up
+    to there."""
+    import chip_smoke as cs
+    from streamvln_tpu_torch.data.tokenizer import ByteTokenizer
+    from streamvln_tpu_torch.weights import init
+
+    cfg = _small_wide_cfg()
+    params = init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    frames = np.random.default_rng(5).integers(0, 256, (9, 48, 64, 3),
+                                               np.uint8)
+    r = cs.spec_vs_greedy(torch, np, params, cfg, ByteTokenizer(), frames,
+                          "go to the door", steps=9, capacity=2048,
+                          buckets=(256, 512, 1024))
+    assert r["compared_calls"] == 5
+    assert r["spec_forwards"] >= 1
+    assert r["agreeing_positions"] >= 1
