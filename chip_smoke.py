@@ -61,8 +61,18 @@ Phases (any failure exits non-zero before the result line):
      SPEC_FLIP_BOUND x the largest logit difference of the two paths at
      the positions where they agree, with the speculative token the
      greedy runner-up;
-     3f. sampling: a temperature 0.7 / top-p 0.9 call deterministic by seed,
-     and a greedy row beside a sampled row equal to a greedy engine's;
+     3f. sampling: a temperature 0.7 / top-p 0.9 call deterministic by seed
+     and equal to an engine's that runs its sampled steps eagerly, and a
+     greedy row beside a sampled row equal to a greedy engine's;
+     3g. (run right after 3d, on its four engines) every decode forward of
+     the 9 calls of each variant replayed and checked bit for bit against
+     the same step run eagerly from the state the replay starts from; a
+     tensor rebound after capture makes the next replay raise.
+     From phase 3 on, every decode graph is captured under
+     torch.cuda.set_sync_debug_mode("error") and its capture time logged;
+     every decode forward is one replay of the graph captured for its loop
+     (streaming/decode_graph.py), and the profiled calls count the host's
+     kernel launches and copies per decode forward;
   4. training: (a) the training kernels K3 (forward + LSE), K4 (dQ) and
      K5 (dK/dV) against their plain versions at the train step's shape
      (B=2, S=4096, 28/4 heads, D=128, bf16, 3,900 valid tokens, padded
@@ -80,8 +90,8 @@ Phases (any failure exits non-zero before the result line):
      --env_backend fake --num_episodes 2 --max_steps_per_episode 36, the
      default --spec_lookup 6) in-process on the phase's own streamvln_7b
      weights (random bf16, steered to walk: steer_to_walk), with
-     result.json, exact K1/K2 launch counts, model-call p50/p90, tokens per
-     verify forward and peak memory;
+     result.json, exact K1/K2 launch counts, every verify forward a graph
+     replay, model-call p50/p90, tokens per verify forward and peak memory;
   6. print the kernels JSON line (K1-K8; each with bound_share = bound_ms
      / ms and vs_library = ms / library_ms), the card line, and the
      result line.
@@ -1044,16 +1054,7 @@ def profile_call(torch, fn, unprofiled_ms) -> dict:
         wall = (time.perf_counter() - t0) * 1e3
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy_us, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy_us += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy_us += cur_e - cur_s
+    busy_us = busy_within(spans)
     by_name = {}
     for s, e, name in sorted((e.time_range.start, e.time_range.end, e.name)
                              for e in prof.events()
@@ -1069,13 +1070,92 @@ def profile_call(torch, fn, unprofiled_ms) -> dict:
            "kernel_launches": len(spans),
            "top": [{"name": n[:120], "ms": t, "count": c}
                    for n, (t, c) in top],
-           "kernel_names": sorted(n[:120] for n in by_name)}
+           "kernel_names": sorted(n[:120] for n in by_name),
+           **host_ops(prof, spans)}
     log(f"profile: device busy {busy:.2f} ms; idle share "
         f"{rec['device_idle_share']:.3f} of the unprofiled median wall "
         f"{unprofiled_ms:.2f} ms ({rec['device_idle_share_profiled_wall']:.3f}"
         f" of the profiled wall {wall:.2f} ms); {len(spans)} kernel launches")
+    log(f"  host runtime calls {rec['runtime_calls']}; between graph "
+        f"launches {rec['between_graph_launches']} over "
+        f"{rec['graph_intervals']} decode forwards: "
+        f"{rec['host_ops_per_decode_forward']} kernel launches or copies "
+        f"per decode forward besides its graph launch and flag read")
+    if rec["graph_intervals"]:
+        log(f"  decode window (first to last graph launch) "
+            f"{rec['decode_window_ms']:.2f} ms, device busy "
+            f"{rec['decode_window_busy_ms']:.2f} ms (idle share "
+            f"{rec['decode_window_idle_share']:.3f}); host us per decode "
+            f"forward by call {rec['host_us_per_forward']}")
     for r in rec["top"]:
         log(f"  {r['ms']:9.3f} ms {r['count']:6d}x {r['name']}")
+    return rec
+
+
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx")
+HOST_COPIES = ("cudaMemcpyAsync", "cudaMemsetAsync", "cudaMemcpy",
+               "cudaMemset")
+
+
+def busy_within(spans, lo=float("-inf"), hi=float("inf")) -> float:
+    """Microseconds covered by the union of (start, end) intervals,
+    clipped to [lo, hi]."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        s, e = max(s, lo), min(e, hi)
+        if e <= s:
+            continue
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
+def host_ops(prof, spans) -> dict:
+    """Kernel launches, copies and graph launches the host issued in a
+    profiled call (CUDA runtime and driver calls traced by the profiler),
+    and those issued between its first and its last graph launch: each
+    such interval is one decode forward after the first, and holds its
+    graph launch and the copy that reads the loop's flag. Host operations
+    per decode forward = launches and copies in the intervals over their
+    count, less that one copy (null without two graph launches). Also
+    that window's length, the device's busy time in it (`spans`, the
+    kernels' intervals), and the host microseconds per forward spent in
+    each runtime call there (the flag read's synchronize waits for the
+    device; the rest is the host's own)."""
+    from torch.autograd import DeviceType
+    calls = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CPU
+                   and e.name.startswith(("cuda", "cu")))
+    counts, between, host_us = {}, {}, {}
+    graph = [t for t, _, n in calls if n == "cudaGraphLaunch"]
+    intervals = max(len(graph) - 1, 0)
+    for t, end, n in calls:
+        counts[n] = counts.get(n, 0) + 1
+        if intervals and graph[0] <= t < graph[-1]:
+            host_us[n] = host_us.get(n, 0.0) + (end - t) / intervals
+            if t > graph[0]:
+                between[n] = between.get(n, 0) + 1
+    ops = sum(v for n, v in between.items()
+              if n in HOST_LAUNCHES + HOST_COPIES)
+    rec = {"runtime_calls": counts, "between_graph_launches": between,
+           "graph_launches": len(graph), "graph_intervals": intervals,
+           "host_ops_per_decode_forward":
+               ops / intervals - 1 if intervals else None}
+    if intervals:
+        window = (graph[-1] - graph[0]) / 1e3
+        busy = busy_within(spans, graph[0], graph[-1]) / 1e3
+        rec.update(decode_window_ms=window, decode_window_busy_ms=busy,
+                   decode_window_idle_share=1.0 - busy / window,
+                   host_us_per_forward={n: round(v, 1)
+                                        for n, v in host_us.items()})
     return rec
 
 
@@ -1341,9 +1421,13 @@ def paired_timing(torch, np, engines, cfg, tok, frames, instruction):
             "tokens_per_forward")}
         emitted = sum(r["tokens"] - 1 for r in recs[n])
         forwards = sum(r["forwards"] for r in recs[n])
+        log(f"3d {n}: one more mid-window call under the profiler")
+        prof = profile_call(torch, lambda: agents[n].step(
+            0, frames[-1], instruction, run_model=True), med["wall_ms"])
         out[n] = {"calls": recs[n], "median_mid_window": med,
                   "memory_call": recs[n][-1],
-                  "tokens_per_forward": emitted / max(forwards, 1)}
+                  "tokens_per_forward": emitted / max(forwards, 1),
+                  "profile": prof}
         log(f"3d {n}: mid-window medians wall {med['wall_ms']:.2f} ms, "
             f"vision {med['vision_ms']:.2f}, prefill {med['prefill_ms']:.2f},"
             f" decode {med['decode_ms_per_token']:.2f} ms per emitted token; "
@@ -1354,40 +1438,144 @@ def paired_timing(torch, np, engines, cfg, tok, frames, instruction):
     return out
 
 
-def capture_decode(torch):
-    """Record, for batch row 0, the f32 logits of every decoder forward
-    (prefill and decode) and the drafts of every speculative iteration, by
-    wrapping qwen2.forward and the engine's drafter; returns (record,
-    stop)."""
-    from streamvln_tpu_torch.models import qwen2
-    from streamvln_tpu_torch.streaming import engine as eng_mod
+def strict_captures(torch, captures: list):
+    """From here on, capture every decode graph under
+    torch.cuda.set_sync_debug_mode("error"), so that a synchronizing
+    operation in a step's warm-up or capture raises, and record each
+    capture: its loop kind, batch, queries per forward, seconds (warm-up
+    and capture) and the launches each replay adds per kernel."""
+    from streamvln_tpu_torch.streaming import decode_graph as dg
+    init = dg.StepGraph.__init__
+
+    def strict(self, fn, state, reads, generator=None):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            init(self, fn, state, reads, generator)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        B, S = self.outputs["logits"].shape[:2]
+        kind = "verify" if "drafts" in self.outputs else \
+            "sample" if generator is not None else "token"
+        rec = {"kind": kind, "batch": B, "queries": S,
+               "seconds": self.capture_s, "per_replay": {
+                   f"{m.__name__.rsplit('.', 1)[-1]}.{a}": d
+                   for (m, a), d in zip(dg.COUNTERS, self.per_replay)}}
+        captures.append(rec)
+    dg.StepGraph.__init__ = strict
+
+
+def log_captures(what, captures):
+    """One line: each decode graph captured, its seconds and the port
+    kernels each of its replays launches."""
+    def one(c):
+        per = ", ".join(f"{k} {v}" for k, v in c["per_replay"].items() if v)
+        return (f"{c['kind']} B={c['batch']} S={c['queries']} "
+                f"{c['seconds']:.3f} s ({per or 'no port kernel'})")
+    log(f"{what}: {len(captures)} decode graphs captured: "
+        + "; ".join(one(c) for c in captures))
+
+
+def graphs_vs_eager(torch, engines, cfg, tok, frames, instruction):
+    """Phase 3g: each serving variant over steps 0..32 (9 calls across the
+    window reset and its <memory> call), every decode forward checked:
+    before each replay the captured step runs eagerly from the state the
+    replay starts from (cache, shadow, loop state; those are put back
+    after it, and its launches are taken back from the counts), and the
+    replay must give the same logits (and drafts), tokens and state, bit
+    for bit. Every decode forward must be a replay. Then a cache length
+    rebound to a new tensor must make the next replay raise."""
+    from streamvln_tpu_torch.agent import VLNAgent
+    from streamvln_tpu_torch.streaming import decode_graph as dg
+    replay = dg.StepGraph.replay
+    box = {"replays": 0, "differ": []}
+
+    def checked(self):
+        live = {n: t for n, t in self._reads().items()
+                if not n.startswith("llm/")}
+        live.update({f"state.{k}": v for k, v in self.state.items()})
+        saved = {n: t.clone() for n, t in live.items()}
+        counts = dg._counts()
+        eager_out = {k: v.clone() for k, v in self.fn(self.state).items()}
+        eager = {n: t.clone() for n, t in live.items()}
+        dg._add([a - b for a, b in zip(counts, dg._counts())])
+        for n, t in live.items():
+            t.copy_(saved[n])
+        replay(self)
+        differ = [n for n in eager_out
+                  if not torch.equal(eager_out[n], self.outputs[n])]
+        differ += [n for n in live if not torch.equal(eager[n], live[n])]
+        box["replays"] += 1
+        if differ:
+            box["differ"].append(differ)
+    out = {}
+    dg.StepGraph.replay = checked
+    try:
+        for name, eng in engines.items():
+            agent = VLNAgent(eng, tok)
+            agent.reset_memory(0)
+            r0, f0, d0 = box["replays"], eng.decode_forwards, \
+                len(box["differ"])
+            for step in range(33):
+                agent.step(0, frames[step], instruction,
+                           run_model=step % cfg.num_future_steps == 0)
+            out[name] = {"replays": box["replays"] - r0,
+                         "decode_forwards": eng.decode_forwards - f0,
+                         "differing_replays": box["differ"][d0:]}
+            log(f"3g {name}: {out[name]['replays']} replays for "
+                f"{out[name]['decode_forwards']} decode forwards over 9 "
+                f"calls, {len(out[name]['differing_replays'])} differing "
+                f"from the eager step")
+    finally:
+        dg.StepGraph.replay = replay
+    eng = engines["bf16"]
+    length = eng.cache.length
+    eng.cache.length = length.clone()
+    try:
+        next(iter(eng.graphs.values())).replay()
+        raised = ""
+    except RuntimeError as err:
+        raised = str(err)
+    eng.cache.length = length
+    log(f"3g a cache length rebound to a new tensor: the next replay "
+        f"raised {raised!r}")
+    for name, r in out.items():
+        require(f"3g {name}", every_forward_a_replay=r["replays"]
+                == r["decode_forwards"] > 0,
+                replays_bit_equal_to_eager=not r["differing_replays"])
+    require("3g rebound tensor", raises="no longer hold the storage"
+            in raised)
+    return {"variants": out, "rebound_raised": raised}
+
+
+def capture_decode():
+    """Record, for batch row 0, the f32 logits of every decode forward and
+    the drafts of every speculative one, read from the captured graph's
+    static output buffers after each replay (a replay runs no Python of
+    the step); returns (record, stop)."""
+    from streamvln_tpu_torch.streaming.decode_graph import StepGraph
     rec = {"logits": [], "drafts": []}
-    fwd, drf = qwen2.forward, eng_mod._draft
+    replay = StepGraph.replay
 
-    def forward(*a, **k):
-        out = fwd(*a, **k)
-        rec["logits"].append(out[0][0].float())
-        return out
-
-    def draft(*a, **k):
-        d = drf(*a, **k)
-        rec["drafts"].append(d[0].tolist())
-        return d
-    qwen2.forward, eng_mod._draft = forward, draft
+    def recorded(self):
+        replay(self)
+        rec["logits"].append(self.outputs["logits"][0].float().clone())
+        if "drafts" in self.outputs:
+            rec["drafts"].append(self.outputs["drafts"][0].tolist())
+    StepGraph.replay = recorded
 
     def stop():
-        qwen2.forward, eng_mod._draft = fwd, drf
+        StepGraph.replay = replay
     return rec, stop
 
 
-def position_logits(rec, n_tokens, k, stop_ids, max_new):
+def position_logits(prefill, rec, n_tokens, k, stop_ids, max_new):
     """The logits that chose each emitted token of one call: the prefill's
-    for token 0, then per decode forward its one column (greedy) or the
-    columns it emitted (speculative: 1 + the accepted draft prefix, cut at
-    the first stop token and at the budget, as _spec_loop does)."""
-    logits = rec["logits"]
-    pos = [logits[0][0]]
-    for i, lg in enumerate(logits[1:]):
+    (`prefill` [V]) for token 0, then per decode forward its one column
+    (greedy) or the columns it emitted (speculative: 1 + the accepted
+    draft prefix, cut at the first stop token and at the budget, as
+    _verify_step does)."""
+    pos = [prefill]
+    for i, lg in enumerate(rec["logits"]):
         if not k:
             pos.append(lg[0])
             continue
@@ -1439,22 +1627,31 @@ def spec_vs_greedy(torch, np, fused, cfg, tok, frames, instruction,
         run = step % cfg.num_future_steps == 0
         got = {}
         for spec, agent in agents.items():
-            rec, stop = capture_decode(torch)
+            rec, stop = capture_decode()
             made, restore = record_calls(torch, engines[spec])
+            e = engines[spec]
+            f0 = e.decode_forwards
             try:
                 agent.step(0, frames[step], instruction, run_model=run)
             finally:
                 stop()
                 restore()
-            e = engines[spec]
             if e.envs[0].kv_length != int(e.cache.length[0]):
                 raise AssertionError(f"spec_lookup={spec} step {step}: KV "
                                      f"length {int(e.cache.length[0])} != "
                                      f"bookkeeping {e.envs[0].kv_length}")
+            # every decode forward is a graph replay, and each replay was
+            # recorded from the graph's output buffers
+            if len(rec["logits"]) != e.decode_forwards - f0:
+                raise AssertionError(
+                    f"spec_lookup={spec} step {step}: recorded "
+                    f"{len(rec['logits'])} decode forwards, the engine "
+                    f"counted {e.decode_forwards - f0}")
             if run:
                 toks = made[0]["tokens"]
                 got[spec] = (toks, position_logits(
-                    rec, len(toks), spec, engines[spec].stop_ids, 16))
+                    e.last_logits[0].float(), rec, len(toks), spec,
+                    e.stop_ids, 16))
         if not run:
             continue
         (gt, gl), (st, sl) = got[0], got[k]
@@ -1530,7 +1727,7 @@ def resync(spec, greedy, tokens):
     pending last one) after the prompt the two engines share."""
     spec.cache.k.copy_(greedy.cache.k)
     spec.cache.v.copy_(greedy.cache.v)
-    spec.cache.length = greedy.cache.length.clone()
+    spec.cache.length.copy_(greedy.cache.length)
     a, b = spec.envs[0], greedy.envs[0]
     a.pending_token, a.kv_length = b.pending_token, b.kv_length
     fed = tokens[:-1]
@@ -1540,9 +1737,11 @@ def resync(spec, greedy, tokens):
 
 def sampling_on_card(torch, fused, cfg, tok, frames, instruction):
     """Sampled decode on the card: a temperature 0.7 / top-p 0.9 call on
-    two bf16 engines with the same sample_seed gives the same tokens; in one
-    generate_batch of two envs, a greedy row beside a sampled row equals a
-    greedy engine's row."""
+    two bf16 engines with the same sample_seed gives the same tokens, and
+    so does an engine that runs its sampled steps eagerly (cuda_graphs
+    off: the graph draws what the eager step draws); in one generate_batch
+    of two envs, a greedy row beside a sampled row equals a greedy
+    engine's row."""
     import numpy as np
     from streamvln_tpu_torch.data import chatml
     from streamvln_tpu_torch.streaming.engine import StreamingEngine
@@ -1552,28 +1751,33 @@ def sampling_on_card(torch, fused, cfg, tok, frames, instruction):
     ids = np.concatenate([ids, np.asarray(chatml.generation_prompt(tok),
                                           np.int32)])
 
-    def engine(n_envs=1):
+    def engine(n_envs=1, graphs=True):
         e = StreamingEngine(fused, cfg, n_envs=n_envs, cache_capacity=4096,
-                            max_new_tokens=16, stop_ids=(tok.im_end_id,))
+                            max_new_tokens=16, stop_ids=(tok.im_end_id,),
+                            cuda_graphs=graphs)
         e.sample_seed = 5
         return e
-    runs = [engine().generate(0, frames[0], ids, step_id=0, temperature=0.7,
-                              top_p=0.9) for _ in range(2)]
+    runs = [engine(graphs=g).generate(0, frames[0], ids, step_id=0,
+                                      temperature=0.7, top_p=0.9)
+            for g in (True, True, False)]
     reqs = [(0, frames[0], ids, 0, ()), (1, frames[1], ids, 0, ())]
     greedy = engine(2).generate_batch(reqs)
     mixed = engine(2).generate_batch(reqs, temperature={1: 0.7},
                                      top_p={1: 0.9})
     rec = {"sampled": runs[0], "same_seed_equal": runs[0] == runs[1],
+           "eager_equal": runs[0] == runs[2],
            "greedy_row": greedy[0], "mixed_greedy_row": mixed[0],
            "mixed_sampled_row": mixed[1],
            "greedy_row_equal": mixed[0] == greedy[0]}
     log(f"sampling on the card: T=0.7 top-p 0.9 tokens {runs[0]}; same seed "
-        f"same tokens {rec['same_seed_equal']}; greedy row beside a sampled "
-        f"row equals the greedy engine's {rec['greedy_row_equal']}")
+        f"same tokens {rec['same_seed_equal']}, eager steps the same tokens "
+        f"{rec['eager_equal']}; greedy row beside a sampled row equals the "
+        f"greedy engine's {rec['greedy_row_equal']}")
     require("sampled decode on the card", tokens_in_vocabulary=all(
         0 <= t < cfg.llm.vocab_size for t in runs[0] + mixed[1]),
         tokens_emitted=bool(runs[0]),
         same_seed_same_tokens=rec["same_seed_equal"],
+        graph_draws_the_eager_tokens=rec["eager_equal"],
         greedy_row_equal=rec["greedy_row_equal"])
     return rec
 
@@ -1608,9 +1812,10 @@ def eval_entry_point(torch, va, counts, reset):
     480x640 frames across the step-32 window reset and its <memory> call.
     Checks result.json (2 episode lines + the aggregate), the launch counts
     (K1 once per tower layer and K2 once per decoder layer per model call,
-    K1 once per tower layer per history backfill pass), and reports the
-    evaluator's model-call p50/p90, the realized tokens per verify forward
-    and peak memory."""
+    K1 once per tower layer per history backfill pass) and that every
+    verify forward was a graph replay, and reports the evaluator's
+    model-call p50/p90, the realized tokens per verify forward and peak
+    memory."""
     import contextlib
     import io
     from streamvln_tpu_torch import eval_cli, weights
@@ -1675,6 +1880,7 @@ def eval_entry_point(torch, va, counts, reset):
            "decode_forwards": eng.decode_forwards,
            "tokens_per_forward": eng.decode_tokens
            / max(eng.decode_forwards, 1),
+           "graph_replays": sum(g.replays for g in eng.graphs.values()),
            "peak_memory_bytes": peak, "seconds": seconds,
            "printed": printed.getvalue().strip()}
     log(f"phase 5: eval_cli.main printed {rec['printed']}")
@@ -1684,7 +1890,8 @@ def eval_entry_point(torch, va, counts, reset):
         f"{want}), K1 by batch {by_b}; model call p50 "
         f"{final.get('model_call_p50_ms', 0):.2f} ms p90 "
         f"{final.get('model_call_p90_ms', 0):.2f} ms; {eng.decode_tokens} "
-        f"tokens in {eng.decode_forwards} verify forwards "
+        f"tokens in {eng.decode_forwards} verify forwards, "
+        f"{rec['graph_replays']} graph replays "
         f"({rec['tokens_per_forward']:.3f} per forward); peak memory "
         f"allocated {peak / 2**30:.2f} GiB")
     del eng
@@ -1693,6 +1900,8 @@ def eval_entry_point(torch, va, counts, reset):
             and "episode_id" not in lines[-1] and lines[-1]["length"] == 2,
             episodes_of_36_steps=all(r["steps"] == 36 for r in lines[:-1]),
             history_backfill=b >= 1, launch_counts=got == want,
+            every_decode_forward_a_replay=rec["graph_replays"]
+            == rec["decode_forwards"] > 0,
             model_call_latency="model_call_p50_ms" in final)
     return rec
 
@@ -1825,6 +2034,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s "
         f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB)")
     tok = ByteTokenizer()
+    captures = []
+    strict_captures(torch, captures)
     engine = StreamingEngine(fused, cfg, cache_capacity=4096,
                              max_new_tokens=16, stop_ids=(tok.im_end_id,))
     agent = VLNAgent(engine, tok)
@@ -1888,11 +2099,22 @@ def main() -> int:
     engine_spec = StreamingEngine(fused, cfg, cache_capacity=4096,
                                   max_new_tokens=16, spec_lookup=6,
                                   stop_ids=(tok.im_end_id,))
-    paired = paired_timing(torch, np, {
-        "bf16": engine, "bf16_decode_kernel": engine_dk,
-        "int4": engine4, "bf16_spec": engine_spec}, cfg, tok, frames,
-        instruction)
-    del engine, engine_dk, engine4, engine_spec
+    variants = {"bf16": engine, "bf16_decode_kernel": engine_dk,
+                "int4": engine4, "bf16_spec": engine_spec}
+    paired = paired_timing(torch, np, variants, cfg, tok, frames,
+                           instruction)
+    for name, r in paired.items():
+        ops = r["profile"]["host_ops_per_decode_forward"]
+        require(f"3d {name}: the profiled call's decode forwards",
+                graph_replays=ops is not None,
+                at_most_4_launches_or_copies_besides_replay_and_flag=ops
+                is not None and ops <= 4)
+    # 3g. every decode forward of the four variants replayed against the
+    # same step run eagerly
+    replays = graphs_vs_eager(torch, variants, cfg, tok, frames,
+                              instruction)
+    log_captures("phases 3-3d", captures)
+    del engine, engine_dk, engine4, engine_spec, variants
     gc.collect()
     # 3e. speculative decode against greedy, call by call
     spec = spec_vs_greedy(torch, np, fused, cfg, tok, frames, instruction)
@@ -1913,7 +2135,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 5. the evaluation entry point (it makes its own weights)
+    n_captures = len(captures)
     evaluation = eval_entry_point(torch, va, serving_counts, reset_counts)
+    evaluation["captures"] = captures[n_captures:]
+    log_captures("phase 5", evaluation["captures"])
 
     sent = set(vit_by_batch) | set(train["vit_launches_by_batch"]) | \
         set(evaluation["vit_launches_by_batch"])
@@ -1982,6 +2207,7 @@ def main() -> int:
                    "wall_ms": wall, "profile": prof, "reference": ref3,
                    "decode_kernel": dk, "int4": int4, "paired": paired,
                    "spec_vs_greedy": spec, "sampling": sampling,
+                   "graphs_vs_eager": replays, "captures": captures,
                    "training_kernels": train_k, "training": train,
                    "evaluation": evaluation,
                    "seconds": seconds}, f, indent=1)

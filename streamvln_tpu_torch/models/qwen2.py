@@ -23,14 +23,17 @@ port and raise NotImplementedError here.
 
 KV cache: [L, B, Hkv, Smax, D] per tensor (KV-head-major), slot index ==
 global token position, per-row fill lengths. Appends write in place at
-each row's offset. The reference's decode loop appends into a small
-scratch cache merged after the loop (an XLA loop-carry workaround); eager
-PyTorch has no loop carry, so the port's decode appends in place into the
-big cache. Tokens, `length` and every slot below `length` are the same.
+each row's offset, read on the device (one masked scatter per layer and
+tensor, as the reference's `_append_stack`), and `length` is updated in
+place, so a decode step reads nothing back to the host and a captured
+CUDA graph keeps reading the cache it captured. The reference's decode
+loop appends into a small scratch cache merged after the loop (an XLA
+loop-carry workaround); the port's decode appends in place into the big
+cache. Tokens, `length` and every slot below `length` are the same.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -160,20 +163,39 @@ class KVCache:
         return self.k.shape[3]
 
     def reset_rows(self, row_mask: torch.Tensor) -> None:
-        """Zero the lengths of selected rows (stale KV is never attended:
-        its slots sit at positions past the row's queries)."""
-        self.length = torch.where(row_mask.to(self.length.device),
-                                  torch.zeros_like(self.length), self.length)
+        """Zero the lengths of selected rows in place (stale KV is never
+        attended: its slots sit at positions past the row's queries)."""
+        self.length.masked_fill_(row_mask.to(self.length.device), 0)
+
+    def check_room(self, S: int, write_mask: Optional[torch.Tensor] = None
+                   ) -> None:
+        """Raise if a write of S tokens at a written row's length would
+        pass the capacity (the device write would clamp its start over
+        live slots). Reads the lengths on the host: for callers outside a
+        decode step, such as the engine's prefill, once per call."""
+        rows = [True] * self.length.shape[0] if write_mask is None \
+            else write_mask.tolist()
+        for b, (off, on) in enumerate(zip(self.length.tolist(), rows)):
+            if on and off + S > self.capacity:
+                raise RuntimeError(
+                    f"row {b}: KV write of {S} tokens at offset {off} "
+                    f"overflows capacity {self.capacity}")
 
 
-def _append(buf: torch.Tensor, new: torch.Tensor, offsets: List[int],
-            rows: List[bool]) -> None:
-    """buf [B, Hkv, Smax, D] (one layer, in place); new [B, S, Hkv, D].
-    Rows with rows[b] False are left untouched (idle batch rows)."""
-    S = new.shape[1]
-    for b, (off, on) in enumerate(zip(offsets, rows)):
-        if on:
-            buf[b, :, off:off + S] = new[b].transpose(0, 1)
+def _append(buf: torch.Tensor, new: torch.Tensor, start: torch.Tensor,
+            rows: Optional[torch.Tensor]) -> None:
+    """buf [B, Hkv, Smax, D] (one layer, in place); new [B, S, Hkv, D];
+    start [B] (int64, already clamped to Smax - S). Row b's S tokens go
+    to slots start[b]..start[b]+S-1; rows with rows[b] False write back
+    what those slots hold (idle batch rows), as the reference's
+    `_append_stack` does."""
+    B, S, Hkv, D = new.shape
+    idx = start[:, None] + torch.arange(S, device=buf.device)[None]
+    idx = idx[:, None, :, None].expand(B, Hkv, S, D)
+    upd = new.transpose(1, 2).to(buf.dtype)
+    if rows is not None:
+        upd = torch.where(rows[:, None, None, None], upd, buf.gather(2, idx))
+    buf.scatter_(2, idx, upd)
 
 
 def _attend(cfg: Qwen2Config, attn_impl: str, q, k, v, q_pos, k_pos,
@@ -201,7 +223,7 @@ def _layer(cfg: Qwen2Config, attn_impl: str, x: torch.Tensor, p: dict,
            positions, k_pos, lora_scale=None, mlp_chunk=None,
            cache_kv=None) -> torch.Tensor:
     """One decoder block on x [B, S, Dm]; p holds this layer's tensors
-    under the stack names. cache_kv = (k_buf, v_buf, offsets, rows) appends
+    under the stack names. cache_kv = (k_buf, v_buf, start, rows) appends
     this call's K/V into one layer of the cache and attends over it."""
     B, S, _ = x.shape
     Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -220,9 +242,9 @@ def _layer(cfg: Qwen2Config, attn_impl: str, x: torch.Tensor, p: dict,
     k = apply_rope(k.reshape(B, S, Hkv, Dh), positions, cfg.rope_theta)
     v = v.reshape(B, S, Hkv, Dh)
     if cache_kv is not None:
-        kbuf, vbuf, offsets, rows = cache_kv
-        _append(kbuf, k, offsets, rows)
-        _append(vbuf, v, offsets, rows)
+        kbuf, vbuf, start, rows = cache_kv
+        _append(kbuf, k, start, rows)
+        _append(vbuf, v, start, rows)
         attn = _attend(cfg, attn_impl, q, kbuf, vbuf, positions, k_pos,
                        kv_major=True)
     else:
@@ -267,11 +289,15 @@ def forward(
     return_hidden; the cache updated in place).
 
     With a cache, the S new tokens' KV are written at each row's offset
-    `cache.length` (rows with write_mask False are not written), keys are
-    the cache slots (k_pos = slot index), and `length` grows by
-    new_lengths (default S). Without one, keys past `valid` get
-    INVALID_POS. remat/remat_chunk apply to the no-cache (training) path:
-    the cache path is inference and appends in place."""
+    `cache.length`, read on the device, with the start clamped to
+    capacity - S as the reference's dynamic_update_slice clamps it (rows
+    with write_mask False write back what they hold), keys are the cache
+    slots (k_pos = slot index), and `length` grows in place by
+    new_lengths (default S). Nothing is read back to the host: callers
+    refuse a write past the capacity beforehand (`KVCache.check_room`, or
+    the engine's guard from its host shadow). Without a cache, keys past
+    `valid` get INVALID_POS. remat/remat_chunk apply to the no-cache
+    (training) path: the cache path is inference and appends in place."""
     check_supported(cfg)
     B, S, _ = inputs_embeds.shape
     dev = inputs_embeds.device
@@ -280,15 +306,7 @@ def forward(
     if cache is not None:
         if new_lengths is None:
             new_lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
-        offsets = cache.length.tolist()
-        rows = [True] * B if write_mask is None else write_mask.tolist()
-        for b in range(B):
-            if rows[b] and offsets[b] + S > cache.capacity:
-                # the reference's dynamic_update_slice would clamp the
-                # start and overwrite live slots; refuse instead
-                raise RuntimeError(
-                    f"row {b}: KV write of {S} tokens at offset "
-                    f"{offsets[b]} overflows capacity {cache.capacity}")
+        start = cache.length.long().clamp(0, cache.capacity - S)
         k_pos = torch.arange(cache.capacity, dtype=torch.int32,
                              device=dev)[None].expand(B, -1).contiguous()
     elif valid is None:
@@ -302,7 +320,7 @@ def forward(
 
     def one(i, y):
         cache_kv = None if cache is None else \
-            (cache.k[i], cache.v[i], offsets, rows)
+            (cache.k[i], cache.v[i], start, write_mask)
         return _layer(cfg, attn_impl, y, {k: v[i] for k, v in stacks.items()},
                       positions, k_pos, lora_scale, mlp_chunk, cache_kv)
 
@@ -327,7 +345,7 @@ def forward(
             x = one(i, x)
 
     if cache is not None:
-        cache.length = cache.length + new_lengths.to(torch.int32)
+        cache.length.add_(new_lengths.to(torch.int32))
     if logits_positions is not None:
         x = x[torch.arange(B, device=dev), logits_positions.long()][:, None]
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)

@@ -23,8 +23,9 @@ def _masked_softmax(logits, mask, logits_soft_cap):
     if logits_soft_cap is not None:
         logits = torch.tanh(logits / logits_soft_cap) * logits_soft_cap
     if mask is not None:
-        logits = torch.where(mask, logits,
-                             torch.tensor(NEG_INF, device=logits.device))
+        # a fill on the device, not a host-made scalar: a captured decode
+        # step (streaming/decode_graph.py) may not copy from the host
+        logits = logits.masked_fill(~mask, NEG_INF)
     return torch.softmax(logits, dim=-1)
 
 

@@ -12,10 +12,16 @@ the same public API: `generate`, `generate_batch(_async)` / `collect`,
   slow memory gathers `num_history` cached frames. The last slot is
   reserved scratch for inactive batch rows.
 - **One call** (`_prefill_decode`): preprocess + encode the frame, splice,
-  prefill into the cache at per-row offsets, then decode, an eager loop
-  with one host check per iteration: one token per forward, greedy or
-  sampled (temperature / top-p; `_token_loop`), or prompt-lookup
-  speculative (`spec_lookup > 0`, `_spec_loop`).
+  prefill into the cache at per-row offsets, then decode: one token per
+  forward, greedy or sampled (temperature / top-p; `_token_step`), or
+  prompt-lookup speculative (`spec_lookup > 0`, `_verify_step`).
+- **Decode loops as the reference runs them**: each forward is a step
+  function over device state (tokens, counters, `done`, the cache at
+  offsets read on the device, the shadow) that reads nothing back to the
+  host; the host reads one `more` flag per forward, where the
+  reference's `lax.while_loop` tests it on the device. On the card each
+  forward replays the CUDA graph captured from its step at first use
+  (streaming/decode_graph.py); the CPU runs the same steps eagerly.
 - **Speculative decode** drafts `spec_lookup` tokens from `ids_buf`, a
   token-id shadow of the KV slots, verifies them in one cached forward and
   keeps the longest prefix that greedy decoding would emit. The reference
@@ -37,8 +43,8 @@ the same public API: `generate`, `generate_batch(_async)` / `collect`,
   prefix; opt-in, as in the reference, where its own decode loop never
   reaches the kernel). The speculative verify forward has spec_lookup + 1
   queries, so it is dense under every impl.
-- **Sampling** draws from a `torch.Generator` on the engine's device,
-  seeded from (`sample_seed`, the engine's sampled-call count): the
+- **Sampling** draws from the engine's `torch.Generator` on its device,
+  reseeded from (`sample_seed`, the engine's sampled-call count): the
   support, the greedy gate and determinism by seed are the reference's,
   the bits of `jax.random` are not.
 
@@ -57,6 +63,7 @@ from streamvln_tpu_torch.models import qwen2, streamvln
 from streamvln_tpu_torch.models.fuse import fuse_projections
 from streamvln_tpu_torch.models.qwen2 import KVCache
 from streamvln_tpu_torch.ops.preprocess import preprocess_frames
+from streamvln_tpu_torch.streaming import decode_graph
 
 DEFAULT_BUCKETS = (256, 512, 768, 1024, 1536, 2048, 2560, 3072, 4096)
 
@@ -102,13 +109,13 @@ def _is_stop(t: torch.Tensor, stop: torch.Tensor) -> torch.Tensor:
     return (t[..., None] == stop).any(dim=-1)
 
 
-def _n_out(out: torch.Tensor, stop: torch.Tensor, n_steps: int):
-    """Tokens per row up to and including the first stop, else n_steps."""
+def _n_out(out: torch.Tensor, stop: torch.Tensor, n_steps: torch.Tensor):
+    """Tokens per row up to and including the first stop, else n_steps
+    ([1] int32, the tokens the loop wrote)."""
     stop_mask = _is_stop(out, stop)
     has_stop = stop_mask.any(dim=1)
     first_stop = stop_mask.int().argmax(dim=1).to(torch.int32)
-    return torch.where(has_stop, first_stop + 1,
-                       torch.full_like(first_stop, n_steps))
+    return torch.where(has_stop, first_stop + 1, n_steps)
 
 
 def _shadow_write(ids_buf: torch.Tensor, vals: torch.Tensor,
@@ -146,38 +153,56 @@ def _argmax(logits: torch.Tensor) -> torch.Tensor:
     return logits.argmax(dim=-1).to(torch.int32)
 
 
-def _token_loop(params, cfg, cache, last_logits, max_new: int, stop_ids,
-                attn_impl, dtype, force_done, pick, ids_buf=None):
-    """One token per forward from `last_logits`, each chosen by
-    `pick(logits [B, V])`: `_argmax` (the reference's `_greedy_loop`) or a
-    sampler (its `_sample_loop`). Returns (out [B, max_new], n_out [B],
-    iters [B]); appends the fed tokens' KV in place. Rows done (stopped,
-    or in force_done) never advance their KV length and are not written.
-    When the engine keeps the speculative shadow (sampled calls of a
-    speculative engine), each fed token is recorded there first, so that a
-    later speculative call drafts from fresh context."""
-    B = last_logits.shape[0]
-    stop = torch.tensor(stop_ids, dtype=torch.int32,
-                        device=last_logits.device)
-    first = pick(last_logits)
-    out = torch.zeros((B, max_new), dtype=torch.int32,
-                      device=last_logits.device)
-    out[:, 0] = first
-    done = _is_stop(first, stop) | force_done
-    cur = first
-    n = 1
-    while n < max_new and not bool(done.all()):
-        if ids_buf is not None:
-            _shadow_write(ids_buf, cur[:, None], cache.length, ~done)
-        logits = _decode_step(params, cfg, cache, cur[:, None], ~done,
-                              attn_impl, dtype)
-        nxt = pick(logits[:, 0])
-        out[:, n] = torch.where(done, out[:, n], nxt)
-        done = done | _is_stop(nxt, stop)
-        cur = torch.where(done, cur, nxt)
-        n += 1
-    n_out = _n_out(out, stop, n)
-    return out, n_out, (n_out - 1).clamp(min=0)
+def _token_state(cur, n0: int, budget: int, max_new: int, stop, force_done):
+    """The token loop's state (device tensors) before its next forward:
+    `cur` [B] is the token to feed; with n0 = 1 it is also the call's
+    first token (from the prefill), already in out[:, 0]; with n0 = 0 the
+    next forward picks out[:, 0]. The loop ends once every row is done:
+    stopped, in force_done, or n has reached `budget`."""
+    B, dev = cur.shape[0], cur.device
+    out = torch.zeros((B, max_new), dtype=torch.int32, device=dev)
+    n = torch.full((1,), n0, dtype=torch.int32, device=dev)
+    bud = torch.full((1,), budget, dtype=torch.int32, device=dev)
+    done = force_done | (n >= bud)
+    if n0:
+        out[:, 0] = cur
+        done = done | _is_stop(cur, stop)
+    return {"cur": cur.to(torch.int32).clone(), "done": done, "out": out,
+            "n": n, "budget": bud, "stop": stop, "more": ~done.all()}
+
+
+def _token_step(params, cfg, cache, st, attn_impl, dtype, pick,
+                ids_buf=None) -> dict:
+    """One forward of the token loop, in place on its state `st` and with
+    no read back to the host: feed each live row's `cur` at its length
+    (recorded in the shadow first when the engine keeps one, so that a
+    later speculative call drafts from fresh context), pick the next token
+    with `pick(logits [B, V], st)` (`_argmax`: the reference's
+    `_greedy_loop`; `_sample_pick`: its `_sample_loop`) into out[:, n],
+    advance n, and set `more` when some row still decodes. Rows done
+    (stopped, forced, or at the budget) neither write KV nor advance their
+    length. Returns {"logits": [B, 1, V]}."""
+    live = ~st["done"]
+    if ids_buf is not None:
+        _shadow_write(ids_buf, st["cur"][:, None], cache.length, live)
+    logits = _decode_step(params, cfg, cache, st["cur"][:, None], live,
+                          attn_impl, dtype)
+    nxt = pick(logits[:, 0], st)
+    out = st["out"]
+    col = st["n"].long().clamp(max=out.shape[1] - 1).expand(
+        out.shape[0])[:, None]
+    out.scatter_(1, col, torch.where(live, nxt, out.gather(1, col)[:, 0])
+                 [:, None])
+    st["n"].add_(1)
+    done = st["done"] | _is_stop(nxt, st["stop"]) | (st["n"] >= st["budget"])
+    st["cur"].copy_(torch.where(done, st["cur"], nxt))
+    st["done"].copy_(done)
+    st["more"].copy_(~done.all())
+    return {"logits": logits}
+
+
+def _greedy_pick(logits: torch.Tensor, st: dict) -> torch.Tensor:
+    return _argmax(logits)
 
 
 def _nucleus(logits: torch.Tensor, temp: torch.Tensor,
@@ -240,63 +265,74 @@ def _draft(ids_buf: torch.Tensor, length: torch.Tensor, p: torch.Tensor,
     return torch.where((j >= 0)[:, None], dr, torch.full_like(dr, -7))
 
 
-def _spec_loop(params, cfg, cache, ids_buf, last_logits, p0, max_new: int,
-               k: int, stop_ids, attn_impl, dtype, force_done):
-    """Prompt-lookup speculative greedy decode (the reference's
-    `_spec_loop`). Each iteration drafts k tokens (`_draft`), feeds
-    [cur, d_1..d_k] through one cached forward and keeps the longest
-    prefix on which argmax agrees with the draft, trimmed at the first
-    stop token and at the token budget: 1 to k+1 tokens per forward, each
-    the greedy continuation. The fed ids go into the shadow; the KV
-    rollback keeps exactly the emitted entries by setting the length.
-    Done rows write neither KV nor shadow. Returns (out [B, max_new],
-    n_out [B], iters [B]: verify forwards per row)."""
-    B = last_logits.shape[0]
-    dev = last_logits.device
-    stop = torch.tensor(stop_ids, dtype=torch.int32, device=dev)
-    first = _argmax(last_logits)
+def _spec_state(first, p0, max_new: int, k: int, stop, force_done):
+    """The speculative loop's state (device tensors) after the call's
+    first token: out [B, max_new + k + 1] (spill columns past max_new),
+    the per-row token count n, the last two tokens (c0, p0), `done` and
+    the verify forwards per row."""
+    B, dev = first.shape[0], first.device
     out = torch.zeros((B, max_new + k + 1), dtype=torch.int32, device=dev)
     out[:, 0] = first
     n = torch.ones((B,), dtype=torch.int32, device=dev)
     done = _is_stop(first, stop) | force_done | (n >= max_new)
-    iters = torch.zeros((B,), dtype=torch.int32, device=dev)
-    ar = torch.arange(k + 1, dtype=torch.int32, device=dev)[None]
-    c0, p0 = first, p0.to(torch.int32)
-    while not bool(done.all()):
-        live = ~done
-        drafts = _draft(ids_buf, cache.length, p0, c0, k)
-        fed = torch.cat([c0[:, None], drafts], dim=1)          # [B, k+1]
-        old = cache.length
-        logits = _decode_step(params, cfg, cache, fed, live, attn_impl,
-                              dtype, advance=False)
-        truth = _argmax(logits)                                # [B, k+1]
-        # longest accepted prefix: d_{i+1} must equal truth[i]
-        match = (drafts == truth[:, :k]).to(torch.int32)
-        raw_emit = torch.cumprod(match, dim=1).sum(dim=1).to(torch.int32) + 1
-        stop_in = _is_stop(truth, stop) & (ar < raw_emit[:, None])
-        has_stop = stop_in.any(dim=1)
-        first_stop = stop_in.int().argmax(dim=1).to(torch.int32)
-        emit = torch.where(has_stop, first_stop + 1, raw_emit)
-        emit = torch.minimum(emit, max_new - n)
-        emit = torch.where(done, torch.zeros_like(emit), emit)
-        stopped = has_stop & (first_stop + 1 <= emit)
-        # emitted tokens go to out[b, n_b : n_b + emit_b]; the rest of the
-        # k+1 columns land in the spill columns past max_new
-        col = torch.where(ar < emit[:, None], n[:, None] + ar,
-                          torch.full_like(ar, max_new).expand(B, -1))
-        out.scatter_(1, col.long(), truth)
-        _shadow_write(ids_buf, fed, old, live)
-        cache.length = old + emit
-        last_i = (emit - 1).clamp(min=0)[:, None].long()
-        last_tok = truth.gather(1, last_i)[:, 0]
-        prev_tok = truth.gather(1, (last_i - 1).clamp(min=0))[:, 0]
-        new_c0 = torch.where(emit > 0, last_tok, c0)
-        p0 = torch.where(emit > 1, prev_tok, torch.where(emit == 1, c0, p0))
-        c0 = new_c0
-        iters = iters + live.to(torch.int32)
-        n = n + emit
-        done = done | stopped | (n >= max_new)
-    return out[:, :max_new], n, iters
+    return {"c0": first.to(torch.int32).clone(),
+            "p0": p0.to(torch.int32).clone(), "n": n, "done": done,
+            "iters": torch.zeros((B,), dtype=torch.int32, device=dev),
+            "out": out, "stop": stop, "more": ~done.all()}
+
+
+def _verify_step(params, cfg, cache, ids_buf, st, max_new: int, k: int,
+                 attn_impl, dtype) -> dict:
+    """One verify forward of the prompt-lookup speculative loop (the
+    reference's `_spec_loop` body), in place on its state `st` and the
+    cache, with no read back to the host: draft k tokens (`_draft`), feed
+    [c0, d_1..d_k] through one cached forward, keep the longest prefix on
+    which argmax agrees with the draft, trimmed at the first stop token
+    and at the token budget (1 to k+1 tokens, each the greedy
+    continuation), record the fed ids in the shadow, and roll the KV back
+    to exactly the emitted entries by setting the length. Done rows write
+    neither KV nor shadow. Returns {"logits": [B, k+1, V], "drafts":
+    [B, k]}."""
+    done, n = st["done"], st["n"]
+    c0, p0 = st["c0"], st["p0"]
+    live = ~done
+    B = c0.shape[0]
+    ar = torch.arange(k + 1, dtype=torch.int32, device=c0.device)[None]
+    drafts = _draft(ids_buf, cache.length, p0, c0, k)
+    fed = torch.cat([c0[:, None], drafts], dim=1)              # [B, k+1]
+    old = cache.length.clone()
+    logits = _decode_step(params, cfg, cache, fed, live, attn_impl, dtype,
+                          advance=False)
+    truth = _argmax(logits)                                    # [B, k+1]
+    # longest accepted prefix: d_{i+1} must equal truth[i]
+    match = (drafts == truth[:, :k]).to(torch.int32)
+    raw_emit = torch.cumprod(match, dim=1).sum(dim=1).to(torch.int32) + 1
+    stop_in = _is_stop(truth, st["stop"]) & (ar < raw_emit[:, None])
+    has_stop = stop_in.any(dim=1)
+    first_stop = stop_in.int().argmax(dim=1).to(torch.int32)
+    emit = torch.where(has_stop, first_stop + 1, raw_emit)
+    emit = torch.minimum(emit, max_new - n)
+    emit = torch.where(done, torch.zeros_like(emit), emit)
+    stopped = has_stop & (first_stop + 1 <= emit)
+    # emitted tokens go to out[b, n_b : n_b + emit_b]; the rest of the
+    # k+1 columns land in the spill columns past max_new
+    col = torch.where(ar < emit[:, None], n[:, None] + ar,
+                      torch.full_like(ar, max_new).expand(B, -1))
+    st["out"].scatter_(1, col.long(), truth)
+    _shadow_write(ids_buf, fed, old, live)
+    cache.length.copy_(old + emit)
+    last_i = (emit - 1).clamp(min=0)[:, None].long()
+    last_tok = truth.gather(1, last_i)[:, 0]
+    prev_tok = truth.gather(1, (last_i - 1).clamp(min=0))[:, 0]
+    new_c0 = torch.where(emit > 0, last_tok, c0)
+    p0.copy_(torch.where(emit > 1, prev_tok, torch.where(emit == 1, c0, p0)))
+    c0.copy_(new_c0)
+    st["iters"].add_(live.to(torch.int32))
+    n.add_(emit)
+    done = done | stopped | (n >= max_new)
+    st["done"].copy_(done)
+    st["more"].copy_(~done.all())
+    return {"logits": logits, "drafts": drafts}
 
 
 @dataclasses.dataclass
@@ -321,6 +357,7 @@ class StreamingEngine:
                  compute_dtype=torch.bfloat16,
                  attn_impl: str = "auto",
                  spec_lookup: int = 0,
+                 cuda_graphs: bool = True,
                  device="cuda"):
         self.device = resolve_device(device)
         qwen2.check_supported(cfg.llm)
@@ -338,7 +375,7 @@ class StreamingEngine:
         self.cache = KVCache.create(cfg.llm, n_envs, cache_capacity,
                                     compute_dtype, self.device)
         # prompt-lookup speculative decoding: verify spec_lookup drafted
-        # tokens per decode forward (greedy-exact; _spec_loop); 0 = one
+        # tokens per decode forward (greedy-exact; _verify_step); 0 = one
         # token per forward. Its token-id shadow of the KV slots (-1 for
         # vision slots and never-written ones) exists only then.
         self.spec_lookup = int(spec_lookup)
@@ -362,15 +399,22 @@ class StreamingEngine:
         # speculative: up to spec_lookup + 1)
         self.decode_tokens = 0
         self.decode_forwards = 0
-        # sampling RNG stream: seed + per-call counter (deterministic given
-        # the seed and the order of sampled calls)
+        # sampling RNG stream: one generator on the engine's device,
+        # reseeded per sampled call from (sample_seed, the call count), so
+        # draws are deterministic given the seed and the order of calls
         self.sample_seed = 0
         self._sample_calls = 0
+        self._gen = torch.Generator(device=self.device)
+        # on the card each decode forward replays the CUDA graph captured
+        # for its loop kind at first use (streaming/decode_graph.py);
+        # cuda_graphs=False asks for the eager loop there too
+        self.cuda_graphs = cuda_graphs
+        self.graphs = {}
 
     # -- reset ----------------------------------------------------------
     def reset(self):
         """Full reset of every env, feature slots included."""
-        self.cache.length = torch.zeros_like(self.cache.length)
+        self.cache.length.zero_()
         for e in self.envs:
             e.pending_token = None
             e.kv_length = 0
@@ -441,12 +485,12 @@ class StreamingEngine:
         return layout, hist_slots, write_slot
 
     def _sample_params(self, temperature, top_p):
-        """(temp [B], top_p [B], generator) for a sampling call, or None
-        for greedy (HF's do_sample gate: temperature <= 0.001 is greedy).
-        Scalars apply to every row; dicts ({env: value}) give per-row
-        settings, and rows at temperature 0 take the exact argmax. Each
-        sampling call draws from a generator on the engine's device seeded
-        from (sample_seed, the count of sampling calls so far)."""
+        """(temp [B], top_p [B]) for a sampling call, or None for greedy
+        (HF's do_sample gate: temperature <= 0.001 is greedy). Scalars
+        apply to every row; dicts ({env: value}) give per-row settings,
+        and rows at temperature 0 take the exact argmax. Each sampling
+        call reseeds the engine's generator from (sample_seed, the count
+        of sampling calls so far)."""
         B = self.n_envs
 
         def row_values(v, default):
@@ -462,12 +506,10 @@ class StreamingEngine:
         if not np.any(temps > 1e-3):
             return None
         self._sample_calls += 1
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed((int(self.sample_seed) * 1_000_003
-                         + self._sample_calls) % (1 << 63))
+        self._gen.manual_seed((int(self.sample_seed) * 1_000_003
+                               + self._sample_calls) % (1 << 63))
         return (torch.from_numpy(temps).to(self.device),
-                torch.from_numpy(row_values(top_p, 1.0)).to(self.device),
-                gen)
+                torch.from_numpy(row_values(top_p, 1.0)).to(self.device))
 
     def generate(self, env: int, frame_u8: np.ndarray, turn_ids: np.ndarray,
                  step_id: int, history_steps: Sequence[int] = (),
@@ -489,9 +531,8 @@ class StreamingEngine:
         """Run model calls for several envs in one batch. requests:
         iterable of (env, frame_u8, turn_ids, step_id, history_steps);
         temperature / top_p: a scalar for every row or {env: value}. The
-        decode loops check their stop condition on the host each
-        iteration, so the work is done on return; `collect` settles
-        bookkeeping."""
+        decode loops read their stop flag on the host after each forward,
+        so the work is done on return; `collect` settles bookkeeping."""
         requests = list(requests)
         envs = [r[0] for r in requests]
         if not envs or len(set(envs)) != len(envs):
@@ -594,7 +635,10 @@ class StreamingEngine:
                                          vision_index).to(dt)
         positions = self.cache.length[:, None] + torch.arange(
             T, dtype=torch.int32, device=self.device)[None]
-        offsets = self.cache.length
+        offsets = self.cache.length.clone()
+        # generate_batch_async refused from the host shadow; this reads
+        # the device lengths (once per call, outside any captured step)
+        self.cache.check_room(T, active)
         logits, _ = qwen2.forward(
             params["llm"], cfg.llm, embeds, positions, cache=self.cache,
             new_lengths=lengths, attn_impl=self.attn_impl,
@@ -612,33 +656,120 @@ class StreamingEngine:
         timer.mark()
         p0 = token_ids.gather(1, (lengths - 1).clamp(min=0)[:, None]
                               .long())[:, 0]
-        result = self._decode(logits[:, 0], p0, active, sample)
+        first = _argmax(self.last_logits) if sample is None else \
+            _sample_tok(self.last_logits, *sample, self._gen)
+        result = self._decode(first, p0, active, sample)
         timer.mark()
-        self.cache.length = torch.where(active, self.cache.length,
-                                        saved_length)
+        self.cache.length.copy_(torch.where(active, self.cache.length,
+                                            saved_length))
         return result
 
-    def _decode(self, last_logits, p0, active, sample):
-        """The decode loop this call takes: sampled when `sample` is set,
-        else speculative with spec_lookup > 0, else greedy. p0 is the token
-        before the one `last_logits` continues (the speculative drafter's
-        context). Returns [B, 2 + max_new]: n_out, tokens, verify
-        forwards; zeros in the counts of inactive rows."""
-        if sample is None and self.spec_lookup:
-            out, n_out, iters = _spec_loop(
-                self.params, self.cfg, self.cache, self.ids_buf, last_logits,
-                p0, self.max_new, self.spec_lookup, self.stop_ids,
-                self.attn_impl, self.compute_dtype, ~active)
+    def _stop(self) -> torch.Tensor:
+        return torch.tensor(self.stop_ids, dtype=torch.int32,
+                            device=self.device)
+
+    def _decode(self, first, p0, active, sample, pending=False):
+        """The decode loop a call takes: sampled when `sample` is set, else
+        speculative with spec_lookup > 0, else greedy. `first` [B] is the
+        call's first token (picked from the prefill), or with `pending`
+        the pending token, fed first (continue_decode); p0 is the token
+        before `first` (the speculative drafter's context). Returns
+        [B, 2 + max_new]: n_out, tokens, verify forwards; zeros in the
+        counts of inactive rows."""
+        spec = sample is None and self.spec_lookup
+        if spec and pending:
+            # one greedy forward of the pending token (a budget of one)
+            # gives the first token; the verify loop goes on from there
+            out, _, _ = self._token_loop(_token_state(
+                first, 0, 1, self.max_new, self._stop(), ~active), None)
+            p0, first = first, out[:, 0]
+        if spec:
+            st = self._run_loop("verify", self.spec_lookup + 1, _spec_state(
+                first, p0, self.max_new, self.spec_lookup, self._stop(),
+                ~active), sample)
+            out, n_out, iters = st["out"][:, :self.max_new], st["n"], \
+                st["iters"]
         else:
-            pick = _argmax if sample is None else \
-                (lambda lg: _sample_tok(lg, *sample))
-            out, n_out, iters = _token_loop(
-                self.params, self.cfg, self.cache, last_logits, self.max_new,
-                self.stop_ids, self.attn_impl, self.compute_dtype, ~active,
-                pick, self.ids_buf)
+            out, n_out, iters = self._token_loop(_token_state(
+                first, 0 if pending else 1, self.max_new, self.max_new,
+                self._stop(), ~active), sample)
         zero = torch.zeros_like(n_out)
         return torch.cat([torch.where(active, n_out, zero)[:, None], out,
                           torch.where(active, iters, zero)[:, None]], dim=1)
+
+    def _token_loop(self, state, sample):
+        """Run the token loop from `state` (`_token_state`); returns (out
+        [B, max_new], n_out [B], iters [B]: forwards that picked a token
+        after out[:, 0])."""
+        st = self._run_loop("token" if sample is None else "sample", 1,
+                            state, sample)
+        n_out = _n_out(st["out"], st["stop"], st["n"])
+        return st["out"], n_out, (n_out - 1).clamp(min=0)
+
+    def _step_fn(self, kind: str):
+        """The step function of a loop kind over a state dict: "token"
+        (greedy) and "sample" feed one token per forward, "verify" feeds
+        spec_lookup + 1."""
+        args = (self.params, self.cfg, self.cache)
+        impl, dt = self.attn_impl, self.compute_dtype
+        if kind == "verify":
+            return lambda st: _verify_step(
+                *args, self.ids_buf, st, self.max_new, self.spec_lookup,
+                impl, dt)
+        pick = _greedy_pick if kind == "token" else \
+            (lambda lg, st: _sample_tok(lg, st["temp"], st["top_p"],
+                                        self._gen))
+        return lambda st: _token_step(*args, st, impl, dt, pick,
+                                      self.ids_buf)
+
+    def _run_loop(self, kind: str, S: int, st: dict, sample) -> dict:
+        """Run the loop of `kind` (S queries per forward) from state `st`
+        until its `more` flag is False, and return the final state. The
+        host reads that flag before the first forward and after each one.
+        On the CPU (or with cuda_graphs off) the step runs eagerly on `st`;
+        on the card each forward replays the graph captured for (kind, B,
+        S) and the engine's static settings, whose buffers take `st`'s
+        values first and hold the final state after."""
+        if sample is not None:
+            st["temp"], st["top_p"] = sample
+        if not bool(st["more"]):
+            return st
+        step = self._step_fn(kind)
+        if self.device.type != "cuda" or not self.cuda_graphs:
+            step(st)
+            while bool(st["more"]):
+                step(st)
+            return st
+        key = (kind, self.n_envs, S, self.max_new, self.stop_ids,
+               self.attn_impl, self.compute_dtype)
+        graph = self.graphs.get(key)
+        if graph is None:
+            graph = self.graphs[key] = decode_graph.StepGraph(
+                step, st, self._graph_reads,
+                self._gen if kind == "sample" else None)
+        else:
+            graph.load(st)
+        graph.replay()
+        while bool(graph.state["more"]):
+            graph.replay()
+        return graph.state
+
+    def _graph_reads(self) -> dict:
+        """The engine's tensors a captured step reads, by name: the cache,
+        the shadow and every weight leaf of the decoder."""
+        reads = {"cache.k": self.cache.k, "cache.v": self.cache.v,
+                 "cache.length": self.cache.length}
+        if self.ids_buf is not None:
+            reads["ids_buf"] = self.ids_buf
+
+        def leaves(tree, prefix):
+            for name, x in tree.items():
+                if isinstance(x, dict):
+                    leaves(x, f"{prefix}{name}/")
+                elif isinstance(x, torch.Tensor):
+                    reads[prefix + name] = x
+        leaves(self.params["llm"], "llm/")
+        return reads
 
     def collect(self, handle) -> dict:
         """Bring a call's results to the host ({env: token list}) and
@@ -695,16 +826,11 @@ class StreamingEngine:
         active[env] = True
         sample = self._sample_params(temperature, top_p)
         saved_length = self.cache.length.clone()
-        if self.ids_buf is not None:
-            _shadow_write(self.ids_buf, pending[:, None], self.cache.length,
-                          active)
-        # inactive rows are not written; their lengths are restored below
-        logits = _decode_step(self.params, self.cfg, self.cache,
-                              pending[:, None], active, self.attn_impl,
-                              self.compute_dtype)
-        result = self._decode(logits[:, 0], pending, active, sample)
-        self.cache.length = torch.where(active, self.cache.length,
-                                        saved_length)
+        # the pending token is fed first (and recorded in the shadow);
+        # inactive rows are not written, their lengths restored below
+        result = self._decode(pending, pending, active, sample, pending=True)
+        self.cache.length.copy_(torch.where(active, self.cache.length,
+                                            saved_length))
         toks = self._settle(env, result.cpu().numpy())
         st.kv_length += 1 + max(len(toks) - 1, 0)
         return toks

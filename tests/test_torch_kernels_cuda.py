@@ -502,8 +502,9 @@ def test_int4_engine_on_card_matches_dequantized_dense(dev):
     prefill logits agree (cosine > 0.99) on every call, and the launch
     counts follow the path: per call K7 for the 4 fused projections of
     each layer (prefill), K6 for the prefill's lm_head and 4 per layer + 1
-    per fed token. Under decode_kernel, K8 runs once per layer per fed
-    token."""
+    per decode forward: one per fed token, replayed from the decode graph,
+    and the no-op warm-up forward before the graph's capture. Under
+    decode_kernel, K8 runs once per layer per decode forward."""
     from streamvln_tpu_torch.data import chatml
     from streamvln_tpu_torch.data.tokenizer import ByteTokenizer
     from streamvln_tpu_torch.models import quant
@@ -541,12 +542,12 @@ def test_int4_engine_on_card_matches_dequantized_dense(dev):
             out = eng.generate(0, frame, ids, step_id=call)
             fed += len(out) - 1
             logits[name].append(eng.last_logits.float())
-        n = len(frames)
+        n, forwards = len(frames), fed + len(eng.graphs)
         if name == "int4":
             assert i4.dequant_launches - n7 == 4 * L * n
-            assert i4.launches - n6 == n + (4 * L + 1) * fed
+            assert i4.launches - n6 == n + (4 * L + 1) * forwards
         if name == "decode_kernel":
-            assert da.launches - n8 == L * fed
+            assert da.launches - n8 == L * forwards
             assert i4.dequant_launches - n7 == 4 * L * n
     for a, b in zip(logits["int4"], logits["dense"]):
         cos = torch.nn.functional.cosine_similarity(a, b, dim=-1).min()
@@ -598,3 +599,59 @@ def test_spec_engine_call_on_card_matches_greedy(dev):
     assert r["compared_calls"] == 5
     assert r["spec_forwards"] >= 1
     assert r["agreeing_positions"] >= 1
+
+
+def test_decode_graphs_replay_the_eager_loop(dev):
+    """A small bf16 stack's engine on the card, greedy and speculative
+    (spec_lookup=6): over 9 agent steps with a model call at each (across
+    the window reset and its <memory> call), every decode forward is one
+    replay of the graph captured for its loop, the tokens equal those of
+    the same engine running its steps eagerly (cuda_graphs off), and a
+    cache length rebound to a new tensor after capture makes the next
+    replay raise."""
+    from streamvln_tpu_torch.agent import VLNAgent
+    from streamvln_tpu_torch.data.tokenizer import ByteTokenizer
+    from streamvln_tpu_torch.streaming.engine import StreamingEngine
+    from streamvln_tpu_torch.weights import init
+
+    cfg = _small_wide_cfg()
+    params = init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tok = ByteTokenizer()
+    frames = np.random.default_rng(6).integers(0, 256, (9, 48, 64, 3),
+                                               np.uint8)
+    for spec in (0, 6):
+        texts, engines = {}, {}
+        for graphs in (True, False):
+            eng = StreamingEngine(params, cfg, cache_capacity=2048,
+                                  max_new_tokens=8, spec_lookup=spec,
+                                  stop_ids=(tok.im_end_id,),
+                                  buckets=(256, 512, 1024),
+                                  cuda_graphs=graphs)
+            agent = VLNAgent(eng, tok)
+            texts[graphs] = [agent.step(0, f, "go to the door",
+                                        run_model=True)[2] for f in frames]
+            engines[graphs] = eng
+        eng = engines[True]
+        assert texts[True] == texts[False], spec
+        assert not engines[False].graphs
+        assert eng.decode_forwards == engines[False].decode_forwards > 0
+        assert sum(g.replays for g in eng.graphs.values()) \
+            == eng.decode_forwards
+        graph = next(iter(eng.graphs.values()))
+        eng.cache.length = eng.cache.length.clone()
+        with pytest.raises(RuntimeError, match="no longer hold"):
+            graph.replay()
+
+
+def test_a_step_that_reads_back_fails_its_capture(dev):
+    """A step that reads a tensor back to the host runs in its eager
+    warm-up but cannot be captured: building its graph raises."""
+    from streamvln_tpu_torch.streaming import decode_graph
+
+    def reads_back(st):
+        st["more"].copy_(~st["done"].all())
+        return {"logits": st["more"].float() * float(st["more"].item())}
+    state = {"done": torch.zeros(2, dtype=torch.bool, device=dev),
+             "more": torch.ones((), dtype=torch.bool, device=dev)}
+    with pytest.raises(RuntimeError):
+        decode_graph.StepGraph(reads_back, state, dict)
