@@ -16,6 +16,7 @@ from torch.utils.checkpoint import checkpoint
 
 from streamvln_tpu_torch.configs import SigLIPConfig
 from streamvln_tpu_torch.ops.attention import mha_attention
+from streamvln_tpu_torch.ops.fused_patch_embed import fused_patch_embed
 from streamvln_tpu_torch.ops.linear import matmul_f32
 
 Params = dict
@@ -46,6 +47,18 @@ def forward(params: Params, cfg: SigLIPConfig, images: torch.Tensor,
     x = patchify(images, cfg.patch_size)
     x = (matmul_f32(x, params["patch_w"])
          + params["patch_b"].float()).to(images.dtype)
+    return forward_embeddings(params, cfg, x, attn_impl, remat)
+
+
+def forward_raw(params: Params, cfg: SigLIPConfig, frames_u8: torch.Tensor,
+                attn_impl: str = "auto", remat: bool = False,
+                compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Raw [B, H, W, 3] uint8 frames -> [B, 729, hidden] through the fused
+    resize/normalise/patch-embed (ops/fused_patch_embed.py)."""
+    x = fused_patch_embed(frames_u8, params["patch_w"], params["patch_b"],
+                          image_size=cfg.image_size,
+                          patch_size=cfg.patch_size,
+                          compute_dtype=compute_dtype)
     return forward_embeddings(params, cfg, x, attn_impl, remat)
 
 

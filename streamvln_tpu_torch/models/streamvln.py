@@ -51,10 +51,17 @@ def encode_frames(params: Params, cfg: StreamVLNConfig,
     flat = images.reshape((B * V,) + tuple(images.shape[2:]))
     feats = siglip.forward(params["vision"], cfg.vision, flat, attn_impl,
                            remat=remat)
+    return project_pool(params, cfg, feats).reshape(
+        B, V * cfg.tokens_per_frame, -1)
+
+
+def project_pool(params: Params, cfg: StreamVLNConfig,
+                 feats: torch.Tensor) -> torch.Tensor:
+    """Tower features [N, patches, vision_hidden] -> [N, tokens_per_frame,
+    llm_hidden]: projector -> 2x2 pool."""
     feats = projector_lib.forward(params["projector"], feats)
-    feats = pool_2d(feats, cfg.vision.patches_per_side,
-                    cfg.spatial_pool_stride, cfg.spatial_pool_mode)
-    return feats.reshape(B, V * cfg.tokens_per_frame, -1)
+    return pool_2d(feats, cfg.vision.patches_per_side,
+                   cfg.spatial_pool_stride, cfg.spatial_pool_mode)
 
 
 @dataclasses.dataclass

@@ -48,7 +48,13 @@ the same public API: `generate`, `generate_batch(_async)` / `collect`,
   support, the greedy gate and determinism by seed are the reference's,
   the bits of `jax.random` are not.
 
-Fused preprocessing and the int8 KV cache are later slices of the port.
+- **fused_preprocess**: the current and history frames go through the
+  fused resize/normalise/patch-embed (`siglip.forward_raw`) in place of
+  `ops/preprocess.py` + `siglip.forward`; the call, `backfill` and
+  `backfill_batch` take the same flavour, so a feature cache never mixes
+  the two encoders' outputs.
+
+The int8 KV cache is a later slice of the port.
 """
 from __future__ import annotations
 
@@ -59,7 +65,7 @@ import numpy as np
 import torch
 
 from streamvln_tpu_torch.configs import StreamVLNConfig, resolve_device
-from streamvln_tpu_torch.models import qwen2, streamvln
+from streamvln_tpu_torch.models import qwen2, siglip, streamvln
 from streamvln_tpu_torch.models.fuse import fuse_projections
 from streamvln_tpu_torch.models.qwen2 import KVCache
 from streamvln_tpu_torch.ops.preprocess import preprocess_frames
@@ -96,12 +102,19 @@ class _PhaseTimer:
                                                    self.events[1:])]
 
 
-def _encode(params, cfg, frames_u8, attn_impl, dtype):
-    """[N, H, W, 3] uint8 -> pooled [N, tpf, D] in dtype."""
-    pixels = preprocess_frames(frames_u8, cfg.vision.image_size, dtype=dtype)
-    pooled = streamvln.encode_frames(params, cfg, pixels[:, None], attn_impl)
-    return pooled.reshape(frames_u8.shape[0], cfg.tokens_per_frame,
-                          -1).to(dtype)
+def _encode(params, cfg, frames_u8, attn_impl, dtype, fused: bool):
+    """[N, H, W, 3] uint8 -> pooled [N, tpf, D] in dtype: the tower on
+    preprocess_frames' pixels, or with `fused` on the fused patch embed
+    (the reference's two `_encode_store` flavours), then the projector and
+    the 2x2 pool."""
+    vision = params["vision"]
+    if fused:
+        feats = siglip.forward_raw(vision, cfg.vision, frames_u8, attn_impl,
+                                   compute_dtype=dtype)
+    else:
+        feats = siglip.forward(vision, cfg.vision, preprocess_frames(
+            frames_u8, cfg.vision.image_size, dtype=dtype), attn_impl)
+    return streamvln.project_pool(params, cfg, feats).to(dtype)
 
 
 def _is_stop(t: torch.Tensor, stop: torch.Tensor) -> torch.Tensor:
@@ -356,6 +369,7 @@ class StreamingEngine:
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
                  compute_dtype=torch.bfloat16,
                  attn_impl: str = "auto",
+                 fused_preprocess: bool = False,
                  spec_lookup: int = 0,
                  cuda_graphs: bool = True,
                  device="cuda"):
@@ -371,6 +385,7 @@ class StreamingEngine:
         self.stop_ids = tuple(int(s) for s in stop_ids)
         self.buckets = tuple(sorted(buckets))
         self.attn_impl = attn_impl
+        self.fused_preprocess = fused_preprocess
         self.compute_dtype = compute_dtype
         self.cache = KVCache.create(cfg.llm, n_envs, cache_capacity,
                                     compute_dtype, self.device)
@@ -622,7 +637,8 @@ class StreamingEngine:
         timer.mark()
         write_slot = torch.where(active, meta[:, nh],
                                  self.feat_cache.shape[1] - 1).long()
-        pooled = _encode(params, cfg, frames, self.attn_impl, dt)
+        pooled = _encode(params, cfg, frames, self.attn_impl, dt,
+                         self.fused_preprocess)
         self.feat_cache[rows, write_slot] = pooled
 
         # 2. vision pool [B, (nh + 1) * tpf, D]: memory slots, then current
@@ -868,7 +884,8 @@ class StreamingEngine:
             wslots[i] = slots[i]
         pooled = _encode(self.params, self.cfg,
                          torch.from_numpy(frames).to(self.device),
-                         self.attn_impl, self.compute_dtype)
+                         self.attn_impl, self.compute_dtype,
+                         self.fused_preprocess)
         self.feat_cache[env, torch.from_numpy(wslots).to(self.device)] = \
             pooled
 
