@@ -128,7 +128,28 @@ Phases (any failure exits non-zero before the result line):
      in turns, and 9 agent calls with fused_preprocess=True with exact
      K1/K2 counts; its record lands in chip_smoke.json under
      "serving_stack" and one summary line is printed;
-  7. print the kernels JSON line (K1-K8; each with bound_share = bound_ms
+  7. the turnkey command (turnkey_command): phase 5's weights (random
+     bf16 streamvln_7b from seed 0, steered to walk, unfused) written by
+     utils/checkpoint.save_hf in bf16 as HF shards of at most 5 GB with a
+     model.safetensors.index.json into a temporary directory (removed in
+     every case; no tokenizer files, so the ByteTokenizer), then, with
+     tests/habitat_stub.py installed (4 episodes of 480x640 frames),
+     eval_cli.main(--model_path <dir> --model_size 7b --env_backend habitat
+     --habitat_config_path config/vln_r2r.yaml --eval_split val_unseen
+     --max_steps_per_episode 12) in-process, twice: result.json with 4
+     episode lines and the aggregate, finite metrics, exact K1/K2 launches
+     per model call, every verify forward a graph replay, and a second run
+     (resume) with no model call and the same aggregate; the loaded tree
+     bit-equal to the written one, loaded by the port's per-layer device
+     staging and, as a yardstick, converted on the host and then uploaded
+     (each timed: read, convert, upload), one agent call over the loaded
+     weights equal to one over the in-memory weights (tokens and prefill
+     logits), and the build's device peak within 1 GiB of the random-init
+     build's;
+     prints the load seconds and GB/s, the host's peak RSS and the
+     model-call p50/p90 beside the card's name and power limit; its
+     record lands in chip_smoke.json under "turnkey";
+  8. print the kernels JSON line (K1-K8; each with bound_share = bound_ms
      / ms and vs_library = ms / library_ms), the card line, and the
      result line.
 """
@@ -201,6 +222,10 @@ SPEC_FLIP_BOUND, SPEC_MIN_COSINE = 2.0, 0.999
 # walk ~0.06, to a unit embedding; the chain's next token gains ~12 logits
 # against random logits of unit spread
 STEER_RESIDUAL, STEER_LOGIT = 2.0 ** -12, 12.0
+# phase 7's checkpoint: shards of at most 5 GB, as HF's save_pretrained
+# writes them; its build may take at most 1 GiB more of the card than the
+# random-init build
+TURNKEY_SHARD_BYTES, TURNKEY_MEMORY_SLACK = 5 * 10**9, 2**30
 
 
 def log(*a):
@@ -1934,6 +1959,48 @@ def steered_weights():
         weights.init = init0
 
 
+@contextlib.contextmanager
+def counted_builds(torch, eval_cli, box):
+    """While open, every agent eval_cli.build_agent builds counts its model
+    calls (box["calls"]) and its history backfill passes that encode a
+    frame (box["backfills"]) into `box`, which also gets the last engine
+    ("engine"), its tokenizer's class ("tokenizer") and the device memory
+    of the build ("build_peak_bytes":
+    max_memory_allocated, reset before the build, read once the engine
+    exists, less what was allocated before it)."""
+    build0 = eval_cli.build_agent
+    box.update(calls=0, backfills=0)
+
+    def build_agent(*a, **k):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        agent = build0(*a, **k)
+        torch.cuda.synchronize()
+        box["build_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        box["tokenizer"] = type(agent.tok).__name__
+        eng = agent.engine
+        collect, backfill = eng.collect, eng.backfill_batch
+
+        def counted_collect(handle):
+            box["calls"] += 1
+            return collect(handle)
+
+        def counted_backfill(env, frames_u8, step_ids):
+            st = eng.envs[env]
+            box["backfills"] += any(s not in st.frame_slots
+                                    for s in step_ids)
+            return backfill(env, frames_u8, step_ids)
+        eng.collect, eng.backfill_batch = counted_collect, counted_backfill
+        box["engine"] = eng
+        return agent
+    eval_cli.build_agent = build_agent
+    try:
+        yield box
+    finally:
+        eval_cli.build_agent = build0
+
+
 def eval_entry_point(torch, va, counts, reset):
     """Phase 5: the evaluation entry point as users run it,
     eval_cli.main(--model_size 7b --env_backend fake --num_episodes 2
@@ -1953,42 +2020,20 @@ def eval_entry_point(torch, va, counts, reset):
     result = os.path.join(out_dir, "result.json")
     if os.path.exists(result):
         os.remove(result)               # result.json resumes otherwise
-    build0 = eval_cli.build_agent
-    box = {"calls": 0, "backfills": 0}
-
-    def build_agent(*a, **k):
-        agent = build0(*a, **k)
-        eng = agent.engine
-        collect, backfill = eng.collect, eng.backfill_batch
-
-        def counted_collect(handle):
-            box["calls"] += 1
-            return collect(handle)
-
-        def counted_backfill(env, frames_u8, step_ids):
-            st = eng.envs[env]
-            box["backfills"] += any(s not in st.frame_slots
-                                    for s in step_ids)
-            return backfill(env, frames_u8, step_ids)
-        eng.collect, eng.backfill_batch = counted_collect, counted_backfill
-        box["engine"] = eng
-        return agent
-    eval_cli.build_agent = build_agent
+    box = {}
     printed = io.StringIO()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset()
     t0 = time.perf_counter()
-    try:
-        with steered_weights(), contextlib.redirect_stdout(printed):
-            final = eval_cli.main([
-                "--model_size", "7b", "--env_backend", "fake",
-                "--num_episodes", "2", "--max_steps_per_episode", "36",
-                "--output_path", out_dir])
+    with counted_builds(torch, eval_cli, box), steered_weights(), \
+            contextlib.redirect_stdout(printed):
+        final = eval_cli.main([
+            "--model_size", "7b", "--env_backend", "fake",
+            "--num_episodes", "2", "--max_steps_per_episode", "36",
+            "--output_path", out_dir])
         torch.cuda.synchronize()
-    finally:
-        eval_cli.build_agent = build0
     seconds = time.perf_counter() - t0
     got, by_b = counts(), by_batch(va)
     eng = box.pop("engine")
@@ -2028,6 +2073,331 @@ def eval_entry_point(torch, va, counts, reset):
             every_decode_forward_a_replay=rec["graph_replays"]
             == rec["decode_forwards"] > 0,
             model_call_latency="model_call_p50_ms" in final)
+    return rec
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k], f"{prefix}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+@contextlib.contextmanager
+def rss_peak(period_s=0.02):
+    """While open, a thread samples the process's resident set
+    (/proc/self/statm) every `period_s`; yields a dict whose "peak_gib"
+    is the largest sample once closed (VmHWM cannot be reset in every
+    sandbox, so the window's own peak is sampled)."""
+    import threading
+    page = os.sysconf("SC_PAGE_SIZE")
+    box, done = {"peak_gib": 0.0}, threading.Event()
+
+    def sample():
+        while True:
+            with open("/proc/self/statm") as f:
+                rss = int(f.read().split()[1]) * page / 2**30
+            box["peak_gib"] = max(box["peak_gib"], rss)
+            if done.wait(period_s):
+                return
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        yield box
+    finally:
+        done.set()
+        t.join()
+
+
+def one_call(torch, params, cfg, frame, instruction, device="cuda"):
+    """One agent call on a fresh engine over `params` (fused here, as
+    eval_cli.build_agent fuses): its tokens and prefill logits."""
+    from streamvln_tpu_torch.agent import VLNAgent
+    from streamvln_tpu_torch.data.tokenizer import ByteTokenizer
+    from streamvln_tpu_torch.models.fuse import fuse_projections
+    from streamvln_tpu_torch.streaming.engine import StreamingEngine
+    tok = ByteTokenizer()
+    engine = StreamingEngine(fuse_projections(params), cfg,
+                             cache_capacity=4096, max_new_tokens=16,
+                             stop_ids=(tok.im_end_id, tok.eos_id),
+                             spec_lookup=6, device=device,
+                             compute_dtype=params["llm"]["embed"].dtype)
+    calls, restore = record_calls(torch, engine)
+    VLNAgent(engine, tok).step(0, frame, instruction, run_model=True)
+    restore()
+    return calls[0]["tokens"], engine.last_logits.float().cpu()
+
+
+def turnkey_command(torch, np, va, counts, reset, model_size="7b",
+                    device="cuda", shard_bytes=TURNKEY_SHARD_BYTES):
+    """Phase 7: the reference's turnkey command on the card at full width.
+    Phase 5's weights (random bf16 streamvln_7b from seed 0, steered to
+    walk, unfused) are written as an HF checkpoint in bf16, as the
+    published weights ship: shards of at most TURNKEY_SHARD_BYTES with a
+    model.safetensors.index.json (no tokenizer files: the ByteTokenizer,
+    as the reference picks for such a directory). Then, with the habitat
+    stub installed (tests/habitat_stub.py: 4 episodes of 480x640 frames),
+    `eval_cli.main --model_path <dir> --model_size 7b --env_backend habitat
+    ...` runs twice: the second run must run no model call and give the
+    same aggregate (resume). Checks result.json, the exact K1/K2 launches
+    per model call and graph replays; that the loaded tree equals the
+    written one bit for bit (the loader's device staging and, as a
+    yardstick, the conversion on the host then one upload, each timed:
+    read, convert, upload); that one agent call over the loaded weights equals
+    one over the in-memory weights (tokens, prefill logits); and that the
+    build's device peak stays within TURNKEY_MEMORY_SLACK of the
+    random-init build's (eval_cli.build_agent(None, "7b")). The checkpoint
+    directory is removed in every case."""
+    import io
+    import shutil
+    import tempfile
+    from streamvln_tpu_torch import eval_cli, weights
+    from streamvln_tpu_torch.configs import build_config
+    from streamvln_tpu_torch.models import convert_hf
+    from streamvln_tpu_torch.utils import checkpoint
+    import yaml  # noqa: F401  (the stub reads config/vln_r2r.yaml with it)
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import habitat_stub
+
+    import argparse
+    cfg = build_config(argparse.Namespace(
+        model_size=model_size, spatial_pool_mode="bilinear", num_frames=32,
+        num_future_steps=4, num_history=8))
+    dtype = torch.bfloat16 if device == "cuda" else torch.float32
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    params = weights.init(cfg, torch.Generator(device=device).manual_seed(0),
+                          device=device, dtype=dtype)
+    steer_to_walk(params)
+    nbytes = tree_bytes(params)
+    tmp = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp).free
+    root = tmp if free >= 2 * nbytes else os.path.abspath("chiprun_out")
+    os.makedirs(root, exist_ok=True)
+    free = shutil.disk_usage(root).free
+    ckpt = tempfile.mkdtemp(prefix="turnkey_ckpt_", dir=root)
+    mods = None
+    rec = {"checkpoint_dir_root": root, "disk_free_before_bytes": free}
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        paths = checkpoint.save_hf(params, cfg, ckpt, dtype,
+                                   max_shard_bytes=shard_bytes)
+        rec["write_s"] = time.perf_counter() - t0
+        rec["shards"] = [os.path.basename(p) for p in paths]
+        rec["checkpoint_bytes"] = sum(os.path.getsize(p) for p in paths)
+        log(f"phase 7: wrote {len(paths)} {dtype} shards, "
+            f"{rec['checkpoint_bytes'] / 2**30:.3f} GiB, in "
+            f"{rec['write_s']:.2f} s to {root} ({free / 2**30:.1f} GiB "
+            f"free before)")
+        require("phase 7: the checkpoint", shards_with_an_index=len(paths)
+                > 1 and os.path.exists(os.path.join(
+                    ckpt, "model.safetensors.index.json")),
+                shards_within_the_limit=all(
+                    os.path.getsize(p) <= shard_bytes + 2**20
+                    for p in paths))
+        # the written weights stay on the host; the card is free for builds
+        written = tree_map(lambda t: t.cpu(), params)
+        rec["written_tree_gib"] = tree_bytes(written) / 2**30
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the random-init build's device peak, for the load's to meet
+        box = {}
+        with counted_builds(torch, eval_cli, box):
+            agent = eval_cli.build_agent(None, model_size, device=device)
+        rec["random_init_build_peak_bytes"] = box["build_peak_bytes"]
+        del agent, box
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the turnkey command, twice (the second resumes)
+        mods, _ = habitat_stub.install()
+        out_dir = os.path.join("chiprun_out", "turnkey")
+        result = os.path.join(out_dir, "result.json")
+        if os.path.exists(result):
+            os.remove(result)
+        argv = ["--model_path", ckpt, "--model_size", model_size,
+                "--device", device,
+                "--env_backend", "habitat",
+                "--habitat_config_path", "config/vln_r2r.yaml",
+                "--eval_split", "val_unseen", "--output_path", out_dir,
+                "--max_steps_per_episode", "12"]
+        load0 = convert_hf.load_streamvln_checkpoint
+        runs = []
+        for run in range(2):
+            box, stats, printed = {}, {}, io.StringIO()
+
+            def load(*a, **k):
+                return load0(*a, **dict(k, stats=stats))
+            convert_hf.load_streamvln_checkpoint = load
+            reset()
+            t0 = time.perf_counter()
+            try:
+                with counted_builds(torch, eval_cli, box), \
+                        rss_peak() as rss, \
+                        contextlib.redirect_stdout(printed):
+                    final = eval_cli.main(argv)
+                    torch.cuda.synchronize()
+            finally:
+                convert_hf.load_streamvln_checkpoint = load0
+            eng = box.pop("engine")
+            runs.append({
+                "final": final, "seconds": time.perf_counter() - t0,
+                "model_calls": box["calls"], "backfills": box["backfills"],
+                "launches": counts(), "vit_launches_by_batch": by_batch(va),
+                "decode_forwards": eng.decode_forwards,
+                "decode_tokens": eng.decode_tokens,
+                "graph_replays": sum(g.replays for g in eng.graphs.values()),
+                "build_peak_bytes": box["build_peak_bytes"], "load": stats,
+                "peak_rss_gib": rss["peak_gib"],
+                "tokenizer": box["tokenizer"],
+                "printed": printed.getvalue().strip()})
+            Lv, L = cfg.vision.num_layers, cfg.llm.num_layers
+            runs[-1]["want"] = {
+                "vit_attention": Lv * (box["calls"] + box["backfills"]),
+                "flash_attention": L * box["calls"], "int4_matmul": 0,
+                "int4_dequant_split": 0, "decode_attention": 0}
+            if run == 0:
+                with open(result) as f:
+                    lines = [json.loads(x) for x in f]
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        habitat_stub.uninstall(mods)
+        mods = None
+        first, again = runs
+        rec["runs"], rec["episodes"] = runs, lines[:-1]
+        load_s = {k: first["load"][k] for k in ("read_s", "convert_s",
+                                                "upload_s")}
+        total = sum(load_s.values())
+        keys = ("sucs_all", "spls_all", "oss_all", "ones_all", "length")
+        episode_keys = ("success", "spl", "os", "ne")
+        log(f"phase 7: eval_cli.main printed {first['printed']}; resumed "
+            f"{again['printed']}")
+        log(f"phase 7: load {total:.2f} s = read {load_s['read_s']:.3f} + "
+            f"convert {load_s['convert_s']:.2f} + upload "
+            f"{load_s['upload_s']:.2f} s, "
+            f"{first['load']['bytes'] / total / 1e9:.2f} GB/s; build peak "
+            f"{first['build_peak_bytes'] / 2**30:.3f} GiB vs random init "
+            f"{rec['random_init_build_peak_bytes'] / 2**30:.3f} GiB; host "
+            f"peak RSS {first['peak_rss_gib']:.2f} GiB (of which "
+            f"{rec['written_tree_gib']:.2f} the written tree kept for the "
+            f"bit check); {first['model_calls']} model calls, "
+            f"{len(lines) - 1} episodes ({[r['steps'] for r in lines[:-1]]} "
+            f"steps) in {first['seconds']:.1f} s, model call p50 "
+            f"{first['final'].get('model_call_p50_ms', 0):.2f} ms p90 "
+            f"{first['final'].get('model_call_p90_ms', 0):.2f} ms; launches "
+            f"{first['launches']} (want {first['want']}); "
+            f"{first['graph_replays']} replays of "
+            f"{first['decode_forwards']} verify forwards; tokenizer "
+            f"{first['tokenizer']}; resume: "
+            f"{again['model_calls']} calls in {again['seconds']:.1f} s")
+        require("phase 7: the turnkey command",
+                episode_and_aggregate_lines=len(lines) == 5
+                and "episode_id" not in lines[-1] and lines[-1]["length"] == 4,
+                finite_metrics=all(np.isfinite(r[k]) for r in lines[:-1]
+                                   for k in episode_keys)
+                and all(np.isfinite(first["final"][k]) for k in keys),
+                model_calls=first["model_calls"] > 0,
+                launch_counts=first["launches"] == first["want"],
+                every_decode_forward_a_replay=first["graph_replays"]
+                == first["decode_forwards"] > 0,
+                model_call_latency="model_call_p50_ms" in first["final"],
+                resume_runs_no_model_call=again["model_calls"] == 0
+                and again["launches"] == again["want"],
+                resume_same_aggregate=all(again["final"][k]
+                                          == first["final"][k] for k in keys),
+                build_memory_within_slack=first["build_peak_bytes"]
+                <= rec["random_init_build_peak_bytes"] + TURNKEY_MEMORY_SLACK)
+
+        # the loaded tree against the written one: the loader's per-layer
+        # device staging, and as a yardstick the same conversion on the
+        # host (the stacks transposed by the CPU) followed by one upload
+        # per leaf
+        def host_staged(stats):
+            tree = convert_hf.load_streamvln_checkpoint(ckpt, cfg, dtype,
+                                                        "cpu", stats=stats)
+            t0 = time.perf_counter()
+            tree = tree_map(lambda t: t.to(device), tree)
+            torch.cuda.synchronize()
+            stats["upload_s"] += time.perf_counter() - t0
+            return tree
+        rec["stagings"] = {}
+        for stage, load in (
+                ("device", lambda st: convert_hf.load_streamvln_checkpoint(
+                    ckpt, cfg, dtype, device, stats=st)),
+                ("host", host_staged)):
+            stats = {}
+            t0 = time.perf_counter()
+            loaded = load(stats)
+            torch.cuda.synchronize()
+            stats["wall_s"] = time.perf_counter() - t0
+            got, want = dict(tree_leaves(loaded)), dict(tree_leaves(written))
+            unequal = sorted(k for k in want if k not in got
+                             or got[k].dtype != want[k].dtype
+                             or not torch.equal(got[k].cpu(), want[k]))
+            stats["unequal_leaves"] = unequal
+            stats["leaves"] = len(want)
+            rec["stagings"][stage] = stats
+            log(f"phase 7: {stage} staging: {stats['wall_s']:.2f} s (read "
+                f"{stats['read_s']:.3f}, convert {stats['convert_s']:.2f}, "
+                f"upload {stats['upload_s']:.2f}), "
+                f"{stats['bytes'] / stats['wall_s'] / 1e9:.2f} GB/s; "
+                f"{len(want) - len(unequal)}/{len(want)} leaves bit-equal "
+                f"to the written tree")
+            require(f"phase 7: {stage} staging", bit_equal=not unequal)
+            if stage != "device":
+                del loaded
+                continue
+            frame = np.random.default_rng(7).integers(0, 256, (480, 640, 3),
+                                                      np.uint8)
+            instruction = "walk past the sofa and stop at the kitchen door"
+            t_loaded = one_call(torch, loaded, cfg, frame, instruction,
+                                device)
+            del loaded
+            gc.collect()
+            torch.cuda.empty_cache()
+            t_memory = one_call(
+                torch, tree_map(lambda t: t.to(device), written), cfg,
+                frame, instruction, device)
+            gc.collect()
+            torch.cuda.empty_cache()
+        agree = logits_agreement(torch, t_loaded[1], t_memory[1])
+        rec["one_call"] = {
+            "tokens_loaded": t_loaded[0], "tokens_in_memory": t_memory[0],
+            "logits_bit_equal": bool(torch.equal(t_loaded[1], t_memory[1])),
+            **agree}
+        log(f"phase 7: one call over the loaded vs the in-memory weights: "
+            f"tokens {t_loaded[0]} / {t_memory[0]}, prefill logits "
+            f"bit-equal {rec['one_call']['logits_bit_equal']} (cosine "
+            f"{agree['cosine']:.6f})")
+        require("phase 7: loaded vs in-memory weights",
+                tokens_equal=t_loaded[0] == t_memory[0],
+                prefill_logits_bit_equal=rec["one_call"]["logits_bit_equal"])
+    finally:
+        if mods is not None:
+            habitat_stub.uninstall(mods)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    rec["launches"] = first["launches"]
+    rec["vit_launches_by_batch"] = first["vit_launches_by_batch"]
+    rec["seconds"] = time.perf_counter() - t_phase
     return rec
 
 
@@ -2874,6 +3244,28 @@ def serving_summary(s) -> str:
             f"{s['peak_memory_bytes'] / 2**30:.2f} GiB; {s['seconds']:.1f} s")
 
 
+def turnkey_summary(t, card) -> str:
+    """Phase 7 on one line, beside the card's name and power limit."""
+    first = t["runs"][0]
+    load = first["load"]
+    total = load["read_s"] + load["convert_s"] + load["upload_s"]
+    return (f"phase 7 turnkey ({card}): checkpoint "
+            f"{t['checkpoint_bytes'] / 2**30:.3f} GiB in "
+            f"{len(t['shards'])} shards written in {t['write_s']:.2f} s; load "
+            f"{total:.2f} s (read {load['read_s']:.3f}, convert "
+            f"{load['convert_s']:.2f}, upload {load['upload_s']:.2f}) = "
+            f"{load['bytes'] / total / 1e9:.2f} GB/s; host staging "
+            f"{t['stagings']['host']['wall_s']:.2f} s vs device "
+            f"{t['stagings']['device']['wall_s']:.2f} s; build peak "
+            f"{first['build_peak_bytes'] / 2**30:.3f} GiB vs random init "
+            f"{t['random_init_build_peak_bytes'] / 2**30:.3f} GiB; host peak "
+            f"RSS {first['peak_rss_gib']:.2f} GiB (written tree "
+            f"{t['written_tree_gib']:.2f}); model call p50 "
+            f"{first['final']['model_call_p50_ms']:.2f} p90 "
+            f"{first['final']['model_call_p90_ms']:.2f} ms; "
+            f"{t['seconds']:.1f} s")
+
+
 def by_batch(va) -> dict:
     """K1's launches by batch size since its counts were last reset."""
     return {f"B={b}": n for b, n in sorted(va.launches_by_batch.items())}
@@ -3078,15 +3470,22 @@ def main() -> int:
     serving["captures"] = captures[n_captures:]
     log_captures("phase 6", serving["captures"])
 
+    # 7. the turnkey command: an HF checkpoint and the habitat backend
+    n_captures = len(captures)
+    turnkey = turnkey_command(torch, np, va, serving_counts, reset_counts)
+    turnkey["captures"] = captures[n_captures:]
+    log_captures("phase 7", turnkey["captures"])
+
     sent = set(vit_by_batch) | set(train["vit_launches_by_batch"]) | \
         set(evaluation["vit_launches_by_batch"]) | \
-        set(serving["vit_launches_by_batch"])
+        set(serving["vit_launches_by_batch"]) | \
+        set(turnkey["vit_launches_by_batch"])
     unchecked = sent - {f"B={r['batch']}" for r in vit}
     if unchecked:
         raise AssertionError(f"the main paths sent K1 batches {unchecked} "
                              f"that phase 2 did not check")
 
-    # 7. summary
+    # 8. summary
     kernels = [
         kernel_entry("vit_attention",
                      "streamvln_tpu_torch/csrc/vit_attention.cu",
@@ -3099,7 +3498,8 @@ def main() -> int:
                      launches_training=train["launches"]["vit_attention"],
                      launches_eval=evaluation["launches"]["vit_attention"],
                      launches_serving_stack=serving_launches(
-                         serving, "vit_attention")),
+                         serving, "vit_attention"),
+                     launches_turnkey=turnkey["launches"]["vit_attention"]),
         kernel_entry("flash_attention",
                      "streamvln_tpu_torch/csrc/flash_attention.cu",
                      "streamvln_tpu/ops/flash_attention.py:49", n_flash,
@@ -3108,7 +3508,9 @@ def main() -> int:
                      launches_eval=evaluation["launches"][
                          "flash_attention"],
                      launches_serving_stack=serving_launches(
-                         serving, "flash_attention"))]
+                         serving, "flash_attention"),
+                     launches_turnkey=turnkey["launches"][
+                         "flash_attention"])]
     for name, src in (
             ("flash_attention_lse",
              "streamvln_tpu_torch/csrc/flash_attention.cu"),
@@ -3143,6 +3545,7 @@ def main() -> int:
                              "on the live prefix")]
     seconds = time.perf_counter() - t_start
     log(serving_summary(serving))
+    log(turnkey_summary(turnkey, card))
     log(f"chip_smoke: all phases passed in {seconds:.1f} s")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -3154,7 +3557,7 @@ def main() -> int:
                    "graphs_vs_eager": replays, "captures": captures,
                    "training_kernels": train_k, "training": train,
                    "evaluation": evaluation, "serving_stack": serving,
-                   "seconds": seconds}, f, indent=1)
+                   "turnkey": turnkey, "seconds": seconds}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,16 @@
-"""Tokenizers for the port: the `Tokenizer` protocol and the
-dependency-free `ByteTokenizer`.
+"""Tokenizers for the port: the `Tokenizer` protocol, the HF Qwen2
+adapter and the dependency-free `ByteTokenizer`.
 
 Own copy of `streamvln_tpu/data/tokenizer.py` (the port imports nothing
-of the JAX package). The HF-backed adapter is not carried over yet: it
-needs `transformers`, which the GPU image does not ship.
+of the JAX package). `load_tokenizer(path)` returns the HF-backed adapter
+for a checkpoint directory with tokenizer files (exact Qwen2 BPE; needs
+`transformers`, and raises ImportError without it) and the ByteTokenizer
+otherwise (deterministic and reversible, the action glyphs included).
 """
 from __future__ import annotations
 
-from typing import List, Protocol, Sequence
+import os
+from typing import List, Optional, Protocol, Sequence
 
 
 class Tokenizer(Protocol):
@@ -86,3 +89,60 @@ class ByteTokenizer:
         if buf:
             out.append(buf.decode("utf-8", errors="replace"))
         return "".join(out)
+
+
+class HFTokenizerAdapter:
+    """A HF Qwen2 tokenizer directory, with the reference's runtime
+    special-token registration: <image>/<memory> are added as specials,
+    im_start/im_end come from the vocabulary (or, on older checkpoints,
+    the first two additional specials), and the standalone-newline token
+    joins the unmask set."""
+
+    def __init__(self, path: str, model_max_length: int = 4096):
+        import transformers
+        self._tok = transformers.AutoTokenizer.from_pretrained(
+            path, model_max_length=model_max_length, padding_side="right")
+        self._tok.add_tokens(["<image>"], special_tokens=True)
+        self._tok.add_tokens(["<memory>"], special_tokens=True)
+        self.image_token_id = self._tok.convert_tokens_to_ids("<image>")
+        self.memory_token_id = self._tok.convert_tokens_to_ids("<memory>")
+        self.im_start_id = self._tok.convert_tokens_to_ids("<|im_start|>")
+        self.im_end_id = self._tok.convert_tokens_to_ids("<|im_end|>")
+        if None in (self.im_start_id, self.im_end_id):
+            # older checkpoints: the first two additional specials are
+            # im_start/im_end
+            self.im_start_id, self.im_end_id = \
+                self._tok.additional_special_tokens_ids[:2]
+        # 198 on the real Qwen2 vocabulary; derived here so any BPE works
+        nl = self._tok("\n", add_special_tokens=False)["input_ids"]
+        assert len(nl) == 1, f"newline is not a single token: {nl}"
+        self.newline_id = nl[0]
+        # im_end may have come from the additional specials above: eos
+        # follows it (a literal "<|im_end|>" lookup fails on those vocabs)
+        self.eos_id = self.im_end_id
+        self.pad_id = (self._tok.pad_token_id
+                       if self._tok.pad_token_id is not None
+                       else self._tok.convert_tokens_to_ids("<|endoftext|>"))
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self._tok)
+
+    def encode(self, text: str) -> List[int]:
+        return self._tok(text, add_special_tokens=False)["input_ids"]
+
+    def decode(self, ids: Sequence[int]) -> str:
+        clean = [int(t) for t in ids if int(t) >= 0]
+        return self._tok.decode(clean, skip_special_tokens=False)
+
+
+def load_tokenizer(path: Optional[str] = None,
+                   model_max_length: int = 4096) -> Tokenizer:
+    """The HF adapter when `path` holds tokenizer files (ImportError
+    without `transformers`: never the ByteTokenizer in its place), else
+    the ByteTokenizer."""
+    if path and os.path.isdir(path) and (
+            os.path.exists(os.path.join(path, "tokenizer.json"))
+            or os.path.exists(os.path.join(path, "tokenizer_config.json"))):
+        return HFTokenizerAdapter(path, model_max_length)
+    return ByteTokenizer()

@@ -10,8 +10,11 @@ model-call p50/p90 latency.
 
 Env backends plug in through the habitat.Env-shaped surface
 (reset/step/episode_over/get_metrics/episodes/current_episode): the port's
-FakeNavEnv; the habitat backend is a later slice of the port. Distributed
-eval shards episodes across processes; aggregation is host-side.
+FakeNavEnv and the habitat backend (eval/habitat_backend.py). With
+save_video, an env whose simulator has a navmesh gets its occupancy-grid
+map (habitat_extensions/maps.py), others the abstract trajectory plot.
+Distributed eval shards episodes across processes; aggregation is
+host-side.
 """
 from __future__ import annotations
 
@@ -80,14 +83,15 @@ class VLNEvaluator:
         step_id = 0
         nf = agent.cfg.num_frames
         vis_frames: List = []
+        # agent world positions for the occupancy-grid top-down map
+        # (the reference's TopDownMap measure accumulates them per step)
         sim = getattr(env, "sim", None)
-        if self.save_video and sim is not None \
-                and hasattr(sim, "pathfinder"):
-            # the reference draws a simulator's navmesh occupancy map here
-            raise NotImplementedError(
-                "save_video over a simulator with a navmesh "
-                "(habitat_extensions/maps.py) is ROADMAP queue 1 item 10 "
-                "of the PyTorch port")
+        track_sim = (self.save_video and sim is not None
+                     and hasattr(sim, "get_agent_state")
+                     and hasattr(sim, "pathfinder"))
+        pos3d: List = []
+        if track_sim:
+            pos3d.append(np.asarray(sim.get_agent_state().position))
         while not env.episode_over:
             if self.save_video:
                 from streamvln_tpu_torch.utils.visualize import (
@@ -107,6 +111,8 @@ class VLNEvaluator:
             action = action_queue.pop(0)
             with self.latency.measure("sim_step"):
                 observations = env.step(action)
+            if track_sim:
+                pos3d.append(np.asarray(sim.get_agent_state().position))
             step_id += 1
             # window reset AFTER env.step (reference:
             # streamvln_eval.py:346-350); the agent's internal non-model
@@ -129,11 +135,20 @@ class VLNEvaluator:
             images_to_video(vis_frames, vis_dir,
                             f"{scene_id}_{episode.episode_id}")
             tracker = getattr(env, "_tracker", None)
-            if tracker is not None and tracker.positions:
+            topdown = None
+            if track_sim and pos3d:
+                # a simulator with a navmesh: its occupancy-grid map, drawn
+                # from the raw episode (an EpisodeView has no `goals`)
+                from streamvln_tpu_torch.habitat_extensions import (
+                    maps as hmaps)
+                topdown = hmaps.render_episode_map(
+                    sim, getattr(episode, "raw", episode), pos3d)
+            elif tracker is not None and tracker.positions:
                 # no simulator pathfinder: abstract trajectory plot
                 topdown = draw_top_down_map(
                     tracker.positions, tracker.goal,
                     getattr(episode, "reference_path", None))
+            if topdown is not None:
                 from PIL import Image
                 Image.fromarray(topdown).save(os.path.join(
                     vis_dir,

@@ -1,21 +1,27 @@
 """Evaluation entry point of the PyTorch port (streamvln_eval parity CLI).
 
-    python -m streamvln_tpu_torch.eval_cli --model_size 7b --env_backend fake
+    python -m streamvln_tpu_torch.eval_cli --model_path <weights_dir> \
+        --env_backend habitat --habitat_config_path config/vln_r2r.yaml \
+        --eval_split val_unseen --output_path <out>
 
 A twin of `streamvln_tpu/eval_cli.py`, with its argument surface
 (--model_path --eval_split --output_path --num_future_steps --num_frames
 --num_history --model_max_length --n_envs --bits --spec_lookup
 --rank/--world_size ...) plus `--device` (default cuda; cpu runs the
-plain versions of the kernels). The model is made with random weights
-from seed 0 (bf16 on the card, f32 on the CPU, as the reference picks bf16
-on its accelerator), optionally merged with LoRA adapters and quantized
-(--bits 4|8), and served by the engine with prompt-lookup speculation
-(--spec_lookup, 6 by default). One env runs VLNEvaluator; --n_envs > 1
-runs BatchedVLNEvaluator, with each env in a worker process by default.
+plain versions of the kernels). --model_path is an HF-format checkpoint
+directory, as the published weights ship: its safetensors shards (or
+pytorch_model*.bin) are converted at load (models/convert_hf.py) and its
+tokenizer files give the HF tokenizer (which needs `transformers`); a
+directory without shards gets random weights from seed 0, one without
+tokenizer files the ByteTokenizer. Weights are bf16 on the card, f32 on
+the CPU (the reference picks bf16 on its accelerator), optionally merged
+with LoRA adapters and quantized (--bits 4|8), and served by the engine
+with prompt-lookup speculation (--spec_lookup, 6 by default). The env is
+the fake one or habitat-sim (--env_backend habitat,
+eval/habitat_backend.py). One env runs VLNEvaluator; --n_envs > 1 runs
+BatchedVLNEvaluator, with each env in a worker process by default.
 
-What the port cannot do yet raises and names its ROADMAP item: loading a
-checkpoint or an HF tokenizer from --model_path (item 6), --kv_int8 and
---vision_int8 (item 5), and the habitat backend (item 3).
+--kv_int8 and --vision_int8 raise: they are ROADMAP queue 1 item 5.
 """
 from __future__ import annotations
 
@@ -39,29 +45,21 @@ def build_agent(model_path: Optional[str], model_size: str = "7b",
                 kv_int8: bool = False, vision_int8: bool = False,
                 device="cuda"):
     """A VLNAgent over a StreamingEngine on `device`, with the reference's
-    choices: random weights from seed 0 (no checkpoint), the ByteTokenizer,
-    {<|im_end|>, <|endoftext|>} as stop ids, and a random conjunction in
-    every observation prompt."""
+    choices: the checkpoint in `model_path` (random weights from seed 0
+    when it holds no shards), its tokenizer (the ByteTokenizer when it
+    holds no tokenizer files), {im_end, eos} as stop ids, and a random
+    conjunction in every observation prompt."""
     from streamvln_tpu_torch import weights
     from streamvln_tpu_torch.agent import VLNAgent
     from streamvln_tpu_torch.configs import build_config, resolve_device
-    from streamvln_tpu_torch.data.tokenizer import ByteTokenizer
+    from streamvln_tpu_torch.data.tokenizer import load_tokenizer
+    from streamvln_tpu_torch.models import convert_hf
     from streamvln_tpu_torch.models.fuse import fuse_projections
     from streamvln_tpu_torch.streaming.engine import StreamingEngine
 
     if kv_int8 or vision_int8:
         raise NotImplementedError(
             f"--kv_int8 / --vision_int8 are ROADMAP queue 1 item 5 {_LATER}")
-    if model_path and os.path.isdir(model_path) and any(
-            f.endswith((".safetensors", ".bin"))
-            or f in ("tokenizer.json", "tokenizer_config.json")
-            for f in os.listdir(model_path)):
-        # random weights in place of the checkpoint would be a silent
-        # substitution
-        raise NotImplementedError(
-            f"loading the HF checkpoint or tokenizer in {model_path!r} is "
-            f"ROADMAP queue 1 item 6 {_LATER}")
-    del model_max_length    # read by the HF tokenizer only
     device = resolve_device(device)
     args = argparse.Namespace(
         model_size=model_size, spatial_pool_mode="bilinear",
@@ -69,9 +67,19 @@ def build_agent(model_path: Optional[str], model_size: str = "7b",
         num_history=num_history)
     cfg = build_config(args)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    tok = ByteTokenizer()
-    params = weights.init(cfg, torch.Generator(device=device).manual_seed(0),
-                          device=device, dtype=dtype)
+    tok = load_tokenizer(model_path, model_max_length)
+    has_ckpt = bool(model_path and os.path.isdir(model_path) and any(
+        f.endswith((".safetensors", ".bin"))
+        for f in os.listdir(model_path)))
+    if has_ckpt:
+        # each stack is built in place on the device, so the card never
+        # holds a second copy of it
+        params = convert_hf.load_streamvln_checkpoint(model_path, cfg, dtype,
+                                                      device)
+    else:
+        params = weights.init(cfg,
+                              torch.Generator(device=device).manual_seed(0),
+                              device=device, dtype=dtype)
     if lora_adapters:
         # the reference's 'lora' model builder: attach exported adapters
         # and fold them into the base weights
@@ -84,7 +92,7 @@ def build_agent(model_path: Optional[str], model_size: str = "7b",
     # fuse here, so the engine's fuse is a no-op and the unfused stacks are
     # freed before the engine allocates its caches
     params = fuse_projections(params)
-    stop = (tok.im_end_id, tok.eos_id)
+    stop = tuple(dict.fromkeys((tok.im_end_id, tok.eos_id)))
     engine = StreamingEngine(
         params, cfg, n_envs=n_envs, cache_capacity=cache_capacity,
         max_new_tokens=max_new_tokens, stop_ids=stop, compute_dtype=dtype,
@@ -94,13 +102,18 @@ def build_agent(model_path: Optional[str], model_size: str = "7b",
 
 def make_env(backend: str, split: str, num_episodes: int, seed: int,
              habitat_config_path: Optional[str]):
-    """The evaluation env: FakeNavEnv over `num_episodes` seeded episodes
-    (480x640 frames); split and habitat_config_path are the habitat
-    backend's."""
+    """The evaluation env: habitat-sim configured for the benchmark
+    (SystemExit where habitat is absent), or FakeNavEnv over
+    `num_episodes` seeded episodes (480x640 frames)."""
     if backend == "habitat":
-        raise NotImplementedError(
-            f"the habitat backend (eval/habitat_backend.py) is ROADMAP "
-            f"queue 1 item 3 {_LATER}; use --env_backend fake")
+        try:
+            from streamvln_tpu_torch.eval.habitat_backend import (
+                make_habitat_env)
+            return make_habitat_env(habitat_config_path, split)
+        except ImportError as e:
+            raise SystemExit(
+                f"habitat backend requested but unavailable: {e}; "
+                f"use --env_backend fake for simulator-free runs")
     from streamvln_tpu_torch.eval.fake_env import FakeNavEnv, make_episodes
     return FakeNavEnv(make_episodes(num_episodes, seed=seed))
 
@@ -158,9 +171,6 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    if args.env_backend == "habitat":
-        make_env(args.env_backend, args.eval_split, 0, args.seed,
-                 args.habitat_config_path)       # raises before the model
     agent = build_agent(
         args.model_path, args.model_size, args.num_frames,
         args.num_future_steps, args.num_history, args.model_max_length,

@@ -352,16 +352,26 @@ def test_eval_cli_builds_the_requested_agent():
     assert agent.rng is not None            # random conjunctions
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--kv_int8"], "item 5"), (["--vision_int8"], "item 5"),
-    (["--env_backend", "habitat"], "item 3"),
-    (["--model_path", "CKPT"], "item 6"),
-    (["--model_size", "llama2_7b"], "item 10")])
-def test_eval_cli_refuses_what_the_port_lacks(tmp_path, flags, match):
+@pytest.mark.parametrize("flags,error,match", [
+    pytest.param(["--kv_int8"], NotImplementedError, "item 5",
+                 id="flags0-item 5"),
+    pytest.param(["--vision_int8"], NotImplementedError, "item 5",
+                 id="flags1-item 5"),
+    # without habitat-sim the habitat backend exits, as the reference's does
+    pytest.param(["--env_backend", "habitat"], SystemExit,
+                 "habitat backend requested but unavailable",
+                 id="flags2-item 3"),
+    # a shard that cannot be read raises: no random weights in its place
+    pytest.param(["--model_path", "CKPT"], ValueError,
+                 "not a safetensors file", id="flags3-item 6"),
+    pytest.param(["--model_size", "llama2_7b"], NotImplementedError,
+                 "item 10", id="flags4-item 10")])
+def test_eval_cli_refuses_what_the_port_lacks(tmp_path, flags, error,
+                                              match):
     ckpt = tmp_path / "ckpt"
     ckpt.mkdir()
     (ckpt / "model.safetensors").write_bytes(b"")
     flags = [str(ckpt) if f == "CKPT" else f for f in flags]
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         eval_cli.main(["--device", "cpu", "--model_size", "tiny",
                        "--output_path", str(tmp_path / "out")] + flags)

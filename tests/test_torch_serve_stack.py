@@ -448,12 +448,13 @@ def test_cli_interactive_reset_and_exit(capsys, monkeypatch):
 
 
 def test_serve_entry_points_refuse_a_checkpoint(tmp_path):
-    """A --model_path holding a checkpoint raises (ROADMAP item 6) in every
-    serve main that builds an agent, before any weights are made."""
+    """A --model_path holding a checkpoint that cannot be read raises in
+    every serve main that builds an agent: no random weights are made in
+    its place."""
     from streamvln_tpu_torch.serve import batch_worker, cli, http_server, \
         model_worker
     (tmp_path / "model.safetensors").write_bytes(b"")
     for main in (http_server.main, model_worker.main, batch_worker.main,
                  cli.main):
-        with pytest.raises(NotImplementedError, match="item 6"):
+        with pytest.raises(ValueError, match="not a safetensors file"):
             main(["--model_path", str(tmp_path), "--device", "cpu"])
