@@ -26,7 +26,9 @@ Phases (any failure exits non-zero before the result line):
      call); K6
      (int4 dequant-matmul) at every int4 projection's decode shape, the
      four layer projections at the speculative verify's 7 rows and
-     gate/up at 128 rows, K7 (int4 unpack) for qkv, o, gate/up and down, K8
+     gate/up at 128 rows, K7 (int4 unpack) for qkv, o, gate/up, down, the
+     lm_head and the unfused k/v and gate/up of the QLoRA step (the script
+     fails at its end if any phase launched K7 at another shape), K8
      (decode attention) at four live lengths of a 4096-slot cache; K6, K7
      and K8 timed over enough operand copies to miss the L2 cache, as the
      decode path does, with their host cost per call; every K6 and K8
@@ -149,8 +151,40 @@ Phases (any failure exits non-zero before the result line):
      prints the load seconds and GB/s, the host's peak RSS and the
      model-call p50/p90 beside the card's name and power limit; its
      record lands in chip_smoke.json under "turnkey";
-  8. print the kernels JSON line (K1-K8; each with bound_share = bound_ms
-     / ms and vs_library = ms / library_ms), the card line, and the
+  8. the quantized tail (quantized_tail), at full width on the phase-3
+     weights made again from their seed: 8a the kv_int8 engine
+     (kv_int8_serving): int8 k/v and f32 scales [28, 1, 4, 4096], its
+     bytes against the bf16 cache's, 9 agent calls over steps 0..32 with
+     exactly 26 K1 and 28 K2 per call and no K8, peak memory, the first
+     call's prefill logits against a bf16-cache engine's (cosine >
+     REF_MIN_COSINE), tokens call by call against the bf16-cache engine
+     and, with spec_lookup 6, against the kv_int8 greedy engine (lockstep:
+     equal or parted at a near-tie), the four variants in turns (decode ms
+     per emitted token, call wall, a profiled call's host ops), every
+     decode and verify forward of both kv_int8 variants replayed bit for
+     bit against eager, and a rebound scale buffer making the next replay
+     raise; 8b the int8 tower (int8_tower: quantize_vision weights on one
+     frame against the bf16 tower at the reference test's bounds, vision
+     ms per frame in turns), and, run last, when nothing else of the phase
+     is left on the card, eval_cli.main --kv_int8 --vision_int8 as phase 5
+     runs it (result.json, exact K1/K2, every verify forward a replay,
+     model-call p50/p90, peak memory); 8c act_int8 (act_int8_check:
+     quantize_llm(bits=8) with and without cfg.llm.act_int8, prefill
+     logits and one LoRA micro-step's gradients, cosine >
+     ACT_INT8_MIN_COSINE); 8d QLoRA (qlora_steps: int4 weights quantized
+     on the card and the bf16 LLM freed, LoRA rank 16, one micro-batch
+     through the kernels
+     against the plain int4 route at the training gates, 3 optimizer
+     steps of phase 4b's micro-batches with exact K3/K4/K5 counts and K7
+     split into forward, recompute and backward, frozen base and packed
+     leaves bit-equal, adapters moved, step ms, tokens/s and peak memory
+     beside phase 4b's, then merge_lora into the int4 weights and one
+     agent call on them); its record lands in chip_smoke.json under
+     "quantized_tail" and one summary line is printed beside the card's
+     name and power limit;
+  9. print the kernels JSON line (K1-K8; each with bound_share = bound_ms
+     / ms and vs_library = ms / library_ms; K1, K2 with their phase-8
+     launches, K3-K5 and K7 with the QLoRA step's), the card line, and the
      result line.
 """
 from __future__ import annotations
@@ -158,6 +192,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -222,6 +257,15 @@ SPEC_FLIP_BOUND, SPEC_MIN_COSINE = 2.0, 0.999
 # walk ~0.06, to a unit embedding; the chain's next token gains ~12 logits
 # against random logits of unit spread
 STEER_RESIDUAL, STEER_LOGIT = 2.0 ** -12, 12.0
+# phase 8b: the int8 tower (quant.quantize_vision) on one full-width frame
+# against the bf16 tower, at the reference test's bounds
+# (tests/test_siglip.py::test_vision_int8_close_to_float): max |diff| /
+# max |ref| and the least per-token cosine
+TOWER_INT8_MAX_REL, TOWER_INT8_MIN_COSINE = 0.05, 0.999
+# phase 8c: act_int8 against weight-only int8 on the same weights (prefill
+# logits, one LoRA micro-step's gradients), as tests/test_quant.py asks of
+# the gradient
+ACT_INT8_MIN_COSINE = 0.99
 # phase 7's checkpoint: shards of at most 5 GB, as HF's save_pretrained
 # writes them; its build may take at most 1 GiB more of the card than the
 # random-init build
@@ -617,13 +661,16 @@ INT4_SHAPES = (("qkv", 3584, 4608, 1), ("o", 3584, 3584, 1),
                ("lm_head", 3584, 152064, 1), ("gu", 3584, 37888, 128),
                ("qkv", 3584, 4608, 7), ("o", 3584, 3584, 7),
                ("gu", 3584, 37888, 7), ("down", 18944, 3584, 7))
+# K7 alone at the unfused projections a QLoRA step unpacks (LoRA keeps q,
+# k, v and gate, up apart; q is o's shape): k/v and gate/up
+K7_SHAPES = (("k/v", 3584, 512), ("gate/up", 3584, 18944))
 
 
 def check_int4(torch, i4, quant):
     """K6 at every int4 projection's decode shape (M=1; fused qkv and
     gate/up, o, down, lm_head), the layer projections at the speculative
-    verify's M=7 and gate/up at M=128, and K7 for qkv, o, gate/up and down,
-    against their plain versions. K6: f32 out on both sides from the
+    verify's M=7 and gate/up at M=128, and K7 for qkv, o, gate/up, down
+    and the lm_head and at K7_SHAPES, against their plain versions. K6: f32 out on both sides from the
     same bf16-rounded weights, so only the f32 summation order differs:
     |err| <= 1e-5 * sum_k |x_k w_k| + 1e-6 elementwise; a second call
     bit-equal; one kernel and nothing else enqueued per call (a captured
@@ -702,9 +749,13 @@ def check_int4(torch, i4, quant):
         require(f"int4_matmul at {rec['shape']}", agrees=share <= 1.0,
                 deterministic=bit_equal, one_launch=per_call == ["kernel"])
         del ops, wb, xs, out, ref, err
-        if M == 1 and name != "lm_head":
+        if M == 1:
             dq.append(check_dequant(torch, i4, name, wp, s))
     del weights
+    for i, (name, din, dout) in enumerate(K7_SHAPES):
+        wp, s = int4_weight(torch, quant, din, dout, 50 + i)
+        dq.append(check_dequant(torch, i4, name, wp, s))
+        del wp, s
     torch.cuda.empty_cache()
     return recs, dq
 
@@ -728,7 +779,8 @@ def check_dequant(torch, i4, name, wp, s):
     nbytes = half * dout + (2 * half // 64) * dout * 4 + 2 * half * dout * 2
     b_ms, b_by = bound(0.0, nbytes)
     rec = {"shape": f"{name} din={2 * half} dout={dout} -> bf16 "
-                    f"[2, {half}, {dout}]", "max_abs_err": err,
+                    f"[2, {half}, {dout}]", "key": [2 * half, dout, "bfloat16"],
+           "max_abs_err": err,
            "bit_equal": equal, "ms": ms, "event_ms": event_ms,
            "plain_ms": plain,
            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
@@ -1024,7 +1076,8 @@ def lora_loss_and_grads(torch, streamvln, params, cfg, batch, attn_impl):
 
 def train_full_width(torch, np, params, cfg, tok, fa, va):
     """Phase 4b: LoRA SFT steps of streamvln_7b at full width on the
-    phase-3 weights; returns the record of the run."""
+    phase-3 weights; returns the record of the run and its micro-batches
+    (phase 8 trains on them again)."""
     from streamvln_tpu_torch.models import lora as lora_lib
     from streamvln_tpu_torch.models import streamvln
     from streamvln_tpu_torch.parallel.train import (
@@ -1145,7 +1198,7 @@ def train_full_width(torch, np, params, cfg, tok, fa, va):
             "peak_memory_bytes": peak, "launches": counts,
             "vit_launches_by_batch": vit_by_batch,
             "reference": {"loss_rel_diff": rel, "lora_grad_cosine": cos},
-            "profile": prof}
+            "profile": prof}, batches
 
 
 def profile_call(torch, fn, unprofiled_ms) -> dict:
@@ -1485,7 +1538,8 @@ def serve_int4(torch, np, params, cfg, tok, frames, instruction, counts,
             "reference": agree}, eng
 
 
-def paired_timing(torch, np, engines, cfg, tok, frames, instruction):
+def paired_timing(torch, np, engines, cfg, tok, frames, instruction,
+                  what="3d"):
     """Phase 3d: the serving variants in turns on one host and card. Each
     engine gets a fresh agent; for steps 0..32 every agent takes the same
     step, and at each model call the order of the engines rotates, so
@@ -1533,14 +1587,14 @@ def paired_timing(torch, np, engines, cfg, tok, frames, instruction):
             "tokens_per_forward")}
         emitted = sum(r["tokens"] - 1 for r in recs[n])
         forwards = sum(r["forwards"] for r in recs[n])
-        log(f"3d {n}: one more mid-window call under the profiler")
+        log(f"{what} {n}: one more mid-window call under the profiler")
         prof = profile_call(torch, lambda: agents[n].step(
             0, frames[-1], instruction, run_model=True), med["wall_ms"])
         out[n] = {"calls": recs[n], "median_mid_window": med,
                   "memory_call": recs[n][-1],
                   "tokens_per_forward": emitted / max(forwards, 1),
                   "profile": prof}
-        log(f"3d {n}: mid-window medians wall {med['wall_ms']:.2f} ms, "
+        log(f"{what} {n}: mid-window medians wall {med['wall_ms']:.2f} ms, "
             f"vision {med['vision_ms']:.2f}, prefill {med['prefill_ms']:.2f},"
             f" decode {med['decode_ms_per_token']:.2f} ms per emitted token; "
             f"{emitted} tokens in {forwards} decode forwards over the "
@@ -1587,7 +1641,8 @@ def log_captures(what, captures):
         + "; ".join(one(c) for c in captures))
 
 
-def graphs_vs_eager(torch, engines, cfg, tok, frames, instruction):
+def graphs_vs_eager(torch, engines, cfg, tok, frames, instruction,
+                    what="3g"):
     """Phase 3g: each serving variant over steps 0..32 (9 calls across the
     window reset and its <memory> call), every decode forward checked:
     before each replay the captured step runs eagerly from the state the
@@ -1633,13 +1688,13 @@ def graphs_vs_eager(torch, engines, cfg, tok, frames, instruction):
             out[name] = {"replays": box["replays"] - r0,
                          "decode_forwards": eng.decode_forwards - f0,
                          "differing_replays": box["differ"][d0:]}
-            log(f"3g {name}: {out[name]['replays']} replays for "
+            log(f"{what} {name}: {out[name]['replays']} replays for "
                 f"{out[name]['decode_forwards']} decode forwards over 9 "
                 f"calls, {len(out[name]['differing_replays'])} differing "
                 f"from the eager step")
     finally:
         dg.StepGraph.replay = replay
-    eng = engines["bf16"]
+    eng = next(iter(engines.values()))
     length = eng.cache.length
     eng.cache.length = length.clone()
     try:
@@ -1648,13 +1703,13 @@ def graphs_vs_eager(torch, engines, cfg, tok, frames, instruction):
     except RuntimeError as err:
         raised = str(err)
     eng.cache.length = length
-    log(f"3g a cache length rebound to a new tensor: the next replay "
+    log(f"{what} a cache length rebound to a new tensor: the next replay "
         f"raised {raised!r}")
     for name, r in out.items():
-        require(f"3g {name}", every_forward_a_replay=r["replays"]
+        require(f"{what} {name}", every_forward_a_replay=r["replays"]
                 == r["decode_forwards"] > 0,
                 replays_bit_equal_to_eager=not r["differing_replays"])
-    require("3g rebound tensor", raises="no longer hold the storage"
+    require(f"{what} rebound tensor", raises="no longer hold the storage"
             in raised)
     return {"variants": out, "rebound_raised": raised}
 
@@ -1725,23 +1780,38 @@ def spec_vs_greedy(torch, np, fused, cfg, tok, frames, instruction,
     speculative engine takes the greedy engine's KV cache, lengths and
     pending token, and the greedy tokens into its shadow, so every call
     starts from the same dialogue."""
-    from streamvln_tpu_torch.agent import VLNAgent
     from streamvln_tpu_torch.streaming.engine import StreamingEngine
     k = 6
     kw = {} if buckets is None else {"buckets": buckets}
-    engines = {spec: StreamingEngine(fused, cfg, cache_capacity=capacity,
-                                     max_new_tokens=16, spec_lookup=spec,
-                                     stop_ids=(tok.im_end_id,), **kw)
-               for spec in (0, k)}
-    agents = {spec: VLNAgent(e, tok) for spec, e in engines.items()}
+    greedy, spec = (StreamingEngine(fused, cfg, cache_capacity=capacity,
+                                    max_new_tokens=16, spec_lookup=n,
+                                    stop_ids=(tok.im_end_id,), **kw)
+                    for n in (0, k))
+    return lockstep(torch, greedy, spec, cfg, tok, frames, instruction,
+                    resync, f"spec vs greedy (spec_lookup={k})", steps)
+
+
+def lockstep(torch, ref, other, cfg, tok, frames, instruction, sync, what,
+             steps=33) -> dict:
+    """Two engines on the same weights take the agent's calls over `steps`
+    steps in lockstep, each call's per-position logits recorded (every
+    decode forward must be a graph replay); `ref` is the reference path
+    (greedy), `other` the path held to it. Each call's tokens must be
+    equal or part at a near-tie (paths_part, require_near_ties), every
+    compared position must point the same way (SPEC_MIN_COSINE), and
+    after a differing call sync(other, ref, ref's tokens) gives `other`
+    the reference's dialogue, so every call starts from the same one."""
+    from streamvln_tpu_torch.agent import VLNAgent
+    engines = {"ref": ref, "other": other}
+    agents = {n: VLNAgent(e, tok) for n, e in engines.items()}
     calls, identical, flips, agree_deltas = [], 0, [], []
     for step in range(steps):
         run = step % cfg.num_future_steps == 0
         got = {}
-        for spec, agent in agents.items():
+        for name, agent in agents.items():
             rec, stop = capture_decode()
-            made, restore = record_calls(torch, engines[spec])
-            e = engines[spec]
+            e = engines[name]
+            made, restore = record_calls(torch, e)
             f0 = e.decode_forwards
             try:
                 agent.step(0, frames[step], instruction, run_model=run)
@@ -1749,47 +1819,44 @@ def spec_vs_greedy(torch, np, fused, cfg, tok, frames, instruction,
                 stop()
                 restore()
             if e.envs[0].kv_length != int(e.cache.length[0]):
-                raise AssertionError(f"spec_lookup={spec} step {step}: KV "
+                raise AssertionError(f"{what}, {name} step {step}: KV "
                                      f"length {int(e.cache.length[0])} != "
                                      f"bookkeeping {e.envs[0].kv_length}")
             # every decode forward is a graph replay, and each replay was
             # recorded from the graph's output buffers
             if len(rec["logits"]) != e.decode_forwards - f0:
                 raise AssertionError(
-                    f"spec_lookup={spec} step {step}: recorded "
+                    f"{what}, {name} step {step}: recorded "
                     f"{len(rec['logits'])} decode forwards, the engine "
                     f"counted {e.decode_forwards - f0}")
             if run:
                 toks = made[0]["tokens"]
-                got[spec] = (toks, position_logits(
-                    e.last_logits[0].float(), rec, len(toks), spec,
-                    e.stop_ids, 16))
+                got[name] = (toks, position_logits(
+                    e.last_logits[0].float(), rec, len(toks), e.spec_lookup,
+                    e.stop_ids, e.max_new))
         if not run:
             continue
-        (gt, gl), (st, sl) = got[0], got[k]
+        (gt, gl), (st, sl) = got["ref"], got["other"]
         c = {"call": len(calls), "greedy": gt, "spec": st,
              **paths_part(torch, gt, gl, st, sl, agree_deltas)}
         calls.append(c)
         if c["min_cosine"] < SPEC_MIN_COSINE:
-            raise AssertionError(f"spec call {c['call']}: logits disagree in "
-                                 f"direction ({c['min_cosine']:.6f})")
+            raise AssertionError(f"{what} call {c['call']}: logits disagree "
+                                 f"in direction ({c['min_cosine']:.6f})")
         if "position" not in c:
             identical += 1
             continue
         flips.append(c)
-        resync(engines[k], engines[0], gt)
-    rounding, bound = require_near_ties("spec vs greedy", flips,
-                                        agree_deltas)
+        sync(other, ref, gt)
+    rounding, bound = require_near_ties(what, flips, agree_deltas)
     diffs = [c["call"] for c in flips]
-    emitted = engines[k].decode_tokens
-    forwards = engines[k].decode_forwards
-    log(f"spec vs greedy (spec_lookup={k}): {identical} of {len(calls)} "
-        f"calls identical; calls {diffs} differ within the bound; max "
-        f"|logit diff| over compared positions "
-        f"{max(c['max_abs_logit_diff'] for c in calls):.4f} (agreeing "
-        f"positions {rounding:.4f}), min cosine "
-        f"{min(c['min_cosine'] for c in calls):.6f}; spec engine {emitted} "
-        f"tokens in {forwards} verify forwards")
+    emitted, forwards = other.decode_tokens, other.decode_forwards
+    log(f"{what}: {identical} of {len(calls)} calls identical; calls "
+        f"{diffs} differ within the bound; max |logit diff| over compared "
+        f"positions {max(c['max_abs_logit_diff'] for c in calls):.4f} "
+        f"(agreeing positions {rounding:.4f}), min cosine "
+        f"{min(c['min_cosine'] for c in calls):.6f}; the other engine "
+        f"{emitted} tokens in {forwards} decode forwards")
     del engines, agents
     return {"identical_calls": identical, "compared_calls": len(calls),
             "calls": calls, "differing_calls": diffs,
@@ -1865,6 +1932,9 @@ def resync(spec, greedy, tokens):
     pending last one) after the prompt the two engines share."""
     spec.cache.k.copy_(greedy.cache.k)
     spec.cache.v.copy_(greedy.cache.v)
+    if spec.cache.quantized:
+        spec.cache.k_scale.copy_(greedy.cache.k_scale)
+        spec.cache.v_scale.copy_(greedy.cache.v_scale)
     spec.cache.length.copy_(greedy.cache.length)
     a, b = spec.envs[0], greedy.envs[0]
     a.pending_token, a.kv_length = b.pending_token, b.kv_length
@@ -2001,22 +2071,24 @@ def counted_builds(torch, eval_cli, box):
         eval_cli.build_agent = build0
 
 
-def eval_entry_point(torch, va, counts, reset):
+def eval_entry_point(torch, va, counts, reset, flags=(), name="eval",
+                     what="phase 5", model_size="7b"):
     """Phase 5: the evaluation entry point as users run it,
     eval_cli.main(--model_size 7b --env_backend fake --num_episodes 2
-    --max_steps_per_episode 36, default --spec_lookup 6), in-process on the
-    card: build_agent makes streamvln_7b's random bf16 weights (steered to
-    walk, steer_to_walk), and VLNEvaluator runs two 36-step episodes of
-    480x640 frames across the step-32 window reset and its <memory> call.
-    Checks result.json (2 episode lines + the aggregate), the launch counts
-    (K1 once per tower layer and K2 once per decoder layer per model call,
-    K1 once per tower layer per history backfill pass) and that every
-    verify forward was a graph replay, and reports the evaluator's
-    model-call p50/p90, the realized tokens per verify forward and peak
-    memory."""
+    --max_steps_per_episode 36, default --spec_lookup 6, and `flags`), in
+    process on the card: build_agent makes streamvln_7b's random bf16
+    weights (steered to walk, steer_to_walk), and VLNEvaluator runs two
+    36-step episodes of 480x640 frames across the step-32 window reset and
+    its <memory> call. Checks result.json (2 episode lines + the
+    aggregate), the launch counts (K1 once per tower layer and K2 once per
+    decoder layer per model call, K1 once per tower layer per history
+    backfill pass) and that every verify forward was a graph replay, and
+    reports the evaluator's model-call p50/p90, the realized tokens per
+    verify forward, peak memory and whether the engine's KV cache and tower
+    are int8 (phase 8b passes --kv_int8 --vision_int8)."""
     import io
     from streamvln_tpu_torch import eval_cli
-    out_dir = os.path.join("chiprun_out", "eval")
+    out_dir = os.path.join("chiprun_out", name)
     result = os.path.join(out_dir, "result.json")
     if os.path.exists(result):
         os.remove(result)               # result.json resumes otherwise
@@ -2030,9 +2102,9 @@ def eval_entry_point(torch, va, counts, reset):
     with counted_builds(torch, eval_cli, box), steered_weights(), \
             contextlib.redirect_stdout(printed):
         final = eval_cli.main([
-            "--model_size", "7b", "--env_backend", "fake",
+            "--model_size", model_size, "--env_backend", "fake",
             "--num_episodes", "2", "--max_steps_per_episode", "36",
-            "--output_path", out_dir])
+            "--output_path", out_dir, *flags])
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     got, by_b = counts(), by_batch(va)
@@ -2052,9 +2124,11 @@ def eval_entry_point(torch, va, counts, reset):
            / max(eng.decode_forwards, 1),
            "graph_replays": sum(g.replays for g in eng.graphs.values()),
            "peak_memory_bytes": peak, "seconds": seconds,
-           "printed": printed.getvalue().strip()}
-    log(f"phase 5: eval_cli.main printed {rec['printed']}")
-    log(f"phase 5: {len(lines) - 1} episodes ("
+           "kv_int8": eng.cache.quantized,
+           "tower_int8": "fc1_w_scale" in eng.params["vision"]["layers"],
+           "flags": list(flags), "printed": printed.getvalue().strip()}
+    log(f"{what}: eval_cli.main {' '.join(flags)} printed {rec['printed']}")
+    log(f"{what}: {len(lines) - 1} episodes ("
         f"{[r['steps'] for r in lines[:-1]]} steps), {n} model calls, {b} "
         f"history backfill passes in {seconds:.1f} s; launches {got} (want "
         f"{want}), K1 by batch {by_b}; model call p50 "
@@ -2065,7 +2139,7 @@ def eval_entry_point(torch, va, counts, reset):
         f"({rec['tokens_per_forward']:.3f} per forward); peak memory "
         f"allocated {peak / 2**30:.2f} GiB")
     del eng
-    require("the evaluation entry point",
+    require(f"the evaluation entry point ({what})",
             episode_and_aggregate_lines=len(lines) == 3
             and "episode_id" not in lines[-1] and lines[-1]["length"] == 2,
             episodes_of_36_steps=all(r["steps"] == 36 for r in lines[:-1]),
@@ -2702,6 +2776,10 @@ def chat_path(torch, np, agent, frames, instruction):
         eng.continue_decode = cont
         stop_servers((web, web_thread), (w_srv, w_thread),
                      (c_srv, c_thread))
+        # the heartbeat thread beats for the life of the process, as the
+        # reference's does, and holds the worker: drop the worker's agent,
+        # or its weights and caches stay on the card through phase 8
+        worker.agent = None
     warm, streams = streams[:2], streams[2:]
     rec = {"registered": registered, "heartbeat": heartbeat,
            "streams": streams, "warm_up_first_chunk_ms": [
@@ -3171,6 +3249,555 @@ def serving_stack(torch, np, va, counts, reset, model_size="7b",
     return rec
 
 
+def requantize_sync(other, ref, tokens):
+    """Give an int8-cache engine a bf16-cache engine's dialogue after a
+    call whose tokens differed: the reference's cache quantized as the
+    int8 cache's appends quantize it (per token and head, qwen2.
+    _quantize_kv), its lengths and env bookkeeping."""
+    from streamvln_tpu_torch.models import qwen2
+    for src, dst, sc in ((ref.cache.k, other.cache.k, other.cache.k_scale),
+                         (ref.cache.v, other.cache.v, other.cache.v_scale)):
+        for layer in range(src.shape[0]):
+            q, scale = qwen2._quantize_kv(src[layer])
+            dst[layer].copy_(q)
+            sc[layer].copy_(scale)
+    other.cache.length.copy_(ref.cache.length)
+    a, b = other.envs[0], ref.envs[0]
+    a.pending_token, a.kv_length = b.pending_token, b.kv_length
+
+
+def kv_int8_serving(torch, np, params, cfg, tok, frames, instruction,
+                    counts, reset, device="cuda"):
+    """Phase 8a: the kv_int8 engine on the phase-3 bf16 weights (fused as
+    the engine fuses them): the cache's layout and bytes against the bf16
+    cache's; the 9 agent calls over steps 0..32 with exact launch counts
+    (26 K1 and 28 K2 per call, no K8: decode and verify forwards attend
+    over the int8 cache dense, with the scales folded in) and the peak
+    memory; the first call's prefill logits against a bf16-cache engine's;
+    tokens call by call against the bf16-cache engine (greedy) and, with
+    spec_lookup 6, against the kv_int8 greedy engine, equal or parted at a
+    near-tie (lockstep); the four variants (bf16 and kv_int8 caches, greedy
+    and spec 6) in turns with one profiled call each (paired_timing); every
+    decode and verify forward of both kv_int8 variants replayed bit for
+    bit against the eager step (graphs_vs_eager); a scale buffer rebound
+    after capture makes the next replay raise."""
+    from streamvln_tpu_torch.agent import VLNAgent
+    from streamvln_tpu_torch.models.fuse import fuse_projections
+    from streamvln_tpu_torch.streaming.engine import StreamingEngine
+    fused = fuse_projections(params)
+
+    def engine(kv_int8, spec=0, max_new=16):
+        return StreamingEngine(fused, cfg, cache_capacity=4096,
+                               max_new_tokens=max_new, spec_lookup=spec,
+                               stop_ids=(tok.im_end_id,), kv_int8=kv_int8,
+                               device=device,
+                               compute_dtype=params["llm"]["embed"].dtype)
+    e8, e16 = engine(True), engine(False)
+    c = e8.cache
+    L, Hkv = cfg.llm.num_layers, cfg.llm.num_kv_heads
+    layout = {"k": str(c.k.dtype), "v": str(c.v.dtype),
+              "k_scale": list(c.k_scale.shape),
+              "v_scale": list(c.v_scale.shape),
+              "scale_dtype": str(c.k_scale.dtype)}
+    nbytes = {"int8": tree_bytes([c.k, c.v, c.k_scale, c.v_scale]),
+              "bf16": tree_bytes([e16.cache.k, e16.cache.v])}
+    ratio = nbytes["int8"] / nbytes["bf16"]
+    D = cfg.llm.head_dim
+    log(f"8a kv_int8 cache: {layout}; {nbytes['int8'] / 1e6:.1f} MB against "
+        f"the bf16 cache's {nbytes['bf16'] / 1e6:.1f} MB ({ratio:.4f}; "
+        f"(D + 4) / 2D = {(D + 4) / (2 * D):.4f})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    calls, wall = drive_calls(torch, VLNAgent(e8, tok), e8, cfg, frames,
+                              instruction, reset)
+    got = counts()
+    peak = torch.cuda.max_memory_allocated()
+    n = len(calls)
+    want = {"vit_attention": cfg.vision.num_layers * n,
+            "flash_attention": L * n, "int4_matmul": 0,
+            "int4_dequant_split": 0, "decode_attention": 0}
+    log(f"8a launches over {n} kv_int8 calls: {got} (want {want}); peak "
+        f"memory allocated {peak / 2**30:.2f} GiB")
+    require("8a kv_int8 cache",
+            int8_values=layout["k"] == layout["v"] == "torch.int8",
+            scale_shapes=layout["k_scale"] == layout["v_scale"]
+            == [L, 1, Hkv, 4096] and layout["scale_dtype"] == "torch.float32",
+            bytes=nbytes["int8"] * 2 * cfg.llm.head_dim
+            == nbytes["bf16"] * (cfg.llm.head_dim + 4),
+            launch_counts=got == want)
+
+    outs = []
+    for kv in (False, True):
+        e = engine(kv, max_new=2)
+        VLNAgent(e, tok).step(0, frames[0], instruction, run_model=True)
+        outs.append(e.last_logits.float())
+        del e
+    prefill = logits_agreement(torch, *outs)
+    log(f"8a prefill logits, kv_int8 vs bf16 cache: cosine "
+        f"{prefill['cosine']:.6f} max rel diff {prefill['max_rel_diff']:.3e} "
+        f"top-1 agree {prefill['top1_agree']}")
+    require("8a prefill over the int8 cache",
+            cosine=prefill["cosine"] > REF_MIN_COSINE)
+
+    tokens = lockstep(torch, engine(False), engine(True), cfg, tok, frames,
+                      instruction, requantize_sync,
+                      "8a kv_int8 vs bf16 cache (greedy)")
+    spec = lockstep(torch, engine(True), engine(True, 6), cfg, tok, frames,
+                    instruction, resync,
+                    "8a kv_int8: spec_lookup 6 vs greedy")
+    gc.collect()
+
+    variants = {"kv_int8": e8, "bf16": e16, "kv_int8_spec": engine(True, 6),
+                "bf16_spec": engine(False, 6)}
+    paired = paired_timing(torch, np, variants, cfg, tok, frames,
+                           instruction, "8a")
+    for name, r in paired.items():
+        ops = r["profile"]["host_ops_per_decode_forward"]
+        require(f"8a {name}: the profiled call's decode forwards",
+                graph_replays=ops is not None,
+                at_most_4_launches_or_copies_besides_replay_and_flag=ops
+                is not None and ops <= 4)
+    replays = graphs_vs_eager(torch, {n: variants[n] for n in (
+        "kv_int8", "kv_int8_spec")}, cfg, tok, frames, instruction, "8a")
+    scale = e8.cache.k_scale
+    e8.cache.k_scale = scale.clone()
+    raised = ""
+    try:
+        for graph in list(e8.graphs.values())[:1]:
+            graph.replay()
+    except RuntimeError as err:
+        raised = str(err)
+    e8.cache.k_scale = scale
+    log(f"8a a k_scale rebound to a new tensor: the next replay raised "
+        f"{raised!r}")
+    require("8a rebound scale", raises="cache.k_scale" in raised)
+    med = {k: v["median_mid_window"] for k, v in paired.items()}
+    log("8a in turns, mid-window medians (decode ms per emitted token / "
+        "call wall ms): " + "; ".join(
+            f"{k} {v['decode_ms_per_token']:.2f} / {v['wall_ms']:.2f}"
+            for k, v in med.items()))
+    del variants, e8, e16, fused
+    return {"layout": layout, "cache_bytes": nbytes, "bytes_ratio": ratio,
+            "calls": calls, "wall_ms": wall, "launches": got,
+            "peak_memory_bytes": peak, "prefill_vs_bf16_cache": prefill,
+            "tokens_vs_bf16_cache": tokens, "spec_vs_greedy": spec,
+            "paired": paired, "graphs_vs_eager": replays,
+            "rebound_scale_raised": raised}
+
+
+def int8_tower(torch, params, cfg, frames, va, device="cuda"):
+    """Phase 8b, first part: the SigLIP tower with quant.quantize_vision
+    weights on one 480x640 frame against the bf16 tower (max |diff| /
+    max |ref| < TOWER_INT8_MAX_REL, per-token cosine >
+    TOWER_INT8_MIN_COSINE), K1 once per tower layer in each, and vision ms
+    per frame (the tower on preprocessed pixels, CUDA events), int8 and
+    bf16 in turns."""
+    from streamvln_tpu_torch.models import quant, siglip
+    from streamvln_tpu_torch.ops.preprocess import preprocess_frames
+    vision = {"bf16": params["vision"],
+              "int8": quant.quantize_vision(params["vision"])}
+    img = preprocess_frames(torch.from_numpy(frames[:1]).to(device),
+                            cfg.vision.image_size,
+                            dtype=params["vision"]["patch_w"].dtype)
+    out = {}
+    with torch.no_grad():
+        for name, tree in vision.items():
+            n0 = va.launches
+            out[name] = siglip.forward(tree, cfg.vision, img).float()
+            out[name + "_k1"] = va.launches - n0
+        ref, got = out["bf16"], out["int8"]
+        rel = ((got - ref).abs().max() / ref.abs().max()).item()
+        cos = torch.nn.functional.cosine_similarity(
+            got, ref, dim=-1).min().item()
+        ms = {"bf16": [], "int8": []}
+        for order in (("int8", "bf16"), ("bf16", "int8")) * 2:
+            for name in order:
+                ms[name].append(time_ms(torch, lambda: siglip.forward(
+                    vision[name], cfg.vision, img), iters=5))
+    int8_bytes = tree_bytes(vision["int8"]["layers"])
+    bf16_bytes = tree_bytes(params["vision"]["layers"])
+    log(f"8b int8 tower vs bf16 on one frame: max rel diff {rel:.4e} (bound "
+        f"{TOWER_INT8_MAX_REL}), least per-token cosine {cos:.6f} (bound "
+        f"{TOWER_INT8_MIN_COSINE}); K1 {out['int8_k1']} / {out['bf16_k1']}; "
+        f"vision ms per frame in turns int8 {ms['int8']} vs bf16 "
+        f"{ms['bf16']}; layer weights {int8_bytes / 2**30:.3f} GiB vs "
+        f"{bf16_bytes / 2**30:.3f} GiB")
+    require("8b int8 tower", max_rel_diff=rel < TOWER_INT8_MAX_REL,
+            per_token_cosine=cos > TOWER_INT8_MIN_COSINE,
+            k1_per_layer=out["int8_k1"] == out["bf16_k1"]
+            == cfg.vision.num_layers)
+    return {"max_rel_diff": rel, "min_cosine": cos,
+            "vision_ms_int8": ms["int8"], "vision_ms_bf16": ms["bf16"],
+            "layer_bytes_int8": int8_bytes, "layer_bytes_bf16": bf16_bytes}
+
+
+def act_int8_check(torch, params, cfg, tok, frames, instruction, batch,
+                   device="cuda"):
+    """Phase 8c: the phase-3 weights quantized by quantize_llm(bits=8) on
+    the card, with and without cfg.llm.act_int8: one full-width prefill's
+    logits (an agent call of max_new_tokens 2 each: its prefill ms too),
+    then one LoRA micro-step (rank 16 on the seven targets, B made nonzero
+    so A takes a gradient; remat, chunked CE) on a phase-4b micro-batch:
+    loss, LoRA gradients and micro-step ms; both cosines >
+    ACT_INT8_MIN_COSINE."""
+    import dataclasses
+    from streamvln_tpu_torch.agent import VLNAgent
+    from streamvln_tpu_torch.models import lora as lora_lib
+    from streamvln_tpu_torch.models import quant, streamvln
+    from streamvln_tpu_torch.parallel.train import tree_leaves
+    from streamvln_tpu_torch.streaming.engine import StreamingEngine
+    q8 = quant.quantize_llm(params, bits=8)
+    cfgs = {"act_int8": dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, act_int8=True)), "weight_only": cfg}
+    logits, prefill_ms = {}, {}
+    for name, c in cfgs.items():
+        e = StreamingEngine(q8, c, cache_capacity=4096, max_new_tokens=2,
+                            stop_ids=(tok.im_end_id,), device=device,
+                            compute_dtype=params["llm"]["embed"].dtype)
+        agent = VLNAgent(e, tok)
+        agent.step(0, frames[0], instruction, run_model=True)
+        agent.reset_memory(0)
+        agent.step(0, frames[0], instruction, run_model=True)
+        logits[name] = e.last_logits.float()
+        prefill_ms[name] = e.last_phase_ms[1]
+        del e, agent
+    agree = logits_agreement(torch, logits["act_int8"],
+                             logits["weight_only"])
+    g = torch.Generator(device=device).manual_seed(2)
+    lp = lora_lib.add_lora(q8, torch.Generator(device=device).manual_seed(1),
+                           rank=16, alpha=32.0)
+    for path, t in tree_leaves(lp):
+        if path.endswith("_lora_b"):
+            t.normal_(0.0, 0.01, generator=g)
+        t.requires_grad_(lora_lib.is_lora_path(path)
+                         and t.is_floating_point())
+    step = {}
+    for name, c in cfgs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step[name] = lora_loss_and_grads(torch, streamvln, lp, c, batch,
+                                         "auto")
+        torch.cuda.synchronize()
+        step[name] += ((time.perf_counter() - t0) * 1e3,)
+    (la, ga, ma), (lw, gw, mw) = step["act_int8"], step["weight_only"]
+    cos = torch.nn.functional.cosine_similarity(ga, gw, dim=0).item()
+    rel = abs(la - lw) / abs(lw)
+    log(f"8c act_int8 vs weight-only int8: prefill logits cosine "
+        f"{agree['cosine']:.6f} (top-1 agree {agree['top1_agree']}), prefill "
+        f"{prefill_ms['act_int8']:.2f} vs {prefill_ms['weight_only']:.2f} ms;"
+        f" LoRA micro-step loss {la:.6f} vs {lw:.6f} (rel {rel:.3e}), "
+        f"gradient cosine {cos:.6f}, {ma:.1f} vs {mw:.1f} ms")
+    require("8c act_int8", prefill_cosine=agree["cosine"]
+            > ACT_INT8_MIN_COSINE, lora_gradient_cosine=cos
+            > ACT_INT8_MIN_COSINE, finite_loss=math.isfinite(la))
+    del lp, q8
+    return {"prefill": agree, "prefill_ms": prefill_ms,
+            "loss": {"act_int8": la, "weight_only": lw}, "loss_rel_diff": rel,
+            "lora_gradient_cosine": cos,
+            "micro_step_ms": {"act_int8": ma, "weight_only": mw}}
+
+
+@contextlib.contextmanager
+def plain_int4_route(torch):
+    """While open, every packed-int4 product of the decoder and the lm_head
+    takes the plain route: the layer dequantized in f32 and one f32 product
+    (autograd differentiates it), in place of K6 or K7 and a bf16 product."""
+    from streamvln_tpu_torch.models import qwen2, quant
+    product = qwen2._int4_product
+
+    def plain(x, w, s):
+        return torch.matmul(x.float(), quant.dequant_int4(w, s,
+                                                          torch.float32))
+    qwen2._int4_product = plain
+    try:
+        yield
+    finally:
+        qwen2._int4_product = product
+
+
+@contextlib.contextmanager
+def k7_by_phase(torch, i4, box):
+    """While open, K7's launches in each train micro-step are split three
+    ways into `box`: "forward" (up to the return of forward_train),
+    "backward" (the launches counted inside the K7 product's backward) and
+    "recompute" (the rest of the backward: the checkpoints' forwards run
+    again)."""
+    from streamvln_tpu_torch.models import streamvln
+    fwd, bwd = streamvln.forward_train, i4._Int4PrefillMatmul.backward
+    box.update(forward=0, recompute=0, backward=0, mark=None)
+
+    def forward_train(*a, **k):
+        out = fwd(*a, **k)
+        box["mark"] = i4.dequant_launches
+        return out
+
+    def backward(ctx, g):
+        n = i4.dequant_launches
+        out = bwd(ctx, g)
+        box["backward"] += i4.dequant_launches - n
+        return out
+    streamvln.forward_train = forward_train
+    i4._Int4PrefillMatmul.backward = staticmethod(backward)
+    try:
+        yield box
+    finally:
+        streamvln.forward_train = fwd
+        i4._Int4PrefillMatmul.backward = staticmethod(bwd)
+
+
+def qlora_steps(torch, np, q4, q_s, cfg, tok, frames, instruction, batches,
+                fa, va, i4, bf16_lora, device="cuda"):
+    """Phase 8d: QLoRA. `q4`: the phase-3 weights quantized to int4 on the
+    card (quantize_llm(bits=4), in `q_s` seconds; the bf16 LLM already
+    freed), with LoRA rank 16 on the seven targets; one
+    micro-batch's loss and LoRA gradients through the kernels against the
+    plain int4 route (plain_int4_route; the training gates); 3 optimizer
+    steps (lora_only, grad accum 2, remat, chunked CE) of phase 4b's
+    micro-batches with exact K3/K4/K5 and K7 counts, K7 split into the
+    forward, the checkpoints' recompute and the backward (k7_by_phase);
+    finite losses, the packed weights, their scales and every other base
+    leaf bit-equal after the steps, the adapters moved; step ms, tokens/s
+    and peak memory beside phase 4b's bf16 LoRA step; then merge_lora
+    into the int4 weights and one agent call on the merged weights."""
+    from streamvln_tpu_torch.models import lora as lora_lib
+    from streamvln_tpu_torch.models import streamvln
+    from streamvln_tpu_torch.parallel.train import (
+        TrainConfig, create_train_state, make_train_step, tree_leaves)
+    tcfg = TrainConfig(lora_only=True, grad_accum_steps=2, remat=True,
+                       loss_chunk_size=512, total_steps=3)
+    state = create_train_state(lora_lib.add_lora(
+        q4, torch.Generator(device=device).manual_seed(1), rank=16,
+        alpha=32.0), tcfg)
+    del q4
+    base = {p: t.to("cpu") for p, t in tree_leaves(state.params)
+            if not lora_lib.is_lora_path(p)}
+    packed = sum(t.dtype == torch.uint8 for t in base.values())
+    lora_b0 = {p: t.detach().clone() for p, t in tree_leaves(state.params)
+               if p.endswith("_lora_b")}
+
+    ref = {}
+    for route in ("kernels", "plain"):
+        t0 = time.perf_counter()
+        with plain_int4_route(torch) if route == "plain" else \
+                contextlib.nullcontext():
+            ref[route] = lora_loss_and_grads(torch, streamvln, state.params,
+                                             cfg, batches[-1], "auto")
+        torch.cuda.synchronize()
+        log(f"8d reference {route}: loss {ref[route][0]:.6f} in "
+            f"{time.perf_counter() - t0:.2f} s")
+    (lk, gk), (lp_, gp) = ref["kernels"], ref["plain"]
+    rel = abs(lk - lp_) / abs(lp_)
+    cos = torch.nn.functional.cosine_similarity(gk, gp, dim=0).item()
+    del ref, gk, gp
+    log(f"8d int4 kernels vs the plain int4 route: loss rel diff {rel:.3e}, "
+        f"LoRA grad cosine {cos:.6f}")
+    require("8d QLoRA through the kernels vs the plain int4 route",
+            loss=rel <= TRAIN_LOSS_RTOL, lora_gradient_cosine=cos
+            >= TRAIN_GRAD_MIN_COSINE)
+
+    step = make_train_step(cfg, tcfg, device=device)
+    n_micro = 3 * tcfg.grad_accum_steps
+    valid = [int(b["valid"].sum()) for b in batches]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    fa.launches = fa.lse_launches = fa.dq_launches = fa.dkv_launches = 0
+    va.launches, va.launches_by_batch = 0, {}
+    i4.launches = i4.dequant_launches = 0
+    metrics, micro_ms, k7 = [], [], []
+    box = {}
+    with k7_by_phase(torch, i4, box):
+        for i in range(n_micro):
+            n7, b0 = i4.dequant_launches, box["backward"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batches[i])
+            torch.cuda.synchronize()
+            micro_ms.append((time.perf_counter() - t0) * 1e3)
+            fwd = box["mark"] - n7
+            bwd = box["backward"] - b0
+            k7.append({"forward": fwd, "backward": bwd,
+                       "recompute": i4.dequant_launches - n7 - fwd - bwd})
+            metrics.append({"loss": m["loss"].item(),
+                            "grad_norm": m["grad_norm"].item()})
+            log(f"8d micro-step {i}: loss {metrics[-1]['loss']:.6f} "
+                f"grad_norm {metrics[-1]['grad_norm']:.6f} "
+                f"{micro_ms[-1]:.2f} ms; K7 {k7[-1]}")
+    peak = torch.cuda.max_memory_allocated()
+    counts = {"vit_attention": va.launches, "flash_attention": fa.launches,
+              "flash_attention_lse": fa.lse_launches,
+              "flash_bwd_dq": fa.dq_launches, "flash_bwd_dkv": fa.dkv_launches,
+              "int4_matmul": i4.launches,
+              "int4_dequant_split": i4.dequant_launches}
+    vit_by_batch = by_batch(va)
+    L, Lv = cfg.llm.num_layers, cfg.vision.num_layers
+    T = batches[0]["token_ids"].shape[1]
+    chunks = T // tcfg.loss_chunk_size
+    # per micro-step: the seven unfused LoRA-carrying projections of each
+    # layer and the lm_head of each CE chunk, all above 128 rows (K7);
+    # remat runs each again in the backward; every one takes a backward
+    # but layer 0's q/k/v, whose input (the frozen embeddings and tower
+    # features) needs no gradient
+    k7_want = {"forward": 7 * L + chunks, "backward": 7 * L - 3 + chunks,
+               "recompute": 7 * L + chunks}
+    want = {"vit_attention": Lv * n_micro, "flash_attention": 0,
+            "flash_attention_lse": 2 * L * n_micro,
+            "flash_bwd_dq": L * n_micro, "flash_bwd_dkv": L * n_micro,
+            "int4_matmul": 0,
+            "int4_dequant_split": sum(k7_want.values()) * n_micro}
+    log(f"8d launches on the QLoRA path: {counts} (want {want}); K7 per "
+        f"micro-step {k7_want}; K1 by batch {vit_by_batch}")
+    opt_ms = [sum(micro_ms[i:i + 2]) for i in range(0, n_micro, 2)]
+    tok_step = [valid[i] + valid[i + 1] for i in range(0, n_micro, 2)]
+    rates = [n / ms * 1e3 for ms, n in zip(opt_ms, tok_step)]
+    med, med_rate = float(np.median(opt_ms)), float(np.median(rates))
+    log(f"8d median optimizer step {med:.2f} ms, {med_rate:.1f} valid "
+        f"tokens/s, peak memory allocated {peak / 2**30:.2f} GiB, "
+        f"{resident / 2**30:.2f} GiB of it resident before the steps "
+        f"(phase 4b bf16 LoRA: {bf16_lora['median_step_ms']:.2f} ms, "
+        f"{bf16_lora['tokens_per_s']:.1f} tokens/s, "
+        f"{bf16_lora['peak_memory_bytes'] / 2**30:.2f} GiB)")
+    finite = all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+                 and m["grad_norm"] > 0 for m in metrics)
+    frozen_ok = all(torch.equal(t.to("cpu"), base[p])
+                    for p, t in tree_leaves(state.params) if p in base)
+    moved = sum(not torch.equal(t, lora_b0[p])
+                for p, t in tree_leaves(state.params) if p in lora_b0)
+    log(f"8d checks: finite {finite}; {len(base)} base leaves ({packed} "
+        f"packed int4) bit-identical {frozen_ok}; LoRA B stacks changed "
+        f"{moved} of {len(lora_b0)}")
+    require("8d QLoRA", finite=finite, frozen_base_and_packed=frozen_ok,
+            packed_leaves=packed == 8, adapters_moved=moved == len(lora_b0),
+            launch_counts=counts == want,
+            k7_by_phase=all(k == k7_want for k in k7),
+            k1_batches=sum(vit_by_batch.values()) == counts["vit_attention"])
+    del base, lora_b0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        merged = lora_lib.merge_lora(state.params)
+    del state
+    gc.collect()
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    layers = merged["llm"]["layers"]
+    merged_ok = layers["gate_w"].dtype == torch.uint8 and not any(
+        "_lora_" in k for k in layers)
+    toks, lg = one_call(torch, merged, cfg, frames[0], instruction, device)
+    log(f"8d merge_lora into the int4 weights in {merge_s:.2f} s (int4 "
+        f"stacks {merged_ok}); one agent call on the merged weights: "
+        f"{len(toks)} tokens, finite logits {bool(torch.isfinite(lg).all())}")
+    require("8d merged weights", int4_without_adapters=merged_ok,
+            tokens=bool(toks) and all(0 <= t < cfg.llm.vocab_size
+                                      for t in toks),
+            finite_logits=bool(torch.isfinite(lg).all()))
+    del merged
+    return {"quantize_s": q_s, "reference": {"loss_rel_diff": rel,
+                                             "lora_grad_cosine": cos},
+            "metrics": metrics, "micro_ms": micro_ms,
+            "optimizer_step_ms": opt_ms, "median_step_ms": med,
+            "tokens_per_s": med_rate, "peak_memory_bytes": peak,
+            "resident_bytes_before_steps": resident,
+            "launches": counts, "k7_per_micro_step": k7,
+            "k7_want_per_micro_step": k7_want,
+            "vit_launches_by_batch": vit_by_batch, "merge_s": merge_s,
+            "merged_call_tokens": toks,
+            "bf16_lora": {k: bf16_lora[k] for k in (
+                "median_step_ms", "tokens_per_s", "peak_memory_bytes")}}
+
+
+def quantized_tail(torch, np, cfg, tok, frames, instruction, batches,
+                   bf16_lora, va, fa, i4, counts, reset, model_size="7b",
+                   device="cuda", dtype=None):
+    """Phase 8: the quantized tail at full width (streamvln_7b, 4096 KV
+    slots, 480x640 frames, the ByteTokenizer) on the phase-3 weights, made
+    again from their seed (phase 3 freed them): 8a the kv_int8 engine
+    (kv_int8_serving); 8b the int8 tower alone (int8_tower); 8c act_int8
+    (act_int8_check); 8d QLoRA (qlora_steps) on the weights quantized to
+    int4, the bf16 LLM freed first; then 8b's entry point, eval_cli.main
+    --kv_int8 --vision_int8 on phase 5's steered weights
+    (eval_entry_point), once nothing else of the phase is left on the
+    card, so that its peak memory is its own. Returns the phase's
+    record."""
+    from streamvln_tpu_torch.models import quant
+    from streamvln_tpu_torch.weights import init
+    t_start = time.perf_counter()
+    # what earlier phases left in reference cycles (engines, agents) goes
+    # first, so that the phase's peaks are its own
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    params = init(cfg, torch.Generator(device=device).manual_seed(0),
+                  device=device, dtype=dtype or torch.bfloat16)
+    # K1's batch sizes over the phase (each sub-phase resets the counts)
+    batches_k1 = set()
+    rec = {"kv_int8": kv_int8_serving(torch, np, params, cfg, tok, frames,
+                                      instruction, counts, reset, device)}
+    batches_k1 |= set(by_batch(va))
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["tower"] = int8_tower(torch, params, cfg, frames, va, device)
+    batches_k1 |= set(by_batch(va))
+    rec["act_int8"] = act_int8_check(torch, params, cfg, tok, frames,
+                                     instruction, batches[-1], device)
+    batches_k1 |= set(by_batch(va))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    q4 = quant.quantize_llm(params, bits=4)
+    torch.cuda.synchronize()
+    q_s = time.perf_counter() - t0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["qlora"] = qlora_steps(torch, np, q4, q_s, cfg, tok, frames,
+                               instruction, batches, fa, va, i4, bf16_lora,
+                               device)
+    batches_k1 |= set(rec["qlora"]["vit_launches_by_batch"])
+    del q4
+    gc.collect()
+    torch.cuda.empty_cache()
+    flags = ("--kv_int8", "--vision_int8") + (
+        () if device == "cuda" else ("--device", device))
+    rec["entry_point"] = eval_entry_point(
+        torch, va, counts, reset, flags=flags, name="eval_int8", what="8b",
+        model_size=model_size)
+    require("8b the entry point's engine", kv_int8=rec["entry_point"][
+        "kv_int8"], tower_int8=rec["entry_point"]["tower_int8"])
+    batches_k1 |= set(rec["entry_point"]["vit_launches_by_batch"])
+    rec["vit_batches"] = sorted(batches_k1)
+    rec["resident_bytes_at_start"] = resident
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_start
+    return rec
+
+
+def quantized_tail_summary(q, card) -> str:
+    """Phase 8 on one line, beside the card's name and power limit."""
+    a, t, e, c, d = (q["kv_int8"], q["tower"], q["entry_point"],
+                     q["act_int8"], q["qlora"])
+    med = {k: v["median_mid_window"] for k, v in a["paired"].items()}
+    return (f"phase 8 quantized tail ({card}): kv_int8 cache "
+            f"{a['cache_bytes']['int8'] / 1e6:.1f} MB vs bf16 "
+            f"{a['cache_bytes']['bf16'] / 1e6:.1f} MB; decode ms per emitted "
+            f"token kv_int8 {med['kv_int8']['decode_ms_per_token']:.2f} vs "
+            f"bf16 {med['bf16']['decode_ms_per_token']:.2f} (spec 6: "
+            f"{med['kv_int8_spec']['decode_ms_per_token']:.2f} vs "
+            f"{med['bf16_spec']['decode_ms_per_token']:.2f}); int8 tower rel "
+            f"diff {t['max_rel_diff']:.3e}, vision ms/frame "
+            f"{min(t['vision_ms_int8']):.2f} vs bf16 "
+            f"{min(t['vision_ms_bf16']):.2f}; eval_cli --kv_int8 "
+            f"--vision_int8 model call p50 "
+            f"{e['final']['model_call_p50_ms']:.2f} p90 "
+            f"{e['final']['model_call_p90_ms']:.2f} ms; act_int8 cosine "
+            f"{c['prefill']['cosine']:.5f} / grad "
+            f"{c['lora_gradient_cosine']:.5f}; QLoRA step "
+            f"{d['median_step_ms']:.2f} ms, {d['tokens_per_s']:.1f} "
+            f"tokens/s, {d['peak_memory_bytes'] / 2**30:.2f} GiB (bf16 "
+            f"LoRA {d['bf16_lora']['median_step_ms']:.2f} ms); "
+            f"{q['seconds']:.1f} s")
+
+
 def device_ms(torch, fns, calls=None) -> float:
     """Device time per call of a rotation of `fns`: the summed durations
     of the CUDA kernels they launch (torch.profiler), so that a host
@@ -3214,6 +3841,14 @@ def serving_launches(serving, name) -> dict:
             "wave8": serving["batched"]["launches_wave8"][name],
             "wave1": serving["batched"]["launches_wave1"][name],
             "fused": serving["fused"]["launches"][name]}
+
+
+def qtail_launches(q, name) -> dict:
+    """A kernel's launches in phase 8, by sub-phase (8a's 9 kv_int8 calls,
+    8b's entry point, 8d's 6 QLoRA micro-steps)."""
+    return {"kv_int8": q["kv_int8"]["launches"][name],
+            "entry_point": q["entry_point"]["launches"][name],
+            "qlora": q["qlora"]["launches"][name]}
 
 
 def serving_summary(s) -> str:
@@ -3453,7 +4088,8 @@ def main() -> int:
 
     # 4. training: the kernels at the train step's shape, then LoRA SFT
     train_k = check_training_kernels(torch, F, fa)
-    train = train_full_width(torch, np, params, cfg, tok, fa, va)
+    train, train_batches = train_full_width(torch, np, params, cfg, tok, fa,
+                                            va)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3476,16 +4112,36 @@ def main() -> int:
     turnkey["captures"] = captures[n_captures:]
     log_captures("phase 7", turnkey["captures"])
 
+    # 8. the quantized tail: the int8 KV cache, the int8 tower and
+    # eval_cli --kv_int8 --vision_int8, act_int8, QLoRA
+    n_captures = len(captures)
+    qtail = quantized_tail(torch, np, cfg, tok, frames, instruction,
+                           train_batches, train, va, fa, i4, serving_counts,
+                           reset_counts)
+    qtail["captures"] = captures[n_captures:]
+    log_captures("phase 8", qtail["captures"])
+    del train_batches
+
     sent = set(vit_by_batch) | set(train["vit_launches_by_batch"]) | \
         set(evaluation["vit_launches_by_batch"]) | \
         set(serving["vit_launches_by_batch"]) | \
-        set(turnkey["vit_launches_by_batch"])
+        set(turnkey["vit_launches_by_batch"]) | \
+        set(qtail["vit_batches"])
     unchecked = sent - {f"B={r['batch']}" for r in vit}
     if unchecked:
         raise AssertionError(f"the main paths sent K1 batches {unchecked} "
                              f"that phase 2 did not check")
+    k7_shapes = {f"{din}x{dout} {dt}": n for (din, dout, dt), n
+                 in sorted(i4.dequant_launches_by_shape.items())}
+    unchecked = set(i4.dequant_launches_by_shape) - {
+        tuple(r["key"]) for r in dequant_recs}
+    if unchecked:
+        raise AssertionError(f"the run launched K7 at (din, dout, dtype) "
+                             f"{sorted(unchecked)}, which phase 2 did not "
+                             f"check")
+    log(f"K7 launches by shape over the whole run: {k7_shapes}")
 
-    # 8. summary
+    # 9. summary
     kernels = [
         kernel_entry("vit_attention",
                      "streamvln_tpu_torch/csrc/vit_attention.cu",
@@ -3499,7 +4155,9 @@ def main() -> int:
                      launches_eval=evaluation["launches"]["vit_attention"],
                      launches_serving_stack=serving_launches(
                          serving, "vit_attention"),
-                     launches_turnkey=turnkey["launches"]["vit_attention"]),
+                     launches_turnkey=turnkey["launches"]["vit_attention"],
+                     launches_quantized_tail=qtail_launches(
+                         qtail, "vit_attention")),
         kernel_entry("flash_attention",
                      "streamvln_tpu_torch/csrc/flash_attention.cu",
                      "streamvln_tpu/ops/flash_attention.py:49", n_flash,
@@ -3510,7 +4168,9 @@ def main() -> int:
                      launches_serving_stack=serving_launches(
                          serving, "flash_attention"),
                      launches_turnkey=turnkey["launches"][
-                         "flash_attention"])]
+                         "flash_attention"],
+                     launches_quantized_tail=qtail_launches(
+                         qtail, "flash_attention"))]
     for name, src in (
             ("flash_attention_lse",
              "streamvln_tpu_torch/csrc/flash_attention.cu"),
@@ -3525,7 +4185,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **shares(r), "shape": r["shape"], "library": r["library"]})
+            **shares(r), "shape": r["shape"], "library": r["library"],
+            "launches_qlora": qtail["qlora"]["launches"][name]})
     kernels += [
         kernel_entry("int4_matmul",
                      "streamvln_tpu_torch/csrc/int4_matmul.cu",
@@ -3536,7 +4197,11 @@ def main() -> int:
                      "streamvln_tpu_torch/csrc/int4_matmul.cu",
                      "streamvln_tpu/ops/int4_matmul.py:170",
                      int4["launches"]["int4_dequant_split"], dequant_recs,
-                     head=2),
+                     head=2, launches_qlora=qtail["qlora"]["launches"][
+                         "int4_dequant_split"],
+                     launches_qlora_per_micro_step=qtail["qlora"][
+                         "k7_per_micro_step"],
+                     launches_by_shape=k7_shapes),
         kernel_entry("decode_attention",
                      "streamvln_tpu_torch/csrc/decode_attention.cu",
                      "streamvln_tpu/ops/decode_attention.py:31",
@@ -3546,6 +4211,7 @@ def main() -> int:
     seconds = time.perf_counter() - t_start
     log(serving_summary(serving))
     log(turnkey_summary(turnkey, card))
+    log(quantized_tail_summary(qtail, card))
     log(f"chip_smoke: all phases passed in {seconds:.1f} s")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -3557,7 +4223,8 @@ def main() -> int:
                    "graphs_vs_eager": replays, "captures": captures,
                    "training_kernels": train_k, "training": train,
                    "evaluation": evaluation, "serving_stack": serving,
-                   "turnkey": turnkey, "seconds": seconds}, f, indent=1)
+                   "turnkey": turnkey, "quantized_tail": qtail,
+                   "seconds": seconds}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,13 +15,14 @@ tokenizer files give the HF tokenizer (which needs `transformers`); a
 directory without shards gets random weights from seed 0, one without
 tokenizer files the ByteTokenizer. Weights are bf16 on the card, f32 on
 the CPU (the reference picks bf16 on its accelerator), optionally merged
-with LoRA adapters and quantized (--bits 4|8), and served by the engine
-with prompt-lookup speculation (--spec_lookup, 6 by default). The env is
-the fake one or habitat-sim (--env_backend habitat,
-eval/habitat_backend.py). One env runs VLNEvaluator; --n_envs > 1 runs
-BatchedVLNEvaluator, with each env in a worker process by default.
-
---kv_int8 and --vision_int8 raise: they are ROADMAP queue 1 item 5.
+with LoRA adapters, the LLM quantized (--bits 4|8) and the tower's
+projections quantized to int8 (--vision_int8: int8 x int8 products with
+per-token activation quantization), all on the device, and served by the
+engine with prompt-lookup speculation (--spec_lookup, 6 by default) over a
+bf16 or, with --kv_int8, an int8 KV cache. The env is the fake one or
+habitat-sim (--env_backend habitat, eval/habitat_backend.py). One env runs
+VLNEvaluator; --n_envs > 1 runs BatchedVLNEvaluator, with each env in a
+worker process by default.
 """
 from __future__ import annotations
 
@@ -32,8 +33,6 @@ import os
 from typing import Optional
 
 import torch
-
-_LATER = "of the PyTorch port"
 
 
 def build_agent(model_path: Optional[str], model_size: str = "7b",
@@ -48,7 +47,9 @@ def build_agent(model_path: Optional[str], model_size: str = "7b",
     choices: the checkpoint in `model_path` (random weights from seed 0
     when it holds no shards), its tokenizer (the ByteTokenizer when it
     holds no tokenizer files), {im_end, eos} as stop ids, and a random
-    conjunction in every observation prompt."""
+    conjunction in every observation prompt. kv_int8 gives the engine an
+    int8 KV cache; vision_int8 quantizes the tower's projections to int8
+    on the device after the build."""
     from streamvln_tpu_torch import weights
     from streamvln_tpu_torch.agent import VLNAgent
     from streamvln_tpu_torch.configs import build_config, resolve_device
@@ -57,9 +58,6 @@ def build_agent(model_path: Optional[str], model_size: str = "7b",
     from streamvln_tpu_torch.models.fuse import fuse_projections
     from streamvln_tpu_torch.streaming.engine import StreamingEngine
 
-    if kv_int8 or vision_int8:
-        raise NotImplementedError(
-            f"--kv_int8 / --vision_int8 are ROADMAP queue 1 item 5 {_LATER}")
     device = resolve_device(device)
     args = argparse.Namespace(
         model_size=model_size, spatial_pool_mode="bilinear",
@@ -89,6 +87,9 @@ def build_agent(model_path: Optional[str], model_size: str = "7b",
     if bits in (4, 8):
         from streamvln_tpu_torch.models import quant
         params = quant.quantize_llm(params, bits=bits)
+    if vision_int8:
+        from streamvln_tpu_torch.models import quant
+        params = dict(params, vision=quant.quantize_vision(params["vision"]))
     # fuse here, so the engine's fuse is a no-op and the unfused stacks are
     # freed before the engine allocates its caches
     params = fuse_projections(params)
@@ -96,7 +97,7 @@ def build_agent(model_path: Optional[str], model_size: str = "7b",
     engine = StreamingEngine(
         params, cfg, n_envs=n_envs, cache_capacity=cache_capacity,
         max_new_tokens=max_new_tokens, stop_ids=stop, compute_dtype=dtype,
-        spec_lookup=spec_lookup, device=device)
+        spec_lookup=spec_lookup, kv_int8=kv_int8, device=device)
     return VLNAgent(engine, tok, deterministic_conjunction=False)
 
 
@@ -157,9 +158,11 @@ def _parser() -> argparse.ArgumentParser:
                    help="inference weight quantization; 4 runs the int4 "
                         "dequant-matmul kernels")
     p.add_argument("--kv_int8", action="store_true", default=False,
-                   help="int8 KV cache (not in the port yet)")
+                   help="int8 KV cache (int8 values, f32 scales per token "
+                        "and head)")
     p.add_argument("--vision_int8", action="store_true", default=False,
-                   help="int8 tower matmuls (not in the port yet)")
+                   help="int8 x int8 tower matmuls (per-token activation "
+                        "quantization)")
     p.add_argument("--spec_lookup", type=int, default=6,
                    help="prompt-lookup speculative decode: verify this "
                         "many drafted tokens per decode forward "

@@ -17,6 +17,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from streamvln_tpu_torch.models import quant
+
 DEFAULT_TARGETS = ("q_w", "k_w", "v_w", "o_w", "gate_w", "up_w", "down_w")
 
 
@@ -25,13 +27,17 @@ def add_lora(params: dict, generator: torch.Generator, rank: int = 16,
              dtype=torch.float32) -> dict:
     """Insert adapters that leave the model unchanged: A ~ N(0, 1/din),
     B = 0, on the base weights' device. Returns a new tree that shares
-    every base tensor with `params` (no copy)."""
+    every base tensor with `params` (no copy). A packed-int4 base
+    [L, din/2, dout] gets adapters of its unpacked width din (the
+    reference reads din off the packed shape, ROADMAP §3.5)."""
     layers = dict(params["llm"]["layers"])
     for name in targets:
         if name not in layers:
             continue
         w = layers[name]                          # [L, din, dout]
         L, din, dout = w.shape
+        if quant.is_packed_int4(w):
+            din *= 2
         a = torch.randn((L, din, rank), generator=generator,
                         device=w.device, dtype=torch.float32)
         layers[f"{name}_lora_a"] = (a * din ** -0.5).to(dtype)
@@ -47,7 +53,10 @@ def add_lora(params: dict, generator: torch.Generator, rank: int = 16,
 
 
 def merge_lora(params: dict) -> dict:
-    """Fold the adapters into the base weights (inference/export)."""
+    """Fold the adapters into the base weights (inference/export). An int8
+    or packed-int4 base is dequantized in f32, the delta added and the sum
+    requantized with the same quantizer (a raw cast would truncate the
+    merged weights), as in the reference."""
     llm = params["llm"]
     if "lora_scale" not in llm:
         return params
@@ -61,15 +70,32 @@ def merge_lora(params: dict) -> dict:
         b = layers.pop(base + "_lora_b")
         w = layers[base]
         if w.dtype in (torch.int8, torch.uint8):
-            raise NotImplementedError(
-                f"merging adapters into quantized {base!r} ({w.dtype}) "
-                f"comes with the port's quantization slice")
+            layers[base], layers[base + "_scale"] = _merge_quantized(
+                w, layers[base + "_scale"], a, b, scale)
+            continue
         delta = torch.einsum("lir,lro->lio", a.float(), b.float()) * scale
         layers[base] = (w.float() + delta).to(w.dtype)
     out = dict(params)
     out["llm"] = {k: v for k, v in llm.items() if k != "lora_scale"}
     out["llm"]["layers"] = layers
     return out
+
+
+def _merge_quantized(w, w_scale, a, b, scale):
+    """(w, scales) of an int8 or packed-int4 stack with the adapters folded
+    in, one layer at a time (the f32 temporaries are one layer's): the
+    layer dequantized in f32, the f32 delta added, the sum requantized by
+    the stack's own quantizer. Per layer and column, as over the stack."""
+    if w.dtype == torch.int8:
+        def requant(i, delta):
+            return quant.quantize_weight(w[i].float() * w_scale[i] + delta)
+    else:
+        def requant(i, delta):
+            return quant.quantize_weight_int4(
+                quant.dequant_int4(w[i], w_scale[i], torch.float32) + delta)
+    out = [requant(i, torch.einsum("ir,ro->io", a[i].float(), b[i].float())
+                   * scale) for i in range(w.shape[0])]
+    return torch.stack([q for q, _ in out]), torch.stack([s for _, s in out])
 
 
 def split_lora(params: dict) -> Tuple[dict, dict]:

@@ -1,12 +1,13 @@
-"""Weight-only quantization of the LLM projections: int8 per output column
-and packed int4 with group-64 scales.
+"""Quantization: the LLM projections weight-only (int8 per output column,
+packed int4 with group-64 scales), the SigLIP tower's projections to int8,
+and the int8 x int8 product with per-token activation quantization that
+int8 towers and `act_int8` decoders run.
 
 Counterpart of `streamvln_tpu/models/quant.py` (`quantize_weight`,
-`quantize_weight_int4`, `dequant_int4`, `is_packed_int4`, `quantize_llm`,
-`init_quantized_llm`, `dequantize_llm`, `maybe_dequant`). The packed
-bytes and scales are bit for bit the JAX package's: the same f32
-arithmetic and round-half-to-even. `int8_dynamic_matmul` (act_int8) and
-`quantize_vision` (the int8 tower) are a later slice of the port.
+`int8_dynamic_matmul`, `quantize_weight_int4`, `dequant_int4`,
+`is_packed_int4`, `quantize_llm`, `quantize_vision`, `init_quantized_llm`,
+`dequantize_llm`, `maybe_dequant`). The packed bytes and scales are bit
+for bit the JAX package's: the same f32 arithmetic and round-half-to-even.
 
 int4 layout (the contract of ops/int4_matmul.py): uint8 [..., din/2,
 dout], byte r holds w[2r] in its low nibble and w[2r+1] in its high
@@ -22,6 +23,7 @@ import torch
 from streamvln_tpu_torch.ops.int4_matmul import unpack_nibbles
 
 QUANT_TARGETS = ("q_w", "k_w", "v_w", "o_w", "gate_w", "up_w", "down_w")
+VISION_QUANT_TARGETS = ("q_w", "k_w", "v_w", "o_w", "fc1_w", "fc2_w")
 INT4_GROUP = 64
 
 
@@ -32,6 +34,66 @@ def quantize_weight(w: torch.Tensor):
     scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
     q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
     return q, scale
+
+
+def _clip127(x: torch.Tensor) -> torch.Tensor:
+    """jnp.clip(x, -127, 127) as the reference computes it, maximum then
+    minimum, so a value at a bound passes half its gradient (JAX's and
+    torch's max/min split the gradient of a tie evenly; torch.clamp would
+    pass all of it)."""
+    lo = torch.full((), -127.0, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, lo), -lo)
+
+
+def _int_mm(xq: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """Exact int8 [M, K] x int8 [K, N] -> int32 [M, N] (torch._int_mm). On
+    the card the product needs more than 16 rows and K, N multiples of 8:
+    rows are padded with zeros and sliced off; other K or N raise, since an
+    f32 product in its place would be inexact past 2^24 (127^2 * 4304)."""
+    M, K = xq.shape
+    N = w_q.shape[1]
+    if xq.device.type == "cpu":
+        return torch._int_mm(xq, w_q)
+    if K % 8 or N % 8:
+        raise ValueError(f"int8 product on {xq.device.type}: K={K} and "
+                         f"N={N} must be multiples of 8")
+    if M <= 16:
+        xq = torch.cat([xq, xq.new_zeros((17 - M, K))])
+    return torch._int_mm(xq, w_q)[:M]
+
+
+class _Int8Dot(torch.autograd.Function):
+    """Integer-valued f32 x_c [M, K] times int8 w_q [K, N] -> the exact
+    int32 product as f32. The backward is the reference's `_int8_dot_bwd`:
+    g @ w_q.T in g's dtype, and no gradient for the int8 weight."""
+
+    @staticmethod
+    def forward(ctx, x_c, w_q):
+        ctx.save_for_backward(w_q)
+        return _int_mm(x_c.to(torch.int8), w_q).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        (w_q,) = ctx.saved_tensors
+        return g @ w_q.to(g.dtype).t(), None
+
+
+def int8_dynamic_matmul(x: torch.Tensor, w_q: torch.Tensor,
+                        w_scale: torch.Tensor) -> torch.Tensor:
+    """x [..., din] float times int8 w_q [din, dout] with per-column f32
+    scales w_scale [..., dout] -> f32 [..., dout]. Each row of x is
+    quantized on the fly (absmax with a 1e-8 floor, / 127), rounded with a
+    straight-through estimator (the forward rounds, the gradient passes),
+    clipped to +-127, multiplied exactly in int32, and both scales applied
+    in f32, in the reference's order."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=-1, keepdim=True)
+    x_scale = absmax.clamp(min=1e-8) / 127.0
+    x_n = xf / x_scale
+    x_c = _clip127(x_n + (torch.round(x_n) - x_n).detach())
+    acc = _Int8Dot.apply(x_c.reshape(-1, x_c.shape[-1]), w_q)
+    acc = acc.reshape(*x.shape[:-1], w_q.shape[-1])
+    return acc * x_scale * w_scale.float().reshape(w_scale.shape[-1])
 
 
 def quantize_weight_int4(w: torch.Tensor, group: int = INT4_GROUP):
@@ -109,6 +171,19 @@ def quantize_llm(params: dict, targets: Sequence[str] = QUANT_TARGETS,
     if quantize_embed:
         llm["embed"], llm["embed_scale"] = _quantize_embed(llm["embed"])
     return dict(params, llm=llm)
+
+
+def quantize_vision(vision: dict,
+                    targets: Sequence[str] = VISION_QUANT_TARGETS) -> dict:
+    """The SigLIP tower's layer-stack projections to int8 per output column
+    (`<name>` int8 and `<name>_scale` beside it); `siglip.forward_embeddings`
+    runs such projections through int8_dynamic_matmul. The patch embed,
+    positions, biases and norms stay float. Returns a new tree."""
+    layers = dict(vision["layers"])
+    for name in targets:
+        layers[name], layers[name + "_scale"] = _per_layer(quantize_weight,
+                                                           layers[name])
+    return dict(vision, layers=layers)
 
 
 def init_quantized_llm(cfg, generator: Optional[torch.Generator] = None,

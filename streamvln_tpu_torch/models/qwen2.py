@@ -17,9 +17,12 @@ stack (contiguous, no copy). The training knobs are the reference's:
 `remat` (one non-reentrant `torch.utils.checkpoint` per layer),
 `remat_chunk` (nested: a checkpoint per chunk of layers around the
 per-layer ones), `mlp_chunk` (token-chunked MLP, a checkpoint per chunk)
-and `return_hidden`. Family knobs (MoE, alibi, LayerNorm, gelu MLPs,
-Gemma scalings), act_int8 and the int8 KV cache are later slices of the
-port and raise NotImplementedError here.
+and `return_hidden`. With `cfg.act_int8`, int8 projections quantize their
+activations per token and multiply int8 x int8 in int32
+(`quant.int8_dynamic_matmul`). Family knobs (MoE, alibi, LayerNorm, gelu
+MLPs, Gemma scalings) are later slices of the port and raise
+NotImplementedError here, as does attn_impl="chunked" where the reference
+would run its chunked attention (ROADMAP item 7).
 
 KV cache: [L, B, Hkv, Smax, D] per tensor (KV-head-major), slot index ==
 global token position, per-row fill lengths. Appends write in place at
@@ -30,6 +33,16 @@ CUDA graph keeps reading the cache it captured. The reference's decode
 loop appends into a small scratch cache merged after the loop (an XLA
 loop-carry workaround); the port's decode appends in place into the big
 cache. Tokens, `length` and every slot below `length` are the same.
+
+The int8 cache (`KVCache.create(..., quantized=True)`) holds int8 k/v and
+f32 scales [L, B, Hkv, Smax], one per (token, head), amax / 127 after
+RoPE. A forward of fewer than 64 tokens (every decode and verify forward)
+attends over the int8 cache with the scales folded into the logits and
+the probabilities (`dense_attention_kvmajor`), whatever `attn_impl` is: it
+stands for the reference's decode loop, whose two-source attention over
+the cache and its scratch always takes that path, so K8 is not reached. A
+longer forward (prefill) dequantizes the layer's cache to the compute
+dtype and attends through `_attend` (K2 under "auto"/"flash").
 """
 from __future__ import annotations
 
@@ -40,7 +53,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from streamvln_tpu_torch.configs import Qwen2Config
-from streamvln_tpu_torch.models.quant import dequant_int4
+from streamvln_tpu_torch.models.quant import (dequant_int4,
+                                              int8_dynamic_matmul)
 from streamvln_tpu_torch.ops import decode_attention as da
 from streamvln_tpu_torch.ops import flash_attention as fa
 from streamvln_tpu_torch.ops.attention import (dense_attention,
@@ -68,7 +82,6 @@ def check_supported(cfg: Qwen2Config) -> None:
         "norm_offset": (cfg.norm_offset, False, "(1 + w) RMSNorm"),
         "scale_embeddings": (cfg.scale_embeddings, False,
                              "scaled embeddings"),
-        "act_int8": (cfg.act_int8, False, "int8 activations"),
     }
     for field, (got, want, what) in unsupported.items():
         if got != want:
@@ -114,18 +127,21 @@ def _int4_product(x: torch.Tensor, w: torch.Tensor,
     return fn(x2, w[None], s[None], 0).reshape(*x.shape[:-1], w.shape[-1])
 
 
-def _proj(x: torch.Tensor, p: dict, name: str,
-          lora_scale=None) -> torch.Tensor:
+def _proj(x: torch.Tensor, p: dict, name: str, lora_scale=None,
+          act_int8: bool = False) -> torch.Tensor:
     """x @ p[name] with the f32 sum kept, plus the bias `<name[:-2]>_b`
     and the LoRA delta `x @ A @ B * lora_scale` in f32, then one cast to
     x's dtype. int8 weights apply their per-column scale to the f32
-    output; packed int4 weights take the kernels when eligible, else the
-    reference's materialized dequant (`dequant_int4` in x's dtype)."""
+    output, or with act_int8 run int8_dynamic_matmul; packed int4 weights
+    take the kernels when eligible, else the reference's materialized
+    dequant (`dequant_int4` in x's dtype)."""
     w = p[name]
     if w.dtype == torch.uint8:
         out = _int4_product(x, w, p[name + "_scale"])
         if out is None:
             out = matmul_f32(x, dequant_int4(w, p[name + "_scale"], x.dtype))
+    elif w.dtype == torch.int8 and act_int8:
+        out = int8_dynamic_matmul(x, w, p[name + "_scale"])
     elif w.dtype == torch.int8:
         out = matmul_f32(x, w.to(x.dtype)) * p[name + "_scale"].float()
     else:
@@ -143,28 +159,46 @@ def _proj(x: torch.Tensor, p: dict, name: str,
 class KVCache:
     """Fixed-capacity per-layer KV buffers with per-row fill lengths.
 
-    k, v: [L, B, Hkv, Smax, D]; length: [B] int32 on the cache's device."""
+    k, v: [L, B, Hkv, Smax, D]; length: [B] int32 on the cache's device.
+    Quantized: k, v int8 and k_scale, v_scale f32 [L, B, Hkv, Smax] (no
+    trailing singleton dim), applied at read."""
 
     def __init__(self, k: torch.Tensor, v: torch.Tensor,
-                 length: torch.Tensor):
+                 length: torch.Tensor, k_scale: Optional[torch.Tensor] = None,
+                 v_scale: Optional[torch.Tensor] = None):
         self.k, self.v, self.length = k, v, length
+        self.k_scale, self.v_scale = k_scale, v_scale
 
     @classmethod
     def create(cls, cfg: Qwen2Config, batch: int, capacity: int,
-               dtype=torch.bfloat16, device="cuda") -> "KVCache":
+               dtype=torch.bfloat16, device="cuda",
+               quantized: bool = False) -> "KVCache":
         shape = (cfg.num_layers, batch, cfg.num_kv_heads, capacity,
                  cfg.head_dim)
+        length = torch.zeros((batch,), dtype=torch.int32, device=device)
+        if quantized:
+            return cls(torch.zeros(shape, dtype=torch.int8, device=device),
+                       torch.zeros(shape, dtype=torch.int8, device=device),
+                       length,
+                       torch.ones(shape[:-1], dtype=torch.float32,
+                                  device=device),
+                       torch.ones(shape[:-1], dtype=torch.float32,
+                                  device=device))
         return cls(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros((batch,), dtype=torch.int32, device=device))
+                   torch.zeros(shape, dtype=dtype, device=device), length)
 
     @property
     def capacity(self) -> int:
         return self.k.shape[3]
 
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
     def reset_rows(self, row_mask: torch.Tensor) -> None:
         """Zero the lengths of selected rows in place (stale KV is never
-        attended: its slots sit at positions past the row's queries)."""
+        attended: its slots sit at positions past the row's queries); the
+        values and scales stay."""
         self.length.masked_fill_(row_mask.to(self.length.device), 0)
 
     def check_room(self, S: int, write_mask: Optional[torch.Tensor] = None
@@ -184,29 +218,63 @@ class KVCache:
 
 def _append(buf: torch.Tensor, new: torch.Tensor, start: torch.Tensor,
             rows: Optional[torch.Tensor]) -> None:
-    """buf [B, Hkv, Smax, D] (one layer, in place); new [B, S, Hkv, D];
-    start [B] (int64, already clamped to Smax - S). Row b's S tokens go
-    to slots start[b]..start[b]+S-1; rows with rows[b] False write back
-    what those slots hold (idle batch rows), as the reference's
-    `_append_stack` does."""
-    B, S, Hkv, D = new.shape
+    """buf [B, Hkv, Smax, D] or, for the int8 cache's scales,
+    [B, Hkv, Smax] (one layer, in place); new [B, S, Hkv, D] or
+    [B, S, Hkv]; start [B] (int64, already clamped to Smax - S). Row b's S
+    tokens go to slots start[b]..start[b]+S-1; rows with rows[b] False
+    write back what those slots hold (idle batch rows), as the reference's
+    `_append_stack` and `_append_stack_scale` do."""
+    B, S, Hkv = new.shape[:3]
+    tail = new.shape[3:]
     idx = start[:, None] + torch.arange(S, device=buf.device)[None]
-    idx = idx[:, None, :, None].expand(B, Hkv, S, D)
+    idx = idx.reshape(B, 1, S, *(1,) * len(tail)).expand(B, Hkv, S, *tail)
     upd = new.transpose(1, 2).to(buf.dtype)
     if rows is not None:
-        upd = torch.where(rows[:, None, None, None], upd, buf.gather(2, idx))
+        upd = torch.where(rows.reshape(B, *(1,) * (upd.dim() - 1)), upd,
+                          buf.gather(2, idx))
     buf.scatter_(2, idx, upd)
 
 
+def _quantize_kv(x: torch.Tensor):
+    """[B, S, H, D] -> (int8 values, f32 scales [B, S, H]): symmetric per
+    (token, head), scale = amax / 127 (1 for an all-zero vector), rounded
+    half to even, post-RoPE, as the reference's `_quantize_kv`."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale[..., 0]
+
+
+def _dequant_kv(buf: torch.Tensor, scale: torch.Tensor, dtype):
+    """[B, H, Smax, D] int8 and [B, H, Smax] f32 scales -> `dtype`."""
+    return (buf.float() * scale[..., None]).to(dtype)
+
+
 def _attend(cfg: Qwen2Config, attn_impl: str, q, k, v, q_pos, k_pos,
-            kv_major: bool = False):
-    """Visibility rule `k_pos <= q_pos`. Prefill with S >= 64 and a
-    128-multiple head dim goes to the flash kernel (K2), by shape alone
-    (its wrapper runs the plain version on CPU tensors and launches or
-    raises on CUDA ones). Under attn_impl="decode_kernel" a single query
-    on the cache goes to the decode kernel (K8) over the keys below
-    q_pos + 1 (slot == position), as in the reference; its prefill is
-    dense. Everything else is plain dense PyTorch."""
+            kv_major: bool = False, kv_scales=None):
+    """Visibility rule `k_pos <= q_pos`, in the reference's order:
+    - on an int8 cache with its scales (`kv_scales` = (k_scale, v_scale)):
+      S < 64 (every decode and verify forward) is dense attention with the
+      scales folded in, before any kernel; a longer forward dequantizes
+      the cache to q's dtype and goes on below (K2 under "auto"/"flash");
+    - under attn_impl="decode_kernel", a single query on the cache: the
+      decode kernel (K8) over the keys below q_pos + 1 (slot == position);
+      its prefill is dense;
+    - S >= 64 and a 128-multiple head dim under "auto"/"flash": the flash
+      kernel (K2), by shape alone (its wrapper runs the plain version on
+      CPU tensors and launches or raises on CUDA ones);
+    - "chunked" without a cache at S >= 64: NotImplementedError, where the
+      reference runs its chunked attention (ROADMAP item 7b);
+    - everything else: plain dense PyTorch."""
+    if kv_major and kv_scales is not None:
+        if q.shape[1] < 64:
+            mask = k_pos[:, None, :] <= q_pos[:, :, None]
+            return dense_attention_kvmajor(
+                q, k, v, mask, logits_soft_cap=cfg.attn_logits_soft_cap,
+                k_scale=kv_scales[0], v_scale=kv_scales[1])
+        k = _dequant_kv(k, kv_scales[0], q.dtype)
+        v = _dequant_kv(v, kv_scales[1], q.dtype)
     if attn_impl == "decode_kernel" and kv_major and q.shape[1] == 1 \
             and cfg.head_dim % 128 == 0 and k.shape[2] % 512 == 0:
         return da.decode_attention(q, k, v, q_pos[:, 0] + 1)
@@ -214,6 +282,11 @@ def _attend(cfg: Qwen2Config, attn_impl: str, q, k, v, q_pos, k_pos,
             and q.shape[1] >= 64:
         return fa.flash_attention(q, k, v, q_pos, k_pos, kv_major=kv_major,
                                   logits_soft_cap=cfg.attn_logits_soft_cap)
+    if attn_impl == "chunked" and not kv_major and q.shape[1] >= 64:
+        raise NotImplementedError(
+            f"attn_impl='chunked' without a cache at S={q.shape[1]} >= 64 "
+            f"runs the reference's chunked attention, which is ROADMAP "
+            f"queue 1 item 7 (7b) of the PyTorch port")
     mask = k_pos[:, None, :] <= q_pos[:, :, None]
     fn = dense_attention_kvmajor if kv_major else dense_attention
     return fn(q, k, v, mask, logits_soft_cap=cfg.attn_logits_soft_cap)
@@ -223,13 +296,14 @@ def _layer(cfg: Qwen2Config, attn_impl: str, x: torch.Tensor, p: dict,
            positions, k_pos, lora_scale=None, mlp_chunk=None,
            cache_kv=None) -> torch.Tensor:
     """One decoder block on x [B, S, Dm]; p holds this layer's tensors
-    under the stack names. cache_kv = (k_buf, v_buf, start, rows) appends
-    this call's K/V into one layer of the cache and attends over it."""
+    under the stack names. cache_kv = (k_buf, v_buf, k_scale, v_scale,
+    start, rows) appends this call's K/V into one layer of the cache (the
+    scales None for a float cache) and attends over it."""
     B, S, _ = x.shape
     Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
     def proj(h, name):
-        return _proj(h, p, name, lora_scale)
+        return _proj(h, p, name, lora_scale, cfg.act_int8)
 
     h = rms_norm(x, p["ln1"], cfg.rms_norm_eps)
     if "qkv_w" in p:
@@ -242,11 +316,19 @@ def _layer(cfg: Qwen2Config, attn_impl: str, x: torch.Tensor, p: dict,
     k = apply_rope(k.reshape(B, S, Hkv, Dh), positions, cfg.rope_theta)
     v = v.reshape(B, S, Hkv, Dh)
     if cache_kv is not None:
-        kbuf, vbuf, start, rows = cache_kv
-        _append(kbuf, k, start, rows)
-        _append(vbuf, v, start, rows)
+        kbuf, vbuf, kscale, vscale, start, rows = cache_kv
+        scales = None
+        if kscale is None:
+            _append(kbuf, k, start, rows)
+            _append(vbuf, v, start, rows)
+        else:
+            for buf, sbuf, t in ((kbuf, kscale, k), (vbuf, vscale, v)):
+                tq, ts = _quantize_kv(t)
+                _append(buf, tq, start, rows)
+                _append(sbuf, ts, start, rows)
+            scales = (kscale, vscale)
         attn = _attend(cfg, attn_impl, q, kbuf, vbuf, positions, k_pos,
-                       kv_major=True)
+                       kv_major=True, kv_scales=scales)
     else:
         attn = _attend(cfg, attn_impl, q, k, v, positions, k_pos)
     x = x + proj(attn.reshape(B, S, Hq * Dh), "o_w")
@@ -319,8 +401,11 @@ def forward(
     stacks = {k: v.unbind(0) for k, v in params["layers"].items()}
 
     def one(i, y):
-        cache_kv = None if cache is None else \
-            (cache.k[i], cache.v[i], start, write_mask)
+        cache_kv = None if cache is None else (
+            cache.k[i], cache.v[i],
+            None if cache.k_scale is None else cache.k_scale[i],
+            None if cache.v_scale is None else cache.v_scale[i],
+            start, write_mask)
         return _layer(cfg, attn_impl, y, {k: v[i] for k, v in stacks.items()},
                       positions, k_pos, lora_scale, mlp_chunk, cache_kv)
 

@@ -6,7 +6,11 @@ pre-LN blocks with tanh-GELU MLPs, no post-LayerNorm. Per-layer weights
 are stacked [L, ...] and stored [in, out]; the blocks run as a Python
 loop (`remat`: one non-reentrant `torch.utils.checkpoint` per block).
 Attention dispatches through ops.attention.mha_attention, which takes the
-vit kernel (K1) on the card.
+vit kernel (K1) on the card. A tower quantized by
+`models/quant.quantize_vision` carries `<name>_w_scale` beside each int8
+projection, which then runs as an int8 x int8 product with per-token
+activation quantization (`quant.int8_dynamic_matmul`), as the reference's
+tower does.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from streamvln_tpu_torch.configs import SigLIPConfig
+from streamvln_tpu_torch.models.quant import int8_dynamic_matmul
 from streamvln_tpu_torch.ops.attention import mha_attention
 from streamvln_tpu_torch.ops.fused_patch_embed import fused_patch_embed
 from streamvln_tpu_torch.ops.linear import matmul_f32
@@ -72,6 +77,10 @@ def forward_embeddings(params: Params, cfg: SigLIPConfig,
     p = params["layers"]
 
     def dense(h, name, i):
+        if name + "_w_scale" in p:
+            out = int8_dynamic_matmul(h, p[name + "_w"][i],
+                                      p[name + "_w_scale"][i])
+            return out.to(h.dtype) + p[name + "_b"][i]
         return torch.matmul(h, p[name + "_w"][i]) + p[name + "_b"][i]
 
     def block(x, i):

@@ -50,22 +50,38 @@ def dense_attention(q, k, v, mask: Optional[torch.Tensor] = None,
 
 def dense_attention_kvmajor(q, k, v, mask: Optional[torch.Tensor] = None,
                             scale: Optional[float] = None,
-                            logits_soft_cap: Optional[float] = None
+                            logits_soft_cap: Optional[float] = None,
+                            k_scale: Optional[torch.Tensor] = None,
+                            v_scale: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
     """dense_attention over a KV-head-major cache [B, Hkv, Sk, D]: q is
     cast to the cache dtype, products accumulate in f32, probabilities are
-    cast to the cache dtype before PV (the reference's mixed precision)."""
+    cast to the cache dtype before PV (the reference's mixed precision).
+
+    int8 cache (k_scale / v_scale [B, Hkv, Sk] f32 given): q stays in its
+    dtype and the int8 k and v are cast to it (exact in bf16); the f32
+    logits are multiplied by k_scale along Sk after `scale`, and the
+    probabilities by v_scale in f32, then cast once to q's dtype before
+    the PV product, as the reference folds the scales out of both
+    products."""
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[1]
     G = Hq // Hkv
     if scale is None:
         scale = D ** -0.5
-    qf = q.to(k.dtype).reshape(B, Sq, Hkv, G, D)
-    logits = torch.einsum("bqhgd,bhkd->bhgqk", qf.float(), k.float()) * scale
+    quant = k_scale is not None
+    cdt = q.dtype if quant else k.dtype
+    qf = q.to(cdt).reshape(B, Sq, Hkv, G, D)
+    logits = torch.einsum("bqhgd,bhkd->bhgqk", qf.float(),
+                          k.to(cdt).float()) * scale
+    if quant:
+        logits = logits * k_scale[:, :, None, None, :]
     probs = _masked_softmax(logits, None if mask is None
                             else mask[:, None, None], logits_soft_cap)
-    out = torch.einsum("bhgqk,bhkd->bqhgd", probs.to(v.dtype).float(),
-                       v.float())
+    if quant:
+        probs = probs * v_scale[:, :, None, None, :]
+    out = torch.einsum("bhgqk,bhkd->bqhgd", probs.to(cdt).float(),
+                       v.to(cdt).float())
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
 
 

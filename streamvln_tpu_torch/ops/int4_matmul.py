@@ -22,10 +22,17 @@ the column-split x (`_split_cols`). KERNEL_MAX_ROWS is the TPU's value,
 kept until it is re-derived on the H100; K6 takes at most that many bf16
 rows.
 
-Forward only: a call that needs a gradient raises (the JAX custom VJPs
-come with QLoRA, a later slice of the port). Each wrapper runs its plain
+Gradients (QLoRA): both products are `torch.autograd.Function`s whose
+backward is the reference's custom VJP (`streamvln_tpu/ops/
+int4_matmul.py`): `int4_matmul` dequantizes the layer to f32 and returns
+(g @ w.T) in x's dtype; `int4_prefill_matmul` unpacks the layer again
+with K7 in x's dtype and returns the column merge of g @ w2.T in that
+dtype, so K7 also launches in the backward. The packed weights and their
+scales are frozen and get no gradient. Each wrapper runs its plain
 PyTorch version on CPU tensors and launches its kernel or raises on CUDA
-tensors. Launch counts: `launches` (K6), `dequant_launches` (K7).
+tensors. Launch counts: `launches` (K6), `dequant_launches` (K7, forward
+and backward alike) and `dequant_launches_by_shape` (the same K7 launches
+by (din, dout, output dtype)).
 """
 from __future__ import annotations
 
@@ -41,9 +48,7 @@ KERNEL_MAX_ROWS = 128
 
 launches = 0
 dequant_launches = 0
-
-_QLORA = ("int4 products are forward-only in this slice of the port; "
-          "gradients through packed int4 weights (QLoRA) are a later slice")
+dequant_launches_by_shape: dict = {}   # (din, dout, dtype) -> K7 launches
 
 
 def unpack_nibbles(w: torch.Tensor):
@@ -97,11 +102,6 @@ def _merge_cols(x):
         .reshape(M, din)
 
 
-def _no_grad(x):
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(_QLORA)
-
-
 def _check(what, w_packed, scales, layer, x=None, dtype=None):
     """Checks of the kernel wrappers on CUDA tensors."""
     if w_packed.device.type != "cuda":
@@ -124,10 +124,9 @@ def _check(what, w_packed, scales, layer, x=None, dtype=None):
             raise ValueError(f"{what}: tensors on different devices")
 
 
-def int4_matmul(x, w_packed, scales, layer: int) -> torch.Tensor:
-    """K6: x [M, din] @ dequant(w_packed[layer]) -> f32 [M, dout]."""
+def _int4_matmul(x, w_packed, scales, layer: int) -> torch.Tensor:
+    """K6's launch (its plain version on CPU tensors)."""
     global launches
-    _no_grad(x)
     if x.device.type == "cpu":
         return int4_matmul_plain(x, w_packed, scales, layer)
     _check("int4_matmul", w_packed, scales, layer, x=x)
@@ -170,14 +169,63 @@ def int4_dequant_split(w_packed, scales, layer: int,
         torch.cuda.current_stream(w_packed.device).cuda_stream)
     build.check(rc, "int4_dequant_split")
     dequant_launches += 1
+    key = (2 * half, dout, str(dtype).removeprefix("torch."))
+    dequant_launches_by_shape[key] = dequant_launches_by_shape.get(key, 0) + 1
     return out
+
+
+class _Int4Matmul(torch.autograd.Function):
+    """K6 forward; the reference's `_bwd`: dx = (g @ w_f32.T) in x's
+    dtype, no gradient for the packed weight or its scales."""
+
+    @staticmethod
+    def forward(ctx, x, w_packed, scales, layer):
+        ctx.save_for_backward(w_packed, scales)
+        ctx.layer, ctx.dtype = layer, x.dtype
+        return _int4_matmul(x, w_packed, scales, layer)
+
+    @staticmethod
+    def backward(ctx, g):
+        # models.quant imports this module, hence the import here
+        from streamvln_tpu_torch.models.quant import dequant_int4
+        w_packed, scales = ctx.saved_tensors
+        w = dequant_int4(w_packed[ctx.layer], scales[ctx.layer],
+                         torch.float32)
+        return (g @ w.t()).to(ctx.dtype), None, None, None
+
+
+class _Int4PrefillMatmul(torch.autograd.Function):
+    """K7 + one f32-accumulating product; the reference's `_pf_bwd`: K7
+    again in x's dtype, dxs = g.to(dtype) @ w2.T in that dtype, merged
+    back to the interleaved columns; no gradient for the packed weight or
+    its scales."""
+
+    @staticmethod
+    def forward(ctx, x, w_packed, scales, layer):
+        ctx.save_for_backward(w_packed, scales)
+        ctx.layer, ctx.dtype = layer, x.dtype
+        _, half, dout = w_packed.shape
+        w2 = int4_dequant_split(w_packed, scales, layer, x.dtype)
+        return matmul_f32(_split_cols(x), w2.reshape(2 * half, dout))
+
+    @staticmethod
+    def backward(ctx, g):
+        w_packed, scales = ctx.saved_tensors
+        _, half, dout = w_packed.shape
+        w2 = int4_dequant_split(w_packed, scales, ctx.layer, ctx.dtype)
+        dxs = g.to(ctx.dtype) @ w2.reshape(2 * half, dout).t()
+        return _merge_cols(dxs).to(ctx.dtype), None, None, None
+
+
+def int4_matmul(x, w_packed, scales, layer: int) -> torch.Tensor:
+    """K6: x [M, din] @ dequant(w_packed[layer]) -> f32 [M, dout];
+    differentiable in x."""
+    return _Int4Matmul.apply(x, w_packed, scales, layer)
 
 
 def int4_prefill_matmul(x, w_packed, scales, layer: int) -> torch.Tensor:
     """x [M, din] @ dequant(w_packed[layer]) -> f32 [M, dout] for many
     rows: K7 into the split layout, then one f32-accumulating product with
-    the column-split x (the TPU path leaves that product to XLA)."""
-    _no_grad(x)
-    _, half, dout = w_packed.shape
-    w2 = int4_dequant_split(w_packed, scales, layer, x.dtype)
-    return matmul_f32(_split_cols(x), w2.reshape(2 * half, dout))
+    the column-split x (the TPU path leaves that product to XLA);
+    differentiable in x."""
+    return _Int4PrefillMatmul.apply(x, w_packed, scales, layer)

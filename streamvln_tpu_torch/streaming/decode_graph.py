@@ -18,9 +18,10 @@ eager step would draw from the generator's current seed and offset.
 
 A graph reads through the addresses it captured. Before each replay the
 storage of every tensor the step reads (the cache's k, v and length, the
-shadow, every weight leaf) is compared, on the host, with what the
-capture saw: a rebound tensor raises instead of being read stale. An
-edit in place keeps the storage and is read by the next replay.
+int8 cache's k_scale and v_scale, the shadow, every weight leaf) is
+compared, on the host, with what the capture saw: a rebound tensor raises
+instead of being read stale. An edit in place keeps the storage and is
+read by the next replay.
 
 Launch counts: a kernel wrapper counts a launch when Python calls it, so
 it counts during capture, when nothing runs, and not during a replay,

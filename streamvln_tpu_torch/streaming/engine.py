@@ -53,8 +53,14 @@ the same public API: `generate`, `generate_batch(_async)` / `collect`,
   `ops/preprocess.py` + `siglip.forward`; the call, `backfill` and
   `backfill_batch` take the same flavour, so a feature cache never mixes
   the two encoders' outputs.
-
-The int8 KV cache is a later slice of the port.
+- **kv_int8**: the KV cache holds int8 values and f32 scales per (token,
+  head) (models/qwen2.KVCache, quantized), about half the bytes of a bf16
+  cache at head dim 128. Appends quantize after RoPE; decode and verify
+  forwards attend over the int8 cache with the scales folded in (dense,
+  under every attn_impl, as the reference's decode loop), prefill over the
+  layer's cache dequantized (K2 under "auto"). Resets, idle rows and
+  rollbacks touch lengths only, so the scales stay with their slots, and
+  the decode graphs read the scale buffers as they read k and v.
 """
 from __future__ import annotations
 
@@ -372,6 +378,7 @@ class StreamingEngine:
                  fused_preprocess: bool = False,
                  spec_lookup: int = 0,
                  cuda_graphs: bool = True,
+                 kv_int8: bool = False,
                  device="cuda"):
         self.device = resolve_device(device)
         qwen2.check_supported(cfg.llm)
@@ -388,7 +395,8 @@ class StreamingEngine:
         self.fused_preprocess = fused_preprocess
         self.compute_dtype = compute_dtype
         self.cache = KVCache.create(cfg.llm, n_envs, cache_capacity,
-                                    compute_dtype, self.device)
+                                    compute_dtype, self.device,
+                                    quantized=kv_int8)
         # prompt-lookup speculative decoding: verify spec_lookup drafted
         # tokens per decode forward (greedy-exact; _verify_step); 0 = one
         # token per forward. Its token-id shadow of the KV slots (-1 for
@@ -771,10 +779,14 @@ class StreamingEngine:
         return graph.state
 
     def _graph_reads(self) -> dict:
-        """The engine's tensors a captured step reads, by name: the cache,
-        the shadow and every weight leaf of the decoder."""
+        """The engine's tensors a captured step reads, by name: the cache
+        (with the int8 cache's scales), the shadow and every weight leaf of
+        the decoder."""
         reads = {"cache.k": self.cache.k, "cache.v": self.cache.v,
                  "cache.length": self.cache.length}
+        if self.cache.quantized:
+            reads["cache.k_scale"] = self.cache.k_scale
+            reads["cache.v_scale"] = self.cache.v_scale
         if self.ids_buf is not None:
             reads["ids_buf"] = self.ids_buf
 

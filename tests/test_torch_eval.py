@@ -353,9 +353,10 @@ def test_eval_cli_builds_the_requested_agent():
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    pytest.param(["--kv_int8"], NotImplementedError, "item 5",
-                 id="flags0-item 5"),
-    pytest.param(["--vision_int8"], NotImplementedError, "item 5",
+    # served since the quantized tail was ported (ROADMAP item 5): the run
+    # goes through and builds what the flag asks for
+    pytest.param(["--kv_int8"], None, "kv_int8", id="flags0-item 5"),
+    pytest.param(["--vision_int8"], None, "vision_int8",
                  id="flags1-item 5"),
     # without habitat-sim the habitat backend exits, as the reference's does
     pytest.param(["--env_backend", "habitat"], SystemExit,
@@ -366,12 +367,31 @@ def test_eval_cli_builds_the_requested_agent():
                  "not a safetensors file", id="flags3-item 6"),
     pytest.param(["--model_size", "llama2_7b"], NotImplementedError,
                  "item 10", id="flags4-item 10")])
-def test_eval_cli_refuses_what_the_port_lacks(tmp_path, flags, error,
-                                              match):
+def test_eval_cli_refuses_what_the_port_lacks(tmp_path, monkeypatch, flags,
+                                              error, match):
+    """What the port still lacks raises; --kv_int8 and --vision_int8 (its
+    first two cases, which raised before the quantized tail) now run to
+    the end, with an int8 KV cache or an int8 tower built."""
     ckpt = tmp_path / "ckpt"
     ckpt.mkdir()
     (ckpt / "model.safetensors").write_bytes(b"")
     flags = [str(ckpt) if f == "CKPT" else f for f in flags]
-    with pytest.raises(error, match=match):
-        eval_cli.main(["--device", "cpu", "--model_size", "tiny",
-                       "--output_path", str(tmp_path / "out")] + flags)
+    argv = ["--device", "cpu", "--model_size", "tiny", "--output_path",
+            str(tmp_path / "out")] + flags
+    if error is not None:
+        with pytest.raises(error, match=match):
+            eval_cli.main(argv)
+        return
+    built = []
+    build = eval_cli.build_agent
+    monkeypatch.setattr(eval_cli, "build_agent",
+                        lambda *a, **k: built.append(build(*a, **k))
+                        or built[-1])
+    final = eval_cli.main(argv + ["--num_episodes", "1",
+                                  "--max_steps_per_episode", "2"])
+    assert final["length"] == 1 and len(built) == 1
+    eng = built[0].engine
+    layers = eng.params["vision"]["layers"]
+    assert eng.cache.quantized == (match == "kv_int8")
+    assert (layers["fc1_w"].dtype == torch.int8) == (match == "vision_int8")
+    assert ("fc1_w_scale" in layers) == (match == "vision_int8")

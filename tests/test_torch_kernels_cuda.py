@@ -453,8 +453,55 @@ def test_int4_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="eligible"):
         i4.int4_matmul(x.float(), wp[:, :, :384].contiguous(),
                        s[:, :, :384].contiguous(), 0)
-    with pytest.raises(NotImplementedError, match="QLoRA"):
-        i4.int4_matmul(x.float().requires_grad_(), wp, s, 0)
+    # a gradient is taken now (QLoRA), where the wrapper refused one before
+    # the quantized tail: dx equals the plain backward's on the CPU
+    xg = torch.randn((2, 512), device=dev).requires_grad_()
+    (dx,) = torch.autograd.grad(i4.int4_matmul(xg, wp, s, 0).sum(), xg)
+    xc = xg.detach().cpu().requires_grad_()
+    (want,) = torch.autograd.grad(
+        i4.int4_matmul(xc, wp.cpu(), s.cpu(), 0).sum(), xc)
+    torch.testing.assert_close(dx.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+# the int4 products' autograd Functions (QLoRA): K6's route at 1 and 7
+# rows of the main path's o projection (its backward is the f32 dequant
+# and one f32 product), K7's at 4096 rows of a 1024 x 1024 layer (K7 in
+# the forward and again in the backward, then one bf16 product; the layer
+# is narrower so that the CPU side stays quick); output, dx and launch
+# counts against the same Functions on CPU copies (the plain versions).
+# dx is bf16 on both sides, each rounded once from f32 sums taken in
+# another order: within one bf16 ulp (2^-7 |ref|) plus the f32 sums'
+# difference (K6's f32 backward 1e-5, K7's bf16 product 2^-16, of
+# sum |g||w|)
+@pytest.mark.parametrize("M", [1, 7, 4096])
+def test_int4_autograd_on_card_matches_plain(dev, M):
+    from streamvln_tpu_torch.ops import int4_matmul as i4
+    d = 3584 if M <= 128 else 1024
+    wp, s = _int4_weight(d, d, dev, 3)
+    g = torch.Generator(device=dev).manual_seed(M)
+    x = torch.randn((M, d), generator=g, device=dev).bfloat16()
+    go = torch.randn((M, d), generator=g, device=dev)
+    fn = i4.int4_matmul if M <= i4.KERNEL_MAX_ROWS else \
+        i4.int4_prefill_matmul
+    outs = {}
+    for where in ("cuda", "cpu"):
+        xw = x.to(where).requires_grad_()
+        n6, n7 = i4.launches, i4.dequant_launches
+        out = fn(xw, wp.to(where), s.to(where), 1)
+        (dx,) = torch.autograd.grad(out, xw, go.to(where))
+        outs[where] = (out.detach().float().cpu(), dx.float().cpu(),
+                       (i4.launches - n6, i4.dequant_launches - n7))
+    (out, dx, n), (ref, dref, n_cpu) = outs["cuda"], outs["cpu"]
+    assert n == ((1, 0) if M <= i4.KERNEL_MAX_ROWS else (0, 2))
+    assert n_cpu == (0, 0)
+    from streamvln_tpu_torch.models.quant import dequant_int4
+    w = dequant_int4(wp[1].cpu(), s[1].cpu(), torch.float32)
+    term_x = x.float().cpu().abs() @ w.abs()
+    assert bool(((out - ref).abs() <= 1e-5 * term_x + 1e-5).all())
+    term_g = go.cpu().abs() @ w.abs().t()
+    bound = 2.0 ** -7 * dref.abs() + (
+        1e-5 if M <= i4.KERNEL_MAX_ROWS else 2.0 ** -16) * term_g
+    assert bool(((dx - dref).abs() <= bound + 1e-6).all())
 
 
 _LENGTHS = (0, 1, 31, 129, 511, 513, 1024, 2000)
@@ -601,14 +648,20 @@ def test_spec_engine_call_on_card_matches_greedy(dev):
     assert r["agreeing_positions"] >= 1
 
 
-def test_decode_graphs_replay_the_eager_loop(dev):
+# the bf16 cache, whose rebound length makes the next replay raise, and the
+# int8 cache (kv_int8), whose rebound k_scale does
+@pytest.mark.parametrize("kv_int8,rebound", [(False, "length"),
+                                             (True, "k_scale")],
+                         ids=["bf16_cache", "kv_int8"])
+def test_decode_graphs_replay_the_eager_loop(dev, kv_int8, rebound):
     """A small bf16 stack's engine on the card, greedy and speculative
     (spec_lookup=6): over 9 agent steps with a model call at each (across
     the window reset and its <memory> call), every decode forward is one
-    replay of the graph captured for its loop, the tokens equal those of
-    the same engine running its steps eagerly (cuda_graphs off), and a
-    cache length rebound to a new tensor after capture makes the next
-    replay raise."""
+    replay of the graph captured for its loop, the tokens and the whole
+    cache (values, lengths and, for kv_int8, scales) equal those of the
+    same engine running its steps eagerly (cuda_graphs off), and a cache
+    tensor rebound to a new tensor after capture makes the next replay
+    raise."""
     from streamvln_tpu_torch.agent import VLNAgent
     from streamvln_tpu_torch.data.tokenizer import ByteTokenizer
     from streamvln_tpu_torch.streaming.engine import StreamingEngine
@@ -617,8 +670,10 @@ def test_decode_graphs_replay_the_eager_loop(dev):
     cfg = _small_wide_cfg()
     params = init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     tok = ByteTokenizer()
-    frames = np.random.default_rng(6).integers(0, 256, (9, 48, 64, 3),
-                                               np.uint8)
+    frames = np.random.default_rng(7 if kv_int8 else 6).integers(
+        0, 256, (9, 48, 64, 3), np.uint8)
+    names = ("k", "v", "length") + (("k_scale", "v_scale") if kv_int8
+                                    else ())
     for spec in (0, 6):
         texts, engines = {}, {}
         for graphs in (True, False):
@@ -626,20 +681,24 @@ def test_decode_graphs_replay_the_eager_loop(dev):
                                   max_new_tokens=8, spec_lookup=spec,
                                   stop_ids=(tok.im_end_id,),
                                   buckets=(256, 512, 1024),
-                                  cuda_graphs=graphs)
+                                  cuda_graphs=graphs, kv_int8=kv_int8)
             agent = VLNAgent(eng, tok)
             texts[graphs] = [agent.step(0, f, "go to the door",
                                         run_model=True)[2] for f in frames]
             engines[graphs] = eng
-        eng = engines[True]
+        eng, eager = engines[True], engines[False]
+        assert eng.cache.quantized == kv_int8
         assert texts[True] == texts[False], spec
-        assert not engines[False].graphs
-        assert eng.decode_forwards == engines[False].decode_forwards > 0
+        for name in names:
+            assert torch.equal(getattr(eng.cache, name),
+                               getattr(eager.cache, name)), (spec, name)
+        assert not eager.graphs
+        assert eng.decode_forwards == eager.decode_forwards > 0
         assert sum(g.replays for g in eng.graphs.values()) \
             == eng.decode_forwards
         graph = next(iter(eng.graphs.values()))
-        eng.cache.length = eng.cache.length.clone()
-        with pytest.raises(RuntimeError, match="no longer hold"):
+        setattr(eng.cache, rebound, getattr(eng.cache, rebound).clone())
+        with pytest.raises(RuntimeError, match=f"{rebound}.*no longer hold"):
             graph.replay()
 
 

@@ -121,10 +121,17 @@ def test_int4_kernel_eligibility_and_forward_only():
     assert not tint4.int4_kernel_eligible(tp2, ts2)
     _, _, tp3, ts3 = _packed(dout=384)
     assert not tint4.int4_kernel_eligible(tp3, ts3)
-    x = torch.zeros((4, 512), requires_grad=True)
+    # both products take a gradient in x (QLoRA; before the quantized tail
+    # they refused one): dx = g @ w.T of the layer's f32 dequant, and no
+    # gradient for the packed weight or its scales
+    x = torch.randn((4, 512), generator=torch.Generator().manual_seed(0),
+                    requires_grad=True)
+    g = torch.randn((4, 512), generator=torch.Generator().manual_seed(1))
+    w = tquant.dequant_int4(tp[0], ts[0], torch.float32)
     for fn in (tint4.int4_matmul, tint4.int4_prefill_matmul):
-        with pytest.raises(NotImplementedError, match="QLoRA"):
-            fn(x, tp, ts, 0)
+        (dx,) = torch.autograd.grad(fn(x, tp, ts, 0), x, g)
+        torch.testing.assert_close(dx, g @ w.t(), rtol=2e-5, atol=2e-5)
+    assert tp.grad is None and ts.grad is None
     with torch.no_grad():
         assert tint4.int4_matmul(x, tp, ts, 0).shape == (4, 512)
 

@@ -138,11 +138,17 @@ def test_lora_add_merge_split_match_jax(stack, tmp_path):
     assert tlora.is_lora_path("llm/layers/q_w_lora_a") and \
         tlora.is_lora_path("llm/lora_scale") and \
         not tlora.is_lora_path("llm/layers/q_w")
-    q8 = dict(tl)
-    q8["llm"] = dict(tl["llm"], layers=dict(
-        tl["llm"]["layers"], q_w=tl["llm"]["layers"]["q_w"].to(torch.int8)))
-    with pytest.raises(NotImplementedError, match="quantiz"):
-        tlora.merge_lora(q8)
+    # adapters fold into int8 weights by dequantize, add, requantize (it
+    # raised before the quantized tail), bit for bit the reference's
+    from streamvln_tpu.models import quant as jquant
+    j8 = jax.tree.map(np.asarray, jquant.quantize_llm(jl, bits=8))
+    t8 = from_jax_params(j8, tc, device="cpu")
+    want = _flat(jlora.merge_lora(j8))
+    got = dict(ttrain.tree_leaves(tlora.merge_lora(t8)))
+    assert got["llm/layers/q_w"].dtype == torch.int8
+    for p in ("llm/layers/q_w", "llm/layers/q_w_scale",
+              "llm/layers/down_w", "llm/layers/down_w_scale"):
+        np.testing.assert_array_equal(got[p].numpy(), want[p], err_msg=p)
 
 
 _JAX_GRADS = {}
