@@ -182,10 +182,47 @@ Phases (any failure exits non-zero before the result line):
      agent call on them); its record lands in chip_smoke.json under
      "quantized_tail" and one summary line is printed beside the card's
      name and power limit;
-  9. print the kernels JSON line (K1-K8; each with bound_share = bound_ms
+  9. the training entry point (train_cli): 9a `train.main` in process at
+     full width (--model_size 7b --lora_enable --lora_r 16 --batch_size 2
+     --grad_accum_steps 2 --num_steps 6 --save_steps 6 --log_steps 1
+     --eval_steps 4 --eval_episodes 1 --prefetch_depth 2) on synthetic
+     trajectories of 480x640 JPEG frames in a directory under
+     tempfile.gettempdir() (removed in every case; the phase raises with
+     the bytes it writes when that disk has less free): 6 finite loss
+     lines, the metrics.jsonl mirror, one eval/ line, exact K1/K3/K4/K5
+     launches per micro-step, K1/K2 per tower pass and prefill of the
+     evaluation, frozen weights bit-equal to the initial ones, every
+     adapter moved, one checkpoint (step 6) restored bit-equal to the final
+     state (accumulator included), the hook called once more on the final
+     params returning the memory it took; optimizer-step ms, valid
+     tokens/s, peak memory, the time each micro-step waits for its batch,
+     one profiled micro-step's idle share and the save's seconds and bytes,
+     beside phase 4b's, all read from what the command writes and a
+     wrapper of its step function (step_probe); 9b the command at
+     --model_size 0.5b (the full SigLIP tower) to step 3, then resumed to
+     4 with --export_hf: the second run logs step 4 alone, checkpoints 3
+     and 4, lora_adapters.npz holds every adapter and hf_export loads back
+     through load_streamvln_checkpoint bit-equal in f32 to merge_lora of
+     the final params (9a saves once and the resume runs at 0.5b because a
+     7B checkpoint is 15.6 GiB and a one-card run may write 45 GiB to disk
+     in all, phase 7's checkpoint included); 9c one LoRA optimizer step of
+     streamvln_7b at S = 32768 under "auto" with the reference's 32k
+     recipe (remat_chunk 7, mlp_chunk 2048, loss_chunk 1024) on
+     tests/test_train_32k.py's layout: finite loss and grad norm, exact
+     K1/K3/K4/K5 counts, seconds, valid tokens/s, peak memory; then K3's
+     output against the port's chunked_attention in f32 and K4/K5's dQ,
+     dK, dV at B=1, S=32768, 28/4 heads against their plain versions on
+     the kernels' own LSE and Dsum and against chunked_attention's
+     autograd (one query block at a time) moved by the Dsum source, at
+     phase 4a's tolerances, the unmoved gap reported by range of rows;
+     each timed beside chunked_attention and SDPA where it takes
+     the shape. Every tower batch phase 9 sends K1 is checked as phase 2
+     checks its batches;
+ 10. print the kernels JSON line (K1-K8; each with bound_share = bound_ms
      / ms and vs_library = ms / library_ms; K1, K2 with their phase-8
-     launches, K3-K5 and K7 with the QLoRA step's), the card line, and the
-     result line.
+     launches, K3-K5 and K7 with the QLoRA step's, K1 and K3-K5 with phase
+     9's and K3-K5 at S=32768 under "long_context"), the card line, and
+     the result line.
 """
 from __future__ import annotations
 
@@ -194,6 +231,7 @@ import gc
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -266,6 +304,21 @@ TOWER_INT8_MAX_REL, TOWER_INT8_MIN_COSINE = 0.05, 0.999
 # logits, one LoRA micro-step's gradients), as tests/test_quant.py asks of
 # the gradient
 ACT_INT8_MIN_COSINE = 0.99
+# phase 9a: synthetic trajectories for the training command, their lengths
+# (actions) drawn per episode: windows at an episode's start carry no
+# <memory> frames and an episode's last window is short, so the tower's
+# batch (2 windows x the longer window's frames) varies
+TRAIN_CLI_EPISODES, TRAIN_CLI_LENGTHS = 6, (40, 97)
+# phase 9c: the reference's 7B recipe at its training length
+# (streamvln_tpu/train.py:73-76), and the kernels held against
+# chunked_attention at that length: valid tokens, and the query block of
+# the reference's blocked autograd
+LONG_S = 32768
+LONG_RECIPE = {"remat_chunk": 7, "mlp_chunk": 2048, "loss_chunk_size": 1024}
+LONG_VALID, LONG_Q_BLOCK = 32000, 2048
+# phase 9c reports the kernels' gap to chunked_attention by range of rows:
+# rows that see 1, 2-7, 8-63, ... keys, and the padding
+LONG_ROW_RANGES = (0, 1, 2, 8, 64, 512, 4096, LONG_VALID, LONG_S)
 # phase 7's checkpoint: shards of at most 5 GB, as HF's save_pretrained
 # writes them; its build may take at most 1 GiB more of the card than the
 # random-init build
@@ -3798,6 +3851,841 @@ def quantized_tail_summary(q, card) -> str:
             f"{q['seconds']:.1f} s")
 
 
+def write_trajectories(np, root, n, seed=0, hw=(480, 640)):
+    """`n` synthetic episodes in the trajectory format (the port's
+    write_trajectory / write_annotations): lengths drawn from
+    TRAIN_CLI_LENGTHS, random uint8 frames of `hw`, one instruction each.
+    Returns the frames written."""
+    from streamvln_tpu_torch.data.vln_dataset import (write_annotations,
+                                                      write_trajectory)
+    rng = np.random.default_rng(seed)
+    rooms = ("kitchen", "bedroom", "hallway", "stairs", "sofa", "bathroom")
+    entries, frames = [], 0
+    for ep in range(n):
+        length = int(rng.integers(*TRAIN_CLI_LENGTHS))
+        a, b = rng.choice(len(rooms), 2, replace=False)
+        entries.append(write_trajectory(
+            root, f"ep{ep}", rng.integers(0, 256, (length, *hw, 3), np.uint8),
+            [f"walk past the {rooms[a]} and stop at the {rooms[b]} door"],
+            rng.integers(1, 4, length).tolist()))
+        frames += length
+    write_annotations(root, entries)
+    return frames
+
+
+def state_bytes(state) -> int:
+    from streamvln_tpu_torch.utils.checkpoint import _state_tree
+    return sum(t.numel() * t.element_size()
+               for _, t in tree_leaves(_state_tree(state))
+               if hasattr(t, "numel"))
+
+
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def kernel_counts(va, fa) -> dict:
+    return {"vit_attention": va.launches, "flash_attention": fa.launches,
+            "flash_attention_lse": fa.lse_launches,
+            "flash_bwd_dq": fa.dq_launches, "flash_bwd_dkv": fa.dkv_launches}
+
+
+def count_diff(after: dict, before: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after
+            if after[k] != before.get(k, 0)}
+
+
+@contextlib.contextmanager
+def step_probe(torch, va, fa, box, metrics_path, profile_at=None):
+    """While open, the step function train.main builds
+    (parallel.train.make_train_step) is wrapped, and nothing else of the
+    command: per micro-step the wrapper records when its call started
+    (time.time, the clock of the "ts" that MetricsLogger writes to
+    `metrics_path` after each step's log line), the kernels' launch counts
+    and K1's launches by batch before and after the call (host counters:
+    no synchronization), the allocated device memory at the start, the
+    tower batch and bucket, and the valid tokens as a device sum read after
+    the run. Micro-step number `profile_at` (from 0) runs under
+    torch.profiler, its idle share against the median wall of the earlier
+    micro-steps, read from `metrics_path`."""
+    from streamvln_tpu_torch.parallel import train as train_lib
+    make = train_lib.make_train_step
+    box["micro"] = []
+
+    def make_train_step(cfg, tcfg, device="cuda"):
+        step = make(cfg, tcfg, device)
+
+        def probed(state, batch):
+            m = {"t_start": time.time(), "before": kernel_counts(va, fa),
+                 "vit_before": dict(va.launches_by_batch),
+                 "memory_at_start": torch.cuda.memory_allocated(),
+                 "profiled": len(box["micro"]) == profile_at}
+            if m["profiled"]:
+                walls = [(r["ts"] - x["t_start"]) * 1e3 for r, x in
+                         zip(step_lines(read_log(metrics_path)), box["micro"])]
+                out = {}
+                box["profile"] = profile_call(
+                    torch, lambda: out.setdefault("r", step(state, batch)),
+                    statistics.median(walls[1:] or walls))
+                res = out["r"]
+            else:
+                res = step(state, batch)
+            B, V = batch["images"].shape[:2]
+            m.update(after=kernel_counts(va, fa),
+                     vit_after=dict(va.launches_by_batch), tower_batch=B * V,
+                     bucket=int(batch["valid"].shape[1]),
+                     tokens=int(batch["valid"].numel()),
+                     valid=batch["valid"].sum())
+            box["micro"].append(m)
+            return res
+        return probed
+    train_lib.make_train_step = make_train_step
+    try:
+        yield box
+    finally:
+        train_lib.make_train_step = make
+
+
+def step_lines(lines) -> list:
+    return [r for r in lines if "loss" in r]
+
+
+def read_log(path) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def train_command(torch, np, va, fa, reset, tmp, model_size="7b",
+                  device="cuda"):
+    """Phase 9a: `train.main` in process at full width on synthetic
+    trajectories (480x640 JPEG frames): a LoRA run of 6 micro-steps (2
+    windows a micro-batch, 2 micro-batches an optimizer step), the
+    mid-training evaluation at step 4 and one checkpoint, of step 6 (the
+    loop's save; the final save of the same step is skipped). One save:
+    a 7B checkpoint holds the whole state (15.6 GiB), and a one-card run
+    may write 45 GiB to disk in all, phase 7's 15 GiB checkpoint included;
+    the resume runs in 9b at 0.5b. Checks the log lines, the metrics.jsonl
+    mirror, the eval line, exact launches per micro-step and per tower pass
+    and prefill of the evaluation, frozen weights bit-equal to the initial
+    ones, every adapter moved, the checkpoint restored bit-equal to the
+    final state, and a direct call of the evaluation hook on the final
+    params returning the memory it took. The numbers come from what the
+    command writes (the "ts" of metrics.jsonl) and the step_probe."""
+    from streamvln_tpu_torch import train
+    from streamvln_tpu_torch.configs import build_config
+    from streamvln_tpu_torch import weights
+    from streamvln_tpu_torch.data.tokenizer import load_tokenizer
+    from streamvln_tpu_torch.eval.hook import MidTrainingEvaluator
+    from streamvln_tpu_torch.models import lora as lora_lib
+    from streamvln_tpu_torch.utils import checkpoint
+    import argparse
+
+    rec = {}
+    traj, out = os.path.join(tmp, "traj"), os.path.join(tmp, "run")
+    os.makedirs(traj)
+    t0 = time.perf_counter()
+    n_frames = write_trajectories(np, traj, TRAIN_CLI_EPISODES)
+    rec["trajectory_frames"] = n_frames
+    rec["trajectory_bytes"] = dir_bytes(traj)
+    log(f"9a: {TRAIN_CLI_EPISODES} episodes, {n_frames} frames of 480x640 "
+        f"({rec['trajectory_bytes'] / 2**20:.1f} MiB of JPEG) written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    cfg = build_config(argparse.Namespace(
+        model_size=model_size, spatial_pool_mode="bilinear", num_frames=32,
+        num_future_steps=4, num_history=8))
+    argv = ["--video_folders", traj, "--output_dir", out,
+            "--model_size", model_size, "--lora_enable", "--lora_r", "16",
+            "--batch_size", "2", "--grad_accum_steps", "2",
+            "--num_steps", "6", "--save_steps", "6", "--log_steps", "1",
+            "--eval_steps", "4", "--eval_episodes", "1",
+            "--prefetch_depth", "2", "--device", device]
+    ckpt_dir = os.path.join(out, "ckpt")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    box = {}
+    t0 = time.perf_counter()
+    with step_probe(torch, va, fa, box, os.path.join(out, "metrics.jsonl"),
+                    profile_at=2):
+        state = train.main(argv)
+    t_end = time.time()
+    rec["seconds"] = time.perf_counter() - t0
+    rec["final_step"] = state.step
+    rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    rec["latest_step"] = checkpoint.latest_step(ckpt_dir)
+    rec["checkpoints"] = sorted(os.listdir(ckpt_dir))
+    micro = box["micro"]
+    for m in micro:
+        m["valid_tokens"] = int(m.pop("valid").item())
+    log(f"9a run: {rec['seconds']:.1f} s, peak "
+        f"{rec['peak_memory_bytes'] / 2**30:.2f} GiB, ends at step "
+        f"{state.step}, checkpoints {rec['checkpoints']}")
+
+    # frozen leaves as built (the command's init made again from its seeds,
+    # on the same device: the same bits), adapters moved, the checkpoint
+    # restored bit-equal into fresh tensors; the LoRA group (adapters and
+    # lora_scale, lora.is_lora_path, as the reference labels it) trains
+    leaves = dict(tree_leaves(state.params))
+    built = dict(tree_leaves(lora_lib.add_lora(
+        weights.init(cfg, torch.Generator(device=device).manual_seed(0),
+                     device=device, dtype=leaves["/vision/patch_w"].dtype),
+        torch.Generator(device=device).manual_seed(1), rank=16)))
+    frozen_ok = all(torch.equal(leaves[p], t) for p, t in built.items()
+                    if not lora_lib.is_lora_path(p))
+    b_moved = [p for p, t in leaves.items()
+               if p.endswith("_lora_b") and bool(t.abs().sum() > 0)]
+    a_moved = [p for p, t in built.items()
+               if p.endswith("_lora_a") and not torch.equal(leaves[p], t)]
+    del built
+    gc.collect()
+    torch.cuda.empty_cache()
+    target = type(state)(*tree_map(
+        lambda x: torch.empty_like(x) if isinstance(x, torch.Tensor)
+        else x, list(state)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = checkpoint.restore_checkpoint(ckpt_dir, target, 6)
+    torch.cuda.synchronize()
+    rec["restore_s"] = time.perf_counter() - t0
+    a = list(tree_leaves(checkpoint._state_tree(state)))
+    b = list(tree_leaves(checkpoint._state_tree(restored)))
+    same = [(p, torch.equal(x, y) if isinstance(x, torch.Tensor)
+             else x == y) for (p, x), (q, y) in zip(a, b)]
+    rec["restore_bit_equal"] = all(ok for _, ok in same) and \
+        len(same) == len(a) == len(b)
+    rec["restored_leaves"] = len(same)
+    n_lora = sum(p.endswith("_lora_b") for p in leaves)
+    log(f"9a after step 6: base leaves bit-equal to the initial weights "
+        f"{frozen_ok}; adapter stacks moved: B {len(b_moved)} of "
+        f"{n_lora} (A {len(a_moved)}); latest_step {rec['latest_step']}; "
+        f"the step-6 checkpoint restored in {rec['restore_s']:.2f} s, "
+        f"{len(same)} leaves bit-equal to the final state "
+        f"{rec['restore_bit_equal']} (accumulator, moments, counts and "
+        f"micro-step included)")
+    del target, restored, leaves, a, b, same
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the hook once more, on the final params: the memory it takes comes back
+    args = train.build_argparser().parse_args(argv)
+    hook = MidTrainingEvaluator(
+        cfg, load_tokenizer(args.model_path, args.model_max_length),
+        n_episodes=args.eval_episodes, seed=args.seed)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    c0 = kernel_counts(va, fa)
+    hook.evaluate(state.params, 6)
+    torch.cuda.synchronize()
+    rec["hook_memory"] = {"before": before,
+                          "after": torch.cuda.memory_allocated(),
+                          "launches": count_diff(kernel_counts(va, fa), c0)}
+    del state, hook
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lines = read_log(os.path.join(out, "metrics.jsonl"))
+    log_lines = read_log(os.path.join(out, "train_log.jsonl"))
+    steps = step_lines(lines)
+    evals = [r for r in lines if any(k.startswith("eval/") for k in r)]
+    rec["log"] = log_lines
+    L, Lv = cfg.llm.num_layers, cfg.vision.num_layers
+    # the evaluation at step 4 runs between micro-steps 4 and 5
+    ev = {"launches": count_diff(micro[4]["before"], micro[3]["after"]),
+          "vit_by_batch": count_diff(micro[4]["vit_before"],
+                                     micro[3]["vit_after"])}
+    for m in micro:
+        m["launches"] = count_diff(m.pop("after"), m.pop("before"))
+        m["vit_by_batch"] = count_diff(m.pop("vit_after"),
+                                       m.pop("vit_before"))
+    # per micro-step: K1 once per tower layer (the frozen tower takes no
+    # gradient), K3 in each decoder layer's forward and its recompute, K4
+    # and K5 once each
+    per_micro = {"vit_attention": Lv, "flash_attention_lse": 2 * L,
+                 "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    micro_ok = len(micro) == 6 and all(
+        m["launches"] == per_micro and sum(m["vit_by_batch"].values()) == Lv
+        for m in micro)
+    # per model call of the evaluation K2 once per decoder layer (the
+    # prefill) and K1 once per tower layer for the call's frames and for
+    # each history backfill pass, and no other kernel: the calls are K2's
+    # launches over L, the tower passes K1's over Lv
+    def eval_ok(launches):
+        k1, k2 = launches.get("vit_attention", 0), \
+            launches.get("flash_attention", 0)
+        return set(launches) <= {"vit_attention", "flash_attention"} and \
+            k2 >= L and k2 % L == 0 and k1 % Lv == 0 and k1 // Lv >= k2 // L
+    ev["model_calls"] = ev["launches"].get("flash_attention", 0) // L
+    ev["tower_passes"] = ev["launches"].get("vit_attention", 0) // Lv
+    hm = rec["hook_memory"]
+    rec["tower_batches"] = sorted({m["tower_batch"] for m in micro})
+    rec["vit_batches_sent"] = sorted(
+        {int(k) for m in micro for k in m["vit_by_batch"]}
+        | {int(k) for k in ev["vit_by_batch"]})
+    log(f"9a launches per micro-step {[m['launches'] for m in micro]} (want "
+        f"{per_micro} each); tower batches {rec['tower_batches']}, buckets "
+        f"{[m['bucket'] for m in micro]}; evaluation at step 4: "
+        f"{ev['launches']} ({ev['model_calls']} model calls, "
+        f"{ev['tower_passes']} tower passes); the hook on the final params: "
+        f"{hm['launches']}, memory allocated before / after "
+        f"{hm['before']} / {hm['after']}; eval line {evals}")
+    finite = all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                 for r in steps)
+    require("9a: the training command",
+            six_step_lines=[r["step"] for r in step_lines(log_lines)]
+            == [1, 2, 3, 4, 5, 6],
+            finite_losses_and_grad_norms=finite,
+            mirror=[r["step"] for r in steps] == [1, 2, 3, 4, 5, 6],
+            one_eval_line=len(evals) == 1 and evals[0]["step"] == 4
+            and "eval/sucs_all" in evals[0],
+            launches_per_micro_step=micro_ok,
+            evaluation_launches=eval_ok(ev["launches"])
+            and eval_ok(hm["launches"]),
+            evaluation_memory_returned=hm["after"] <= hm["before"],
+            frozen_weights=frozen_ok,
+            every_adapter_moved=len(b_moved) == n_lora,
+            ends_at_6=rec["final_step"] == 6,
+            one_checkpoint_6=rec["checkpoints"] == ["6"]
+            and rec["latest_step"] == 6,
+            restore_bit_equal=rec["restore_bit_equal"])
+
+    # numbers from what the command wrote: a micro-step's wall from its
+    # call's start to its line's "ts" (the step, the loss read back, the
+    # log lines), the wait before it from the previous line's "ts" (the
+    # prefetcher.get() of its batch); the evaluation and the save from the
+    # lines around them
+    prev = {id(r): lines[i - 1] if i else None for i, r in enumerate(lines)}
+    for m, r in zip(micro, steps):
+        m["ms"] = (r["ts"] - m["t_start"]) * 1e3
+        p_ = prev[id(r)]
+        m["wait_ms"] = None if p_ is None else (m["t_start"] - p_["ts"]) * 1e3
+        m["loss"] = r["loss"]
+    ev["seconds"] = evals[0]["ts"] - steps[3]["ts"] if evals else None
+    ev["result"] = evals[0] if evals else None
+    rec["evaluation"] = ev
+    # from step 6's line to main's return: the loop's save of step 6, the
+    # prefetcher's close (its worker finishes the batch in hand) and the
+    # final save of step 6, skipped
+    rec["save"] = {"step": 6, "seconds": t_end - steps[-1]["ts"],
+                   "bytes": dir_bytes(os.path.join(ckpt_dir, "6"))}
+    opt = [(micro[i], micro[i + 1]) for i in range(0, len(micro), 2)]
+    rec["optimizer_step_ms"] = [x["ms"] + y["ms"] for x, y in opt]
+    rec["optimizer_step_profiled"] = [x["profiled"] or y["profiled"]
+                                      for x, y in opt]
+    rec["valid_tokens_per_s"] = [(x["valid_tokens"] + y["valid_tokens"])
+                                 / (x["ms"] + y["ms"]) * 1e3 for x, y in opt]
+    clean = [i for i, p_ in enumerate(rec["optimizer_step_profiled"])
+             if not p_]
+    rec["median_step_ms"] = float(np.median(
+        [rec["optimizer_step_ms"][i] for i in clean]))
+    rec["median_valid_tokens_per_s"] = float(np.median(
+        [rec["valid_tokens_per_s"][i] for i in clean]))
+    # the first get() waits for the worker's first batch: no line before it
+    waits = [m["wait_ms"] for m in micro[1:]]
+    rec["prefetch_wait_ms"] = waits
+    rec["prefetch_wait_share"] = sum(waits) / sum(m["ms"] for m in micro[1:])
+    rec["profile"] = box.get("profile")
+    rec["micro_steps"] = micro
+    log(f"9a optimizer steps {['%.2f' % x for x in rec['optimizer_step_ms']]}"
+        f" ms (profiled {rec['optimizer_step_profiled']}), median "
+        f"{rec['median_step_ms']:.2f} ms, "
+        f"{rec['median_valid_tokens_per_s']:.1f} valid tokens/s; prefetch "
+        f"waits {['%.2f' % w for w in waits]} ms "
+        f"({rec['prefetch_wait_share']:.4f} of the micro-steps after the "
+        f"first); peak {rec['peak_memory_bytes'] / 2**30:.2f} GiB; "
+        f"evaluation {ev['seconds']:.2f} s; save of step 6 "
+        f"{rec['save']['bytes']} bytes in {rec['save']['seconds']:.2f} s "
+        f"({rec['save']['bytes'] / rec['save']['seconds'] / 1e9:.2f} GB/s)")
+    return rec
+
+
+def resume_and_export(torch, np, va, fa, reset, tmp, model_size="0.5b",
+                      device="cuda"):
+    """Phase 9b at --model_size 0.5b (the full SigLIP tower) on 9a's
+    trajectories: `train.main --lora_enable --grad_accum_steps 2
+    --num_steps 3` (its final save lands between the two micro-steps of an
+    optimizer step), then the same command with --num_steps 4 --export_hf
+    resuming from it: the second run logs step 4 alone and ends at 4, the
+    checkpoints are 3 and 4, lora_adapters.npz holds every adapter of the
+    final state, and hf_export loads back through load_streamvln_checkpoint
+    bit-equal in f32 to merge_lora of the final params."""
+    from streamvln_tpu_torch import train
+    from streamvln_tpu_torch.configs import build_config
+    from streamvln_tpu_torch.models import convert_hf
+    from streamvln_tpu_torch.models import lora as lora_lib
+    from streamvln_tpu_torch.utils import checkpoint
+    import argparse
+    out = os.path.join(tmp, "export")
+    argv = ["--video_folders", os.path.join(tmp, "traj"), "--output_dir",
+            out, "--model_size", model_size, "--lora_enable",
+            "--batch_size", "2", "--grad_accum_steps", "2",
+            "--save_steps", "10", "--log_steps", "1", "--device", device]
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset()
+    t0 = time.perf_counter()
+    first = train.main(argv + ["--num_steps", "3"])
+    first_step = first.step
+    del first
+    state = train.main(argv + ["--num_steps", "4", "--export_hf"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernel_counts(va, fa)
+    cfg = build_config(argparse.Namespace(
+        model_size=model_size, spatial_pool_mode="bilinear", num_frames=32,
+        num_future_steps=4, num_history=8))
+    with torch.no_grad():
+        merged = tree_map(lambda t: t.float(),
+                          lora_lib.merge_lora(state.params))
+    loaded = convert_hf.load_streamvln_checkpoint(
+        os.path.join(out, "hf_export"), cfg, torch.float32, device)
+    a, b = dict(tree_leaves(merged)), dict(tree_leaves(loaded))
+    export_equal = set(a) == set(b) and all(torch.equal(a[p], b[p])
+                                            for p in a)
+    layers = state.params["llm"]["layers"]
+    want = {k for k in layers if "_lora_" in k} | {"lora_scale"}
+    with np.load(os.path.join(out, "lora_adapters.npz")) as npz:
+        files = set(npz.files)
+        npz_equal = files == want and all(
+            np.array_equal(npz[k], (layers[k] if k in layers else
+                                    state.params["llm"][k])
+                           .detach().cpu().numpy()) for k in want)
+    ckpt_dir = os.path.join(out, "ckpt")
+    log_lines = read_log(os.path.join(out, "train_log.jsonl"))
+    rec = {"seconds": seconds, "launches": launches,
+           "first_run_step": first_step, "final_step": state.step,
+           "checkpoints": sorted(os.listdir(ckpt_dir)),
+           "checkpoint_bytes": dir_bytes(ckpt_dir),
+           "export_bytes": dir_bytes(os.path.join(out, "hf_export")),
+           "export_leaves": len(a), "export_bit_equal": export_equal,
+           "adapters": sorted(files), "adapters_equal": npz_equal,
+           "vit_launches_by_batch": by_batch(va), "log": log_lines}
+    log(f"9b {model_size} runs to step 3 and, resumed, to 4 with the "
+        f"export: {seconds:.1f} s; steps logged "
+        f"{[r['step'] for r in log_lines]}, checkpoints {rec['checkpoints']} "
+        f"({rec['checkpoint_bytes'] / 2**30:.3f} GiB); {len(files)} arrays "
+        f"in lora_adapters.npz equal to the state's {npz_equal}; hf_export "
+        f"{rec['export_bytes'] / 2**30:.3f} GiB, {len(a)} leaves loaded back "
+        f"bit-equal (f32) to merge_lora of the final params {export_equal}; "
+        f"launches {launches}")
+    require("9b: the resume and the export", adapters_npz=npz_equal,
+            hf_export_loads_back_bit_equal=export_equal,
+            resumed_at_3_logs_4_ends_at_4=first_step == 3
+            and state.step == 4
+            and [r["step"] for r in log_lines] == [1, 2, 3, 4],
+            checkpoints_3_4=rec["checkpoints"] == ["3", "4"]
+            and checkpoint.latest_step(ckpt_dir) == 4,
+            finite_steps=all(np.isfinite(r["loss"]) for r in log_lines))
+    del state, merged, loaded, a, b
+    return rec
+
+
+def long_context_step(torch, np, va, fa, reset, model_size="7b",
+                      device="cuda", S=LONG_S):
+    """Phase 9c: one LoRA optimizer step of streamvln_7b at S = 32768 under
+    attn_impl="auto" with the reference's 7B@32k recipe (remat,
+    remat_chunk 7, mlp_chunk 2048, loss_chunk 1024) on
+    tests/test_train_32k.py's layout (one image, labels on the second half
+    of 400 tokens, padded to S): finite loss and grad norm, exact K1 and
+    K3/K4/K5 counts, step seconds, valid tokens/s (and padded positions/s,
+    the step being mostly padding), peak memory."""
+    import argparse
+    from streamvln_tpu_torch import weights
+    from streamvln_tpu_torch.configs import build_config
+    from streamvln_tpu_torch.models import lora as lora_lib
+    from streamvln_tpu_torch.models.streamvln import (build_splice_layout,
+                                                      stack_layouts)
+    from streamvln_tpu_torch.ops.preprocess import preprocess_frames
+    from streamvln_tpu_torch.parallel.train import (
+        TrainConfig, create_train_state, make_train_step)
+    cfg = build_config(argparse.Namespace(
+        model_size=model_size, spatial_pool_mode="bilinear", num_frames=32,
+        num_future_steps=4, num_history=8))
+    dtype = torch.bfloat16 if device == "cuda" else torch.float32
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = lora_lib.add_lora(
+        weights.init(cfg, torch.Generator(device=device).manual_seed(0),
+                     device=device, dtype=dtype),
+        torch.Generator(device=device).manual_seed(1), rank=16, alpha=32.0)
+    tcfg = TrainConfig(lora_only=True, remat=True, total_steps=1,
+                       **LONG_RECIPE)
+    state = create_train_state(params, tcfg)
+    step = make_train_step(cfg, tcfg, device=device)
+    ids = np.full((400,), 5, np.int32)
+    ids[1] = -200                                   # <image>
+    labels = np.where(np.arange(400) > 200, ids, -100).astype(np.int32)
+    batch = stack_layouts([build_splice_layout(ids, cfg, labels=labels,
+                                               pad_to=S)])
+    del batch["lengths"]
+    frame = torch.randint(0, 256, (1, 480, 640, 3), device=device,
+                          dtype=torch.uint8,
+                          generator=torch.Generator(device=device)
+                          .manual_seed(2))
+    batch["images"] = preprocess_frames(frame, cfg.vision.image_size,
+                                        dtype)[None]
+    valid = int(np.asarray(batch["valid"]).sum())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    got = kernel_counts(va, fa)
+    L, Lv, rc = cfg.llm.num_layers, cfg.vision.num_layers, \
+        LONG_RECIPE["remat_chunk"]
+    # K3: each layer's forward, its recompute in the layer's own
+    # checkpoint, and the chunk checkpoint's recompute, which stops (early
+    # stop) once the chunk's last layer's input is saved: rc - 1 layers
+    want = {"vit_attention": Lv, "flash_attention": 0,
+            "flash_attention_lse": 2 * L + (L // rc) * (rc - 1),
+            "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    rec = {"S": S, "valid_tokens": valid, "seconds": seconds,
+           "loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+           "valid_tokens_per_s": valid / seconds,
+           "padded_positions_per_s": S / seconds,
+           "peak_memory_bytes": peak, "launches": got, "want": want,
+           "recipe": LONG_RECIPE, "vit_launches_by_batch": by_batch(va)}
+    log(f"9c {model_size} LoRA step at S={S} ({valid} valid tokens, "
+        f"{LONG_RECIPE}): loss {rec['loss']:.6f} grad_norm "
+        f"{rec['grad_norm']:.6f} in {seconds:.2f} s ({valid / seconds:.1f} "
+        f"valid tokens/s; {S / seconds:.0f} padded positions/s); peak "
+        f"{peak / 2**30:.2f} GiB; launches {got} (want {want})")
+    require("9c: the 32k step", finite=np.isfinite(rec["loss"])
+            and np.isfinite(rec["grad_norm"]) and rec["grad_norm"] > 0,
+            launch_counts=got == want)
+    del state, params, step, m, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def long_plain_backward(torch, fa, q, k, v, dout, lse, dsum, eps, q_pos,
+                        k_pos, qb=1024):
+    """Phase 9c, one query block of `qb` rows at a time ([.., qb, S]
+    scores), the plain versions' formulas (fa._bwd_core) on the kernels'
+    own LSE and Dsum: the plain dQ, dK, dV in the inputs' dtype (as phase
+    4a's plain versions return them); phase 4a's rounding terms per
+    element (scale * sum |dS||K|, scale * sum |dS||Q|, sum P |dO|); and the
+    shift of dQ and dK that the Dsum source makes against
+    chunked_attention's autograd. The kernels take Dsum from their bf16
+    output, autograd from chunked_attention's f32 output; with `eps` [B,
+    Hq, S] the first minus the second, dS moves by -P eps, so dQ moves by
+    -scale * eps * sum_k P_k K_k and dK by -scale * sum_q P eps Q (dV does
+    not take Dsum). Returns ((dq, dk, dv), (t_dq, t_dk, t_dv), (s_dq,
+    s_dk)), each [B, S, H, D]."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G, scale = Hq // Hkv, D ** -0.5
+    dq, t_dq, s_dq = (torch.zeros((B, S, Hq, D), device=q.device)
+                      for _ in range(3))
+    dk, dv, t_dk, t_dv, s_dk = (torch.zeros((B, Hkv, S, D), device=q.device)
+                                for _ in range(5))
+    for i in range(0, S, qb):
+        sl = slice(i, i + qb)
+        p, ds, qf, kf, dof = fa._bwd_core(
+            q[:, sl], k, v, dout[:, sl], lse[:, :, sl].contiguous(),
+            dsum[:, :, sl].contiguous(), q_pos[:, sl], k_pos, scale, False)
+        n = p.shape[3]
+        pe = p * eps[:, :, sl].reshape(B, Hkv, G, n)[..., None]
+
+        def to_q(x):                    # [B, Hkv, G, n, D] -> [B, n, Hq, D]
+            return x.permute(0, 3, 1, 2, 4).reshape(B, n, Hq, D) * scale
+        dq[:, sl] = to_q(torch.einsum("bhgqk,bhkd->bhgqd", ds, kf))
+        s_dq[:, sl] = to_q(torch.einsum("bhgqk,bhkd->bhgqd", pe, kf))
+        dk += torch.einsum("bhgqk,bqhgd->bhkd", ds, qf) * scale
+        s_dk += torch.einsum("bhgqk,bqhgd->bhkd", pe, qf) * scale
+        dv += torch.einsum("bhgqk,bqhgd->bhkd", p, dof)
+        ds.abs_()
+        t_dq[:, sl] = to_q(torch.einsum("bhgqk,bhkd->bhgqd", ds, kf.abs()))
+        t_dk += torch.einsum("bhgqk,bqhgd->bhkd", ds, qf.abs()) * scale
+        t_dv += torch.einsum("bhgqk,bqhgd->bhkd", p, dof.abs())
+        del p, ds, pe, qf, kf, dof
+    kv = [x.transpose(1, 2) for x in (dk, dv, t_dk, t_dv, s_dk)]
+    return ((dq.to(q.dtype), kv[0].to(k.dtype), kv[1].to(v.dtype)),
+            (t_dq, kv[2], kv[3]), (s_dq, kv[4]))
+
+
+def by_rows(got, ref, term, bounds=LONG_ROW_RANGES) -> dict:
+    """grad_compare over each range of rows (axis 1) in `bounds`."""
+    return {f"[{a},{b})": grad_compare(got[:, a:b], ref[:, a:b],
+                                       term[:, a:b])
+            for a, b in zip(bounds[:-1], bounds[1:])}
+
+
+def check_long_kernels(torch, F, fa, S=LONG_S, n_valid=LONG_VALID, Hq=28,
+                       Hkv=4, D=128, seed=7):
+    """Phase 9c: K3's output and K4/K5's dQ, dK, dV at B=1, S=32768 (n_valid
+    valid tokens, the rest padding as forward_train lays it out). Query 7
+    sees no key: the kernels give 0 there, chunked_attention the mean of v
+    (the reference's result), so its output is skipped and its dO set to 0.
+    - K3's output against the port's chunked_attention in f32 on the same
+      bf16 values, within phase 4a's KERNEL_ATOL + KERNEL_RTOL|ref| + 2^-8
+      sum p|v|.
+    - K4/K5 against their plain versions on the kernels' own LSE and Dsum
+      (long_plain_backward), within phase 4a's GRAD_RTOL|ref| + GRAD_FLIP *
+      term + GRAD_ATOL, the term the products whose bf16 factor (dS, or P
+      for dV) can round one ulp apart.
+    - The same gradients against chunked_attention's autograd, one query
+      block of LONG_Q_BLOCK rows at a time (each row's softmax spans all
+      keys, so the blocks are independent; their dK and dV are summed),
+      moved by what the kernels' Dsum changes (long_plain_backward), at the
+      same tolerance. Unmoved, the gap is reported by range of rows: the
+      Dsum from the bf16 output is off by up to ~2^-9 sum_d |dO|(|O| +
+      sum p|v|), and on rows that see a few keys sum_k P_k K_k is O(1)
+      while dS = P(dP - Dsum) may cancel, so the shift can exceed phase
+      4a's term there.
+    Times K3, K4, K5, chunked_attention's forward and blocked backward, and
+    SDPA where it takes the shape."""
+    from streamvln_tpu_torch.ops.attention import chunked_attention
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda") \
+            .to(torch.bfloat16)
+    B = 1
+    q, dout = rnd(B, S, Hq, D), rnd(B, S, Hq, D)
+    k, v = rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+    q_pos, k_pos = train_positions(torch, B, S, n_valid, "cuda")
+    dout[:, 7] = 0
+    shape = (f"B={B} S={S} valid={n_valid} Hq={Hq} Hkv={Hkv} D={D} bf16 "
+             f"[B,S,Hkv,D]")
+    out, lse = fa.flash_attention_lse(q, k, v, q_pos, k_pos)
+    dsum = fa._dsum(dout, out)
+    args = (q, k, v, dout, lse, dsum, q_pos, k_pos)
+    dq = fa.flash_bwd_dq(*args)
+    dk, dv = fa.flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    unseen_ok = bool((out[0, 7] == 0).all()) and bool((dq[0, 7] == 0).all())
+
+    qf, kf, vf = q.float(), k.float(), v.float()
+    with torch.no_grad():
+        ref = chunked_attention(qf, kf, vf, q_pos, k_pos)
+        few = chunked_attention(qf, kf, vf.abs(), q_pos, k_pos)
+    seen = torch.ones(S, dtype=torch.bool, device="cuda")
+    seen[7] = False
+    err = (out.float() - ref).abs()[:, seen]
+    tol = (KERNEL_ATOL + KERNEL_RTOL * ref.abs() + 2.0 ** -8 * few)[:, seen]
+    c_out = {"max_abs_err": err.max().item(),
+             "tol_share": (err / tol).max().item(),
+             "skipped_rows": 1}
+    # the kernels' Dsum (from their bf16 output) minus autograd's (from
+    # chunked_attention's f32 output), per row
+    eps = dsum - (dout.float() * ref).sum(-1).transpose(1, 2)
+    del ref, few, err, tol
+    dq_ref = torch.zeros_like(qf)
+    dk_ref, dv_ref = torch.zeros_like(kf), torch.zeros_like(vf)
+    kr, vr = kf.clone().requires_grad_(), vf.clone().requires_grad_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(0, S, LONG_Q_BLOCK):
+        sl = slice(i, i + LONG_Q_BLOCK)
+        qi = qf[:, sl].clone().requires_grad_()
+        o = chunked_attention(qi, kr, vr, q_pos[:, sl], k_pos)
+        gq, gk, gv = torch.autograd.grad(o, (qi, kr, vr),
+                                         dout[:, sl].float())
+        dq_ref[:, sl] = gq
+        dk_ref += gk
+        dv_ref += gv
+        del o, gq, gk, gv, qi
+    torch.cuda.synchronize()
+    chunked_fwd_bwd_s = time.perf_counter() - t0
+    del kr, vr
+    (p_dq, p_dk, p_dv), (t_dq, t_dk, t_dv), (s_dq, s_dk) = \
+        long_plain_backward(torch, fa, q, k, v, dout, lse, dsum, eps, q_pos,
+                            k_pos)
+    # against the plain versions on the kernels' own LSE and Dsum, at phase
+    # 4a's tolerance
+    c_dq = grad_compare(dq, p_dq, t_dq)
+    c_dk, c_dv = grad_compare(dk, p_dk, t_dk), grad_compare(dv, p_dv, t_dv)
+    # against chunked_attention's autograd moved by the Dsum source, at the
+    # same tolerance; and its raw gap by range of rows
+    witness = {"dq": grad_compare(dq, dq_ref - s_dq, t_dq),
+               "dk": grad_compare(dk, dk_ref - s_dk, t_dk),
+               "dv": grad_compare(dv, dv_ref, t_dv)}
+    raw = {"dq": by_rows(dq, dq_ref, t_dq),
+           "dk": by_rows(dk, dk_ref, t_dk),
+           "dv": by_rows(dv, dv_ref, t_dv),
+           "dsum_shift_dq": by_rows(dq_ref - s_dq, dq_ref, t_dq),
+           "eps_max_abs": eps.abs().max().item()}
+    log(f"9c K4/K5 against chunked_attention's autograd moved by the Dsum "
+        f"source (dQ by -scale*eps*sum P K, dK by -scale*sum P eps Q; eps "
+        f"max {raw['eps_max_abs']:.3e}): {json.dumps(witness)}")
+    for name in ("dq", "dk", "dv", "dsum_shift_dq"):
+        log(f"9c raw gap to chunked_attention by rows, {name}: "
+            f"{json.dumps(raw[name])}")
+    del t_dq, t_dk, t_dv, s_dq, s_dk, dq_ref, dk_ref, dv_ref, p_dq, p_dk, \
+        p_dv, eps
+
+    ms3 = time_ms(torch, lambda: fa.flash_attention_lse(q, k, v, q_pos,
+                                                        k_pos), iters=5)
+    ms4 = time_ms(torch, lambda: fa.flash_bwd_dq(*args), iters=5)
+    ms5 = time_ms(torch, lambda: fa.flash_bwd_dkv(*args), iters=5)
+    with torch.no_grad():
+        chunked_ms = time_ms(torch, lambda: chunked_attention(
+            qf, kf, vf, q_pos, k_pos), iters=1, warmup=1)
+    # yardstick: SDPA's memory-efficient kernel with the boolean mask
+    # ([B, 1, S, S], 1 GiB) and K/V repeated per query head; the math
+    # kernel would need the [B, Hq, S, S] f32 scores (120 GB)
+    lib = {"fwd": None, "bwd": None, "why": None}
+    try:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        mask = (k_pos[:, None, :] <= q_pos[:, :, None])[:, None]
+        qt = q.transpose(1, 2).contiguous().requires_grad_()
+        kt, vt = (x.transpose(1, 2).repeat_interleave(Hq // Hkv, dim=1)
+                  .contiguous().requires_grad_() for x in (k, v))
+        dot = dout.transpose(1, 2).contiguous()
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask)
+            with torch.no_grad():
+                lib["fwd"] = time_ms(torch, sdpa, iters=3, warmup=1)
+            o = sdpa()
+            lib["bwd"] = time_ms(torch, lambda: torch.autograd.grad(
+                o, (qt, kt, vt), dot, retain_graph=True), iters=3, warmup=1)
+        del o, qt, kt, vt, dot, mask
+    except (RuntimeError, torch.OutOfMemoryError) as e:
+        lib["why"] = f"{type(e).__name__}: {str(e)[:160]}"
+    log(f"9c SDPA at S={S} (fwd ms, bwd ms): {lib}")
+    # visible (query, key) pairs: keys are positions 0..n_valid-1 in order
+    k_sorted = torch.sort(k_pos[0]).values
+    pairs = float(torch.searchsorted(k_sorted, q_pos[0], right=True)
+                  .sum().item()) * Hq
+    e = 2
+    qbytes, kbytes = B * S * Hq * D * e, B * S * Hkv * D * e
+    rows, pos_b = B * Hq * S * 4, 2 * B * S * 4
+    work = {
+        "flash_attention_lse": (4 * D * pairs, 2 * qbytes + 2 * kbytes + rows
+                                + pos_b, c_out, ms3, lib["fwd"]),
+        "flash_bwd_dq": (6 * D * pairs, 3 * qbytes + 2 * kbytes + 2 * rows
+                         + pos_b, c_dq, ms4, lib["bwd"]),
+        "flash_bwd_dkv": (8 * D * pairs, 2 * qbytes + 4 * kbytes + 2 * rows
+                          + pos_b, {"dk": c_dk, "dv": c_dv}, ms5,
+                          lib["bwd"]),
+    }
+    recs = {}
+    for name, (flops, nbytes, c, ms, lib_ms) in work.items():
+        b_ms, b_by = bound(flops, nbytes)
+        checks = c if name == "flash_bwd_dkv" else {"out" if name ==
+                                                    "flash_attention_lse"
+                                                    else "dq": c}
+        recs[name] = {"shape": shape, "checks": checks,
+                      "chunked_witness": {"out": c_out} if name ==
+                      "flash_attention_lse" else
+                      {x: witness[x] for x in checks},
+                      "max_abs_err": max(x["max_abs_err"]
+                                         for x in checks.values()),
+                      "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": lib_ms, "flops": flops, "bytes": nbytes,
+                      "library": "F.scaled_dot_product_attention "
+                                 "(memory-efficient, mask, K/V repeated) "
+                      + ("forward" if name == "flash_attention_lse" else
+                         "backward (dQ, dK and dV in one call)")
+                      if lib_ms is not None else f"none: {lib['why']}"}
+        log(f"9c {name} {shape}: {json.dumps(checks)} kernel {ms:.4f} ms "
+            f"sdpa {lib_ms} ms bound {b_ms:.4f} ms ({b_by})")
+    rec = {"kernels": recs, "chunked_fwd_ms": chunked_ms,
+           "chunked_witness": witness, "chunked_gap_by_rows": raw,
+           "chunked_fwd_bwd_blocked_s": chunked_fwd_bwd_s,
+           "kernels_fwd_bwd_ms": ms3 + ms4 + ms5, "unseen_row_ok": unseen_ok,
+           "library": lib}
+    log(f"9c chunked_attention (f32) forward {chunked_ms:.2f} ms, forward "
+        f"and backward in {S // LONG_Q_BLOCK} query blocks "
+        f"{chunked_fwd_bwd_s:.2f} s, against K3 + K4 + K5 "
+        f"{ms3 + ms4 + ms5:.4f} ms; the row that sees no key gives out 0 "
+        f"and dQ 0 from the kernels: {unseen_ok}")
+    shares_ = [c_out["tol_share"], c_dq["tol_share"], c_dk["tol_share"],
+               c_dv["tol_share"]] + [w["tol_share"] for w in witness.values()]
+    require("9c: K3/K4/K5 against chunked_attention at S=32768",
+            within_tolerance=all(x <= 1.0 for x in shares_),
+            unseen_row=unseen_ok)
+    del q, k, v, dout, out, lse, dsum, dq, dk, dv, qf, kf, vf, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase9_bytes(torch, model_size, export_size) -> int:
+    """The bytes phase 9 writes to the temporary directory's disk, by the
+    states measured on the meta device: 9a's one checkpoint of the whole
+    training state, 9b's two checkpoints and its f32 HF export, and a GiB
+    for the trajectories."""
+    import argparse
+    from streamvln_tpu_torch import weights
+    from streamvln_tpu_torch.configs import build_config
+    from streamvln_tpu_torch.models import lora as lora_lib
+    from streamvln_tpu_torch.parallel.train import (TrainConfig,
+                                                    create_train_state)
+
+    def state(size):
+        cfg = build_config(argparse.Namespace(
+            model_size=size, spatial_pool_mode="bilinear", num_frames=32,
+            num_future_steps=4, num_history=8))
+        return create_train_state(lora_lib.add_lora(
+            weights.init(cfg, torch.Generator(), device="meta",
+                         dtype=torch.bfloat16), torch.Generator(), rank=16),
+            TrainConfig(lora_only=True, grad_accum_steps=2))
+    small = state(export_size)
+    f32 = sum(2 * t.numel() * t.element_size()
+              for _, t in tree_leaves(small.params))
+    return state_bytes(state(model_size)) + 2 * state_bytes(small) + f32 \
+        + 2**30
+
+
+def train_cli(torch, np, F, va, fa, reset, train4b, card, model_size="7b",
+              export_size="0.5b", device="cuda", long_s=LONG_S):
+    """Phase 9: the training entry point. 9a the command at full width, 9b
+    its resume and export at 0.5b, 9c the 32k step and K3/K4/K5 held
+    against chunked_attention at S=32768. The trajectories and checkpoints
+    live in a directory under tempfile.gettempdir() removed in every case;
+    RuntimeError naming the bytes needed when its disk has less free."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    root = tempfile.gettempdir()
+    need, free = phase9_bytes(torch, model_size, export_size), \
+        shutil.disk_usage(root).free
+    log(f"phase 9: trajectories and checkpoints under {root}: writes "
+        f"{need / 2**30:.1f} GiB, {free / 2**30:.1f} GiB free")
+    if free < need:
+        raise RuntimeError(f"phase 9 writes {need} bytes of trajectories and "
+                           f"checkpoints under {root}, which has {free} free")
+    tmp = tempfile.mkdtemp(prefix="train_cli_", dir=root)
+    try:
+        cli = train_command(torch, np, va, fa, reset, tmp, model_size,
+                            device)
+        shutil.rmtree(os.path.join(tmp, "run"))
+        export = resume_and_export(torch, np, va, fa, reset, tmp,
+                                   export_size, device)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    step32k = long_context_step(torch, np, va, fa, reset, model_size, device,
+                                long_s)
+    kernels = check_long_kernels(torch, F, fa) if device == "cuda" else None
+    rec = {"command": cli, "export": export, "long_step": step32k,
+           "long_kernels": kernels,
+           "scratch": {"root": root, "writes": need},
+           "seconds": time.perf_counter() - t_phase}
+    log(f"phase 9 ({card}): 9a optimizer step median "
+        f"{cli['median_step_ms']:.2f} ms, "
+        f"{cli['median_valid_tokens_per_s']:.1f} valid tokens/s, peak "
+        f"{cli['peak_memory_bytes'] / 2**30:.2f} GiB "
+        f"(phase 4b: {train4b['median_step_ms']:.2f} ms, "
+        f"{train4b['tokens_per_s']:.1f} tokens/s, "
+        f"{train4b['peak_memory_bytes'] / 2**30:.2f} GiB); prefetch wait "
+        f"{cli['prefetch_wait_share']:.4f} of a step; idle share "
+        f"{(cli['profile'] or {}).get('device_idle_share')}; 9c "
+        f"{step32k['seconds']:.2f} s at S={long_s}, peak "
+        f"{step32k['peak_memory_bytes'] / 2**30:.2f} GiB; "
+        f"{rec['seconds']:.1f} s")
+    return rec
+
+
 def device_ms(torch, fns, calls=None) -> float:
     """Device time per call of a rotation of `fns`: the summed durations
     of the CUDA kernels they launch (torch.profiler), so that a host
@@ -3899,6 +4787,44 @@ def turnkey_summary(t, card) -> str:
             f"{first['final']['model_call_p50_ms']:.2f} p90 "
             f"{first['final']['model_call_p90_ms']:.2f} ms; "
             f"{t['seconds']:.1f} s")
+
+
+def cli_launches(cli, name) -> dict:
+    """A kernel's launches in phase 9: 9a's micro-steps, its mid-training
+    evaluation, 9b's two runs and 9c's 32k step."""
+    cmd = cli["command"]
+    return {"command_micro_steps": sum(m["launches"].get(name, 0)
+                                       for m in cmd["micro_steps"]),
+            "command_evaluation": cmd["evaluation"]["launches"].get(name, 0),
+            "resume_and_export": cli["export"]["launches"].get(name, 0),
+            "long_step": cli["long_step"]["launches"].get(name, 0)}
+
+
+def long_entry(cli, name) -> dict:
+    """K3/K4/K5 at S=32768 against chunked_attention (phase 9c), with their
+    launches in the 32k step."""
+    r = cli["long_kernels"]["kernels"][name]
+    return {k: r[k] for k in ("shape", "max_abs_err", "checks", "ms",
+                              "bound_ms", "bound_by", "library_ms",
+                              "library")} | {
+        "launches": cli["long_step"]["launches"][name], **shares(r)}
+
+
+def train_cli_summary(cli, card) -> str:
+    """Phase 9 on one line, beside the card's name and power limit."""
+    c, s, k = cli["command"], cli["long_step"], cli["long_kernels"]
+    return (f"phase 9 training command ({card}): optimizer step median "
+            f"{c['median_step_ms']:.2f} ms, "
+            f"{c['median_valid_tokens_per_s']:.1f} valid tokens/s, peak "
+            f"{c['peak_memory_bytes'] / 2**30:.2f} GiB, prefetch wait "
+            f"{c['prefetch_wait_share']:.4f} of a step, idle share "
+            f"{(c['profile'] or {}).get('device_idle_share')}; save "
+            f"{c['save']['seconds']:.2f} s of "
+            f"{c['save']['bytes'] / 2**30:.2f} GiB; 32k step "
+            f"{s['seconds']:.2f} s, peak {s['peak_memory_bytes'] / 2**30:.2f} "
+            f"GiB; K3+K4+K5 at 32k {k['kernels_fwd_bwd_ms']:.3f} ms vs "
+            f"chunked_attention forward {k['chunked_fwd_ms']:.1f} ms; "
+            f"{cli['seconds']:.1f} s")
 
 
 def by_batch(va) -> dict:
@@ -4122,11 +5048,28 @@ def main() -> int:
     log_captures("phase 8", qtail["captures"])
     del train_batches
 
+    # 9. the training entry point: the command at full width and its
+    # resume, the export, the 32k step and K3/K4/K5 at that length
+    def reset_training():
+        reset_counts()
+        fa.lse_launches = fa.dq_launches = fa.dkv_launches = 0
+    n_captures = len(captures)
+    cli = train_cli(torch, np, F, va, fa, reset_training, train, card)
+    cli["captures"] = captures[n_captures:]
+    log_captures("phase 9", cli["captures"])
+    # phase 2's K1 check, extended to every tower batch phase 9 sent
+    cli_batches = {f"B={b}" for b in cli["command"]["vit_batches_sent"]} | \
+        set(cli["export"]["vit_launches_by_batch"]) | \
+        set(cli["long_step"]["vit_launches_by_batch"])
+    for b in sorted(int(x[2:]) for x in cli_batches
+                    - {f"B={r['batch']}" for r in vit}):
+        vit.append(check_vit(torch, F, va, b))
+
     sent = set(vit_by_batch) | set(train["vit_launches_by_batch"]) | \
         set(evaluation["vit_launches_by_batch"]) | \
         set(serving["vit_launches_by_batch"]) | \
         set(turnkey["vit_launches_by_batch"]) | \
-        set(qtail["vit_batches"])
+        set(qtail["vit_batches"]) | cli_batches
     unchecked = sent - {f"B={r['batch']}" for r in vit}
     if unchecked:
         raise AssertionError(f"the main paths sent K1 batches {unchecked} "
@@ -4141,7 +5084,7 @@ def main() -> int:
                              f"check")
     log(f"K7 launches by shape over the whole run: {k7_shapes}")
 
-    # 9. summary
+    # 10. summary
     kernels = [
         kernel_entry("vit_attention",
                      "streamvln_tpu_torch/csrc/vit_attention.cu",
@@ -4157,7 +5100,8 @@ def main() -> int:
                          serving, "vit_attention"),
                      launches_turnkey=turnkey["launches"]["vit_attention"],
                      launches_quantized_tail=qtail_launches(
-                         qtail, "vit_attention")),
+                         qtail, "vit_attention"),
+                     launches_train_cli=cli_launches(cli, "vit_attention")),
         kernel_entry("flash_attention",
                      "streamvln_tpu_torch/csrc/flash_attention.cu",
                      "streamvln_tpu/ops/flash_attention.py:49", n_flash,
@@ -4170,7 +5114,8 @@ def main() -> int:
                      launches_turnkey=turnkey["launches"][
                          "flash_attention"],
                      launches_quantized_tail=qtail_launches(
-                         qtail, "flash_attention"))]
+                         qtail, "flash_attention"),
+                     launches_train_cli=cli_launches(cli, "flash_attention"))]
     for name, src in (
             ("flash_attention_lse",
              "streamvln_tpu_torch/csrc/flash_attention.cu"),
@@ -4186,7 +5131,9 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **shares(r), "shape": r["shape"], "library": r["library"],
-            "launches_qlora": qtail["qlora"]["launches"][name]})
+            "launches_qlora": qtail["qlora"]["launches"][name],
+            "launches_train_cli": cli_launches(cli, name),
+            "long_context": long_entry(cli, name)})
     kernels += [
         kernel_entry("int4_matmul",
                      "streamvln_tpu_torch/csrc/int4_matmul.cu",
@@ -4212,6 +5159,7 @@ def main() -> int:
     log(serving_summary(serving))
     log(turnkey_summary(turnkey, card))
     log(quantized_tail_summary(qtail, card))
+    log(train_cli_summary(cli, card))
     log(f"chip_smoke: all phases passed in {seconds:.1f} s")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -4224,7 +5172,8 @@ def main() -> int:
                    "training_kernels": train_k, "training": train,
                    "evaluation": evaluation, "serving_stack": serving,
                    "turnkey": turnkey, "quantized_tail": qtail,
-                   "seconds": seconds}, f, indent=1)
+                   "train_cli": cli, "seconds": seconds}, f, indent=1,
+                  default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

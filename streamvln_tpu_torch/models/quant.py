@@ -240,7 +240,10 @@ def init_quantized_llm(cfg, generator: Optional[torch.Generator] = None,
 def dequantize_llm(params: dict, dtype=torch.float32) -> dict:
     """Inverse of quantize_llm: every int8 leaf becomes `value * scale` and
     every packed int4 leaf `dequant_int4(...)`, in `dtype`; the `*_scale`
-    companions are dropped. Stacks are dequantized layer by layer."""
+    companions are dropped. Stacks are dequantized layer by layer. A LoRA
+    tree keeps its adapters and `lora_scale`, which is no companion (the
+    reference's drops it too, so its trainer's merge after a dequantize
+    adds nothing: ROADMAP §3.7)."""
     def one(name, w, group):
         if w.dtype == torch.int8:
             scale = group[name + "_scale"].to(dtype)
@@ -255,7 +258,8 @@ def dequantize_llm(params: dict, dtype=torch.float32) -> dict:
 
     def dequant_group(group: dict) -> dict:
         return {name: one(name, w, group) for name, w in group.items()
-                if not name.endswith("_scale") and name != "layers"}
+                if name != "layers" and not (name.endswith("_scale")
+                                             and name[:-6] in group)}
 
     llm = dequant_group(params["llm"])
     llm["layers"] = dequant_group(params["llm"]["layers"])

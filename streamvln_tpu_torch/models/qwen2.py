@@ -21,8 +21,9 @@ and `return_hidden`. With `cfg.act_int8`, int8 projections quantize their
 activations per token and multiply int8 x int8 in int32
 (`quant.int8_dynamic_matmul`). Family knobs (MoE, alibi, LayerNorm, gelu
 MLPs, Gemma scalings) are later slices of the port and raise
-NotImplementedError here, as does attn_impl="chunked" where the reference
-would run its chunked attention (ROADMAP item 7).
+NotImplementedError here. attn_impl="chunked" runs the reference's
+chunked attention (`ops/attention.py::chunked_attention`, plain PyTorch)
+where the reference does: without a cache at S >= 64.
 
 KV cache: [L, B, Hkv, Smax, D] per tensor (KV-head-major), slot index ==
 global token position, per-row fill lengths. Appends write in place at
@@ -57,7 +58,8 @@ from streamvln_tpu_torch.models.quant import (dequant_int4,
                                               int8_dynamic_matmul)
 from streamvln_tpu_torch.ops import decode_attention as da
 from streamvln_tpu_torch.ops import flash_attention as fa
-from streamvln_tpu_torch.ops.attention import (dense_attention,
+from streamvln_tpu_torch.ops.attention import (chunked_attention,
+                                               dense_attention,
                                                dense_attention_kvmajor)
 from streamvln_tpu_torch.ops.flash_attention import INVALID_POS
 from streamvln_tpu_torch.ops.int4_matmul import (KERNEL_MAX_ROWS,
@@ -264,8 +266,8 @@ def _attend(cfg: Qwen2Config, attn_impl: str, q, k, v, q_pos, k_pos,
     - S >= 64 and a 128-multiple head dim under "auto"/"flash": the flash
       kernel (K2), by shape alone (its wrapper runs the plain version on
       CPU tensors and launches or raises on CUDA ones);
-    - "chunked" without a cache at S >= 64: NotImplementedError, where the
-      reference runs its chunked attention (ROADMAP item 7b);
+    - "chunked" without a cache at S >= 64: chunked_attention (the flash
+      algorithm in plain PyTorch, O(block^2) memory);
     - everything else: plain dense PyTorch."""
     if kv_major and kv_scales is not None:
         if q.shape[1] < 64:
@@ -283,10 +285,8 @@ def _attend(cfg: Qwen2Config, attn_impl: str, q, k, v, q_pos, k_pos,
         return fa.flash_attention(q, k, v, q_pos, k_pos, kv_major=kv_major,
                                   logits_soft_cap=cfg.attn_logits_soft_cap)
     if attn_impl == "chunked" and not kv_major and q.shape[1] >= 64:
-        raise NotImplementedError(
-            f"attn_impl='chunked' without a cache at S={q.shape[1]} >= 64 "
-            f"runs the reference's chunked attention, which is ROADMAP "
-            f"queue 1 item 7 (7b) of the PyTorch port")
+        return chunked_attention(q, k, v, q_pos, k_pos,
+                                 logits_soft_cap=cfg.attn_logits_soft_cap)
     mask = k_pos[:, None, :] <= q_pos[:, :, None]
     fn = dense_attention_kvmajor if kv_major else dense_attention
     return fn(q, k, v, mask, logits_soft_cap=cfg.attn_logits_soft_cap)

@@ -4,7 +4,8 @@ Counterpart of `streamvln_tpu/ops/attention.py`. Layouts are [B, S, H, D]
 (q) and [B, S, Hkv, D] or KV-head-major [B, Hkv, S, D] (k/v). GQA folds
 query heads into groups over the kv heads; K/V are never repeated.
 Decode attention is plain PyTorch here, as it is dense XLA (not a kernel)
-in the reference.
+in the reference, and so is `chunked_attention`, the reference's
+long-context path in plain XLA.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch.nn.functional as F
 
 from streamvln_tpu_torch.ops import flash_attention as fa
 from streamvln_tpu_torch.ops import vit_attention as va
+from streamvln_tpu_torch.ops.flash_attention import INVALID_POS
 
 NEG_INF = -1e30  # large-but-finite; avoids NaN from (-inf) - (-inf) rows
 
@@ -83,6 +85,59 @@ def dense_attention_kvmajor(q, k, v, mask: Optional[torch.Tensor] = None,
     out = torch.einsum("bhgqk,bhkd->bqhgd", probs.to(cdt).float(),
                        v.to(cdt).float())
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def chunked_attention(q, k, v, q_pos, k_pos, scale: Optional[float] = None,
+                      logits_soft_cap: Optional[float] = None,
+                      q_block: int = 2048, k_block: int = 8192
+                      ) -> torch.Tensor:
+    """The flash algorithm in plain PyTorch, the reference's
+    `chunked_attention`: a loop over query blocks, an inner loop over key
+    blocks with an online softmax in f32, so a block's scores are
+    [B, Hkv, G, q_block, k_block] instead of [.., Sq, Sk]. q [B, Sq, Hq,
+    D], k/v [B, Sk, Hkv, D], positions [B, Sq] / [B, Sk]; key j is visible
+    to query i iff k_pos[j] <= q_pos[i]. Padded queries get position -1,
+    padded keys INVALID_POS. Masked logits are the finite NEG_INF, so a
+    query that sees no key weighs every key of the padded key blocks
+    alike: its output is the mean of v over them, the padding's zeros
+    included (the reference's result, not the kernels' 0). Returns q's
+    dtype."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    pad_q, pad_k = (-Sq) % q_block, (-Sk) % k_block
+    qf = F.pad(q.float(), (0, 0, 0, 0, 0, pad_q)) \
+        .reshape(B, Sq + pad_q, Hkv, G, D)
+    kf, vf = (F.pad(x.float(), (0, 0, 0, 0, 0, pad_k)) for x in (k, v))
+    qp = F.pad(q_pos, (0, pad_q), value=-1)
+    kp = F.pad(k_pos, (0, pad_k), value=INVALID_POS)
+    outs = []
+    for i in range(0, Sq + pad_q, q_block):
+        qi, qpi = qf[:, i:i + q_block], qp[:, i:i + q_block]
+        m = qi.new_full((B, Hkv, G, q_block), NEG_INF)
+        den = qi.new_zeros((B, Hkv, G, q_block))
+        acc = qi.new_zeros((B, Hkv, G, q_block, D))
+        for j in range(0, Sk + pad_k, k_block):
+            logits = torch.einsum("bqhgd,bkhd->bhgqk", qi,
+                                  kf[:, j:j + k_block]) * scale
+            if logits_soft_cap is not None:
+                logits = torch.tanh(logits / logits_soft_cap) \
+                    * logits_soft_cap
+            mask = kp[:, None, j:j + k_block] <= qpi[:, :, None]
+            logits = logits.masked_fill(~mask[:, None, None], NEG_INF)
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(logits - m_new[..., None])
+            den = den * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p, vf[:, j:j + k_block])
+            m = m_new
+        out = acc / den.clamp(min=1e-30)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4))     # [B, q_block, Hkv, G, D]
+    out = torch.cat(outs, dim=1).reshape(B, Sq + pad_q, Hq, D)[:, :Sq]
+    return out.to(q.dtype)
 
 
 def mha_attention(q, k, v, mask: Optional[torch.Tensor] = None,

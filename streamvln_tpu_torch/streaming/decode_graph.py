@@ -79,7 +79,10 @@ class StepGraph:
         self.graph = torch.cuda.CUDAGraph()
         if generator is not None:
             self.graph.register_generator_state(generator)
-        with torch.cuda.graph(self.graph):
+        # only this thread's calls are held out of the capture: another
+        # thread (the trainer's prefetch worker, uploading the next batch
+        # while the mid-training evaluation captures) may use the CUDA API
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             self.outputs = fn(self.state)
         self.per_replay = [a - b for a, b in zip(_counts(), base)]
         _add([-d for d in self.per_replay])

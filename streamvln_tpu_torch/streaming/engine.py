@@ -37,7 +37,7 @@ the same public API: `generate`, `generate_batch(_async)` / `collect`,
   int4: decode streams the int4 projections through K6); q/k/v and
   gate/up are fused in the constructor (models/fuse.py), as the
   reference's default `fuse_proj=True` does. The fused stacks are copies
-  of the caller's.
+  of the caller's; `fuse_proj=False` serves the caller's stacks.
 - **attn_impl**: "auto" (K1 tower, K2 prefill, dense decode), "dense",
   or "decode_kernel" (K1 tower, dense prefill, K8 decode over the live
   prefix; opt-in, as in the reference, where its own decode loop never
@@ -379,13 +379,16 @@ class StreamingEngine:
                  spec_lookup: int = 0,
                  cuda_graphs: bool = True,
                  kv_int8: bool = False,
+                 fuse_proj: bool = True,
                  device="cuda"):
         self.device = resolve_device(device)
         qwen2.check_supported(cfg.llm)
         # one qkv and one gate/up product per layer, as the reference's
         # default fuse_proj=True; no-op for groups it cannot fuse
-        # (LoRA-carrying) and for a fused tree
-        self.params = fuse_projections(params)
+        # (LoRA-carrying) and for a fused tree. fuse_proj=False serves the
+        # caller's stacks as they are (the mid-training evaluation: a
+        # fused copy would sit beside the live training weights)
+        self.params = fuse_projections(params) if fuse_proj else params
         self.cfg = cfg
         self.n_envs = n_envs
         self.max_new = max_new_tokens

@@ -1,24 +1,152 @@
-"""HF-format export of the port's params (the inverse of
-models/convert_hf).
+"""The training state's checkpoints, and the HF-format export of the port's
+params (the inverse of models/convert_hf).
 
-Counterpart of `export_hf` and `save_hf` in
-`streamvln_tpu/utils/checkpoint.py`: the reference stack's
-StreamVLNForCausalLM names, matrices back to torch's [out, in], one
-tensor per layer, f32 values by default. Quantized leaves are
-dequantized first (`quant.dequantize_llm`), so an exported checkpoint
-never carries raw int8 or packed int4 bytes without their scales. (The
-training state's own checkpoints are ROADMAP queue 1 item 7.)
+Counterpart of `streamvln_tpu/utils/checkpoint.py`:
+- `save_checkpoint` / `latest_step` / `restore_checkpoint` /
+  `resume_latest` keep the reference's signatures and rules, in a
+  torch-native format in place of orbax: one directory per step under
+  `directory/<step>/` holding `state.pt` (`torch.save` of the flattened
+  TrainState: the step, every param leaf in its stored dtype, int8 and
+  packed int4 included, and the optimizer state: per group its count and
+  f32 moments, the accumulator and its micro-step count). A save writes a
+  temporary directory (a name that is not all digits, which no reader
+  takes for a step) and renames it, so a cut save leaves no step behind.
+  As orbax's CheckpointManager does, a save of a step at or below the
+  newest one on disk is skipped (False), and the newest `max_to_keep`
+  steps are kept.
+- `export_hf` / `save_hf`: the reference stack's StreamVLNForCausalLM
+  names, matrices back to torch's [out, in], one tensor per layer, f32
+  values by default. Quantized leaves are dequantized first
+  (`quant.dequantize_llm`), so an exported checkpoint never carries raw
+  int8 or packed int4 bytes without their scales.
 """
 from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 from typing import Dict, List, Optional
 
 import torch
 
 from streamvln_tpu_torch.models.quant import dequantize_llm, is_packed_int4
 from streamvln_tpu_torch.utils import safetensors_io
+
+STATE_FILE = "state.pt"
+
+
+def _map_leaves(fn, tree, prefix: str = ""):
+    """`tree` rebuilt with fn(path, leaf) at each leaf (a tensor or a
+    scalar); dicts, lists and tuples are walked, paths joined by "/"."""
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v, f"{prefix}/{k}")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(fn, v, f"{prefix}/{i}")
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
+def _flatten(tree):
+    """({path: tensor}, {path: scalar}) of `tree`'s leaves."""
+    tensors, scalars = {}, {}
+
+    def put(path, leaf):
+        (tensors if isinstance(leaf, torch.Tensor) else scalars)[path] = leaf
+    _map_leaves(put, tree)
+    return tensors, scalars
+
+
+def _state_tree(state) -> dict:
+    return {"step": state.step, "params": state.params,
+            "opt_state": state.opt_state}
+
+
+def _steps(directory: str) -> List[int]:
+    if not os.path.isdir(directory):
+        return []
+    return sorted(int(n) for n in os.listdir(directory)
+                  if re.fullmatch(r"\d+", n))
+
+
+def save_checkpoint(directory: str, state, step: int,
+                    max_to_keep: int = 3, wait: bool = False) -> bool:
+    """Write `state` (parallel.train.TrainState) as step `step` under
+    `directory`; False (and nothing written) when a step >= `step` is
+    already there. Keeps the newest `max_to_keep` steps. The write is
+    synchronous; `wait` keeps the reference's signature."""
+    directory = os.path.abspath(directory)
+    os.makedirs(directory, exist_ok=True)
+    steps = _steps(directory)
+    if steps and steps[-1] >= step:
+        return False
+    tensors, scalars = _flatten(_state_tree(state))
+    # leftovers of cut saves are never steps; clear them before writing
+    for name in os.listdir(directory):
+        if name.startswith(".tmp-"):
+            shutil.rmtree(os.path.join(directory, name))
+    tmp = os.path.join(directory, f".tmp-{step}")
+    os.makedirs(tmp)
+    torch.save({"tensors": {k: t.detach() for k, t in tensors.items()},
+                "scalars": scalars}, os.path.join(tmp, STATE_FILE))
+    os.replace(tmp, os.path.join(directory, str(step)))
+    for old in (steps + [step])[:-max_to_keep]:
+        shutil.rmtree(os.path.join(directory, str(old)))
+    return True
+
+
+def latest_step(directory: str) -> Optional[int]:
+    """The newest step under `directory` (all-digit names only), or None."""
+    steps = _steps(os.path.abspath(directory))
+    return steps[-1] if steps else None
+
+
+@torch.no_grad()
+def restore_checkpoint(directory: str, target, step: Optional[int] = None):
+    """The TrainState saved at `step` (the newest when None), restored into
+    `target`'s tensors in place, bit for bit, on their devices; its scalars
+    (step, counts, micro-step) come from the checkpoint. The checkpoint
+    must hold exactly `target`'s tensors, each of the same shape and
+    dtype."""
+    from streamvln_tpu_torch.parallel.train import TrainState
+    directory = os.path.abspath(directory)
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {directory}")
+    saved = torch.load(os.path.join(directory, str(step), STATE_FILE),
+                       map_location="cpu", mmap=True, weights_only=True)
+    tensors, scalars = _flatten(_state_tree(target))
+    if set(tensors) != set(saved["tensors"]) or \
+            set(scalars) != set(saved["scalars"]):
+        raise ValueError(
+            f"checkpoint {directory}/{step} does not hold the target's "
+            f"state: missing "
+            f"{sorted(set(tensors) - set(saved['tensors']))[:5]}, extra "
+            f"{sorted(set(saved['tensors']) - set(tensors))[:5]}")
+    for path, t in tensors.items():
+        src = saved["tensors"][path]
+        if src.shape != t.shape or src.dtype != t.dtype:
+            raise ValueError(f"{path}: checkpoint holds {src.dtype} "
+                             f"{tuple(src.shape)}, target {t.dtype} "
+                             f"{tuple(t.shape)}")
+        t.copy_(src)
+
+    tree = _map_leaves(lambda path, leaf: leaf if isinstance(
+        leaf, torch.Tensor) else saved["scalars"][path], _state_tree(target))
+    return TrainState(step=tree["step"], params=tree["params"],
+                      opt_state=tree["opt_state"])
+
+
+def resume_latest(directory: str, state):
+    """(state, step): restored from the newest checkpoint under `directory`
+    if there is one, else the given fresh state at step 0."""
+    step = latest_step(directory)
+    if step is None:
+        return state, 0
+    return restore_checkpoint(directory, state, step), step
+
 
 _VISION = [("ln1_s", "layer_norm1.weight", False),
            ("ln1_b", "layer_norm1.bias", False),

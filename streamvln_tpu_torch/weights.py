@@ -1,5 +1,5 @@
 """Parameters of the port: carried across from the JAX package's pytree,
-or made at random on the device.
+or made at random on the device; and a JAX training state carried across.
 
 Both give the reference's dict layout: {"vision", "projector", "llm",
 "image_newline"}, with per-layer weights stacked [L, ...] and matrices
@@ -60,6 +60,51 @@ def from_jax_params(tree, cfg: StreamVLNConfig, device="cuda",
             raise ValueError(f"{part} stack has {got} layers, config "
                              f"says {want}")
     return walk(tree)
+
+
+def _at(tree, path: str):
+    """The leaf of a nested dict/list tree at a 'a/b/0/c' path."""
+    for key in path.split("/"):
+        tree = tree[int(key)] if isinstance(tree, (list, tuple)) \
+            else tree[key]
+    return tree
+
+
+def from_jax_train_state(state, cfg: StreamVLNConfig, tcfg, device="cuda",
+                         dtype: Optional[torch.dtype] = None):
+    """The port's `parallel.train.TrainState` from the JAX package's
+    (`streamvln_tpu/parallel/train.py::create_train_state`, its leaves as
+    numpy arrays, e.g. `jax.tree.map(np.asarray, state)` after JAX's own
+    `restore_checkpoint`), made for the same `tcfg`: the step, the params
+    (`from_jax_params`), and per trainable group the AdamW count and f32
+    moments from the optax chain (clip, scale_by_adam, decayed weights,
+    schedule) inside `multi_transform`, and under grad_accum_steps > 1
+    `MultiSteps`' micro-step count and accumulator. The optax states are
+    read by their field names, so optax is not imported."""
+    from streamvln_tpu_torch.parallel.train import (TrainState,
+                                                    create_train_state)
+    device = resolve_device(device)
+    params = from_jax_params(state.params, cfg, device, dtype)
+    port = create_train_state(params, tcfg)
+    opt = state.opt_state
+    mini_step = 0
+    if tcfg.grad_accum_steps > 1:
+        mini_step = int(opt.mini_step)
+        for path, acc in port.opt_state["acc"].items():
+            acc.copy_(torch.from_numpy(np.asarray(_at(opt.acc_grads, path),
+                                                  np.float32)))
+        opt = opt.inner_opt_state
+    for name, g in port.opt_state["groups"].items():
+        # MaskedState(inner_state=(clip, (adam, decay, schedule)))
+        adam = opt.inner_states[name].inner_state[1][0]
+        g["count"] = int(adam.count)
+        for moment in ("mu", "nu"):
+            for path, t in g[moment].items():
+                t.copy_(torch.from_numpy(np.asarray(
+                    _at(getattr(adam, moment), path), np.float32)))
+    port.opt_state["mini_step"] = mini_step
+    return TrainState(step=int(state.step), params=port.params,
+                      opt_state=port.opt_state)
 
 
 def init(cfg: StreamVLNConfig, generator: Optional[torch.Generator] = None,

@@ -108,19 +108,20 @@ def test_dispatch_by_shape_alone_reaches_wrappers(dtype):
 
 
 @pytest.mark.parametrize("head_dim", [64, 128])
-def test_decoder_chunked_without_a_cache_raises_naming_item_7(head_dim):
-    """attn_impl="chunked" on a forward without a cache at S >= 64 is the
-    reference's chunked attention (streamvln_tpu/models/qwen2.py::_attend),
-    which the port does not have yet: it raises NotImplementedError naming
-    ROADMAP item 7 instead of running dense attention with O(S^2) memory
-    (dense_attention is patched to raise, so a fallback fails). Below 64
-    queries and on a cache, "chunked" is dense in both packages."""
+def test_decoder_chunked_without_a_cache_runs_chunked_attention(head_dim):
+    """attn_impl="chunked" on a forward without a cache at S >= 64 runs the
+    reference's chunked attention (streamvln_tpu/models/qwen2.py::_attend):
+    `chunked_attention` with the config's soft cap, never dense attention
+    with O(S^2) memory (dense_attention is patched to raise, so a fallback
+    fails). Below 64 queries and on a cache, "chunked" is dense in both
+    packages."""
     import dataclasses
 
     from streamvln_tpu_torch.configs import tiny_llm
     from streamvln_tpu_torch.models import qwen2
 
-    cfg = dataclasses.replace(tiny_llm(), head_dim=head_dim)
+    cfg = dataclasses.replace(tiny_llm(), head_dim=head_dim,
+                              attn_logits_soft_cap=30.0)
 
     def qkv(S):
         x = torch.zeros((1, S, 2, head_dim), device="meta")
@@ -130,20 +131,31 @@ def test_decoder_chunked_without_a_cache_raises_naming_item_7(head_dim):
 
     def refuse(*a, **k):
         raise AssertionError("chunked fell back to dense attention")
+    seen = []
+    chunked = qwen2.chunked_attention
+
+    def record(*a, **k):
+        seen.append((a[0].shape, k))
+        return chunked(*a, **k)
     dense = qwen2.dense_attention
-    qwen2.dense_attention = refuse
+    qwen2.dense_attention, qwen2.chunked_attention = refuse, record
     try:
-        with pytest.raises(NotImplementedError, match="item 7"):
-            qwen2._attend(cfg, "chunked", q, q, q, pos, pos)
+        out = qwen2._attend(cfg, "chunked", q, q, q, pos, pos)
     finally:
-        qwen2.dense_attention = dense
+        qwen2.dense_attention, qwen2.chunked_attention = dense, chunked
+    assert out.shape == q.shape and out.device.type == "meta"
+    assert seen == [(q.shape, {"logits_soft_cap": 30.0})]
     q63, pos63 = qkv(63)
-    assert qwen2._attend(cfg, "chunked", q63, q63, q63, pos63,
-                         pos63).device.type == "meta"
-    kv = torch.zeros((1, 2, 128, head_dim), device="meta")
-    kp = torch.zeros((1, 128), dtype=torch.int32, device="meta")
-    assert qwen2._attend(cfg, "chunked", q, kv, kv, pos, kp,
-                         kv_major=True).device.type == "meta"
+    qwen2.chunked_attention = refuse
+    try:
+        assert qwen2._attend(cfg, "chunked", q63, q63, q63, pos63,
+                             pos63).device.type == "meta"
+        kv = torch.zeros((1, 2, 128, head_dim), device="meta")
+        kp = torch.zeros((1, 128), dtype=torch.int32, device="meta")
+        assert qwen2._attend(cfg, "chunked", q, kv, kv, pos, kp,
+                             kv_major=True).device.type == "meta"
+    finally:
+        qwen2.chunked_attention = chunked
 
 
 # The encoder dispatch, branch for branch the reference's

@@ -714,3 +714,89 @@ def test_a_step_that_reads_back_fails_its_capture(dev):
              "more": torch.ones((), dtype=torch.bool, device=dev)}
     with pytest.raises(RuntimeError):
         decode_graph.StepGraph(reads_back, state, dict)
+
+
+def test_training_kernels_match_chunked_attention_at_long_s(dev):
+    """K3's output and K4/K5's dQ, dK, dV at B=1, S=8192 (8000 valid, the
+    rest padding as forward_train lays it out). Query 7 sees no key: the
+    kernels give 0, chunked_attention the reference's mean of v, so its
+    output is skipped and its dO is 0. K3 against chunked_attention in f32
+    on the same bf16 values; K4/K5 against their plain versions on the
+    kernels' own LSE and Dsum, and against chunked_attention's autograd
+    moved by the Dsum source: the kernels take Dsum = sum_d dO O from their
+    bf16 output, autograd from the f32 one, and with eps the difference
+    per row dS moves by -P eps, so dQ by -scale eps sum_k P_k K_k and dK by
+    -scale sum_q P eps Q. Both at the kernels' gradient tolerance against
+    their plain versions."""
+    from streamvln_tpu_torch.ops.attention import chunked_attention
+    rng = np.random.default_rng(9)
+    B, S, n_valid, Hq, Hkv, D = 1, 8192, 8000, 8, 2, 128
+    G, scale = Hq // Hkv, D ** -0.5
+    q, dout = _rand(rng, (B, S, Hq, D), dev), _rand(rng, (B, S, Hq, D), dev)
+    k, v = _rand(rng, (B, S, Hkv, D), dev), _rand(rng, (B, S, Hkv, D), dev)
+    pos = torch.arange(S, device=dev, dtype=torch.int32)
+    q_pos = torch.where(pos < n_valid, pos, 0)[None].contiguous()
+    k_pos = torch.where(pos < n_valid, pos, fa.INVALID_POS)[None].contiguous()
+    q_pos[0, 7] = -1
+    dout[:, 7] = 0
+    out, lse = fa.flash_attention_lse(q, k, v, q_pos, k_pos)
+    dsum = fa._dsum(dout, out)
+    args = (q, k, v, dout, lse, dsum, q_pos, k_pos)
+    dq = fa.flash_bwd_dq(*args)
+    dk, dv = fa.flash_bwd_dkv(*args)
+    assert torch.all(out[0, 7] == 0) and torch.all(dq[0, 7] == 0)
+
+    qf, kf, vf = (x.float().requires_grad_() for x in (q, k, v))
+    ref = chunked_attention(qf, kf, vf, q_pos, k_pos, q_block=1024)
+    rdq, rdk, rdv = torch.autograd.grad(ref, (qf, kf, vf), dout.float())
+    with torch.no_grad():
+        few = chunked_attention(qf, kf, vf.abs(), q_pos, k_pos)
+    seen = torch.ones(S, dtype=torch.bool, device=dev)
+    seen[7] = False
+    _assert_close(out[:, seen], ref.detach()[:, seen], few[:, seen])
+    eps = dsum - (dout.float() * ref.detach()).sum(-1).transpose(1, 2)
+
+    p, ds, qg, kg, dog = fa._bwd_core(q, k, v, dout, lse, dsum, q_pos, k_pos,
+                                      scale, False)
+    pe = p * eps.reshape(B, Hkv, G, S)[..., None]
+    s_dq = torch.einsum("bhgqk,bhkd->bqhgd", pe, kg).reshape(B, S, Hq, D) \
+        * scale
+    s_dk = (torch.einsum("bhgqk,bqhgd->bhkd", pe, qg) * scale).transpose(1, 2)
+    ds = ds.abs()
+    t_dq = (torch.einsum("bhgqk,bhkd->bqhgd", ds, kg.abs())
+            .reshape(B, S, Hq, D) * scale)
+    t_dk = (torch.einsum("bhgqk,bqhgd->bhkd", ds, qg.abs()) * scale) \
+        .transpose(1, 2)
+    t_dv = torch.einsum("bhgqk,bqhgd->bhkd", p, dog.abs()).transpose(1, 2)
+    del p, ds, pe
+    _assert_grad_close(dq, fa.flash_bwd_dq_plain(*args), t_dq, "dq plain")
+    pdk, pdv = fa.flash_bwd_dkv_plain(*args)
+    _assert_grad_close(dk, pdk, t_dk, "dk plain")
+    _assert_grad_close(dv, pdv, t_dv, "dv plain")
+    _assert_grad_close(dq, rdq - s_dq, t_dq, "dq chunked")
+    _assert_grad_close(dk, rdk - s_dk, t_dk, "dk chunked")
+    _assert_grad_close(dv, rdv, t_dv, "dv chunked")
+
+
+def test_prefetcher_uploads_on_a_side_stream_in_order(dev):
+    """The worker copies each batch on a side stream while the consumer's
+    stream is busy; get() makes the consumer's stream wait, so every batch
+    read there is the batch made (a race would read a stale or partly
+    copied buffer: wrong values, no error). Twenty batches of 64 MB, each
+    read right after a long product on the consumer's stream."""
+    from streamvln_tpu_torch.data.prefetch import BatchPrefetcher
+
+    def make(idx):
+        return {"x": np.full((16, 1 << 20), idx[0], np.float32)}
+    # a generator of its own: a failed capture earlier in the process may
+    # leave the default one mid-capture
+    busy = torch.randn(4096, 4096, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(0))
+    with BatchPrefetcher([[i] for i in range(20)], make, depth=3,
+                         device=dev) as pf:
+        for i in range(20):
+            busy = busy @ busy
+            busy /= busy.norm()
+            x = pf.get()["x"]
+            assert x.device.type == "cuda"
+            assert x.min().item() == x.max().item() == float(i)
