@@ -218,11 +218,43 @@ Phases (any failure exits non-zero before the result line):
      each timed beside chunked_attention and SDPA where it takes
      the shape. Every tower batch phase 9 sends K1 is checked as phase 2
      checks its batches;
- 10. print the kernels JSON line (K1-K8; each with bound_share = bound_ms
+ 10. the LLM families (families): 10a the kernels at the families'
+     shapes against their plain versions at phase 2's tolerances, timed
+     by device time beside SDPA and their bounds: K2 and K3 at head dim
+     256 (Gemma: 8 query heads on 1 KV head) at Sq 768 and 2560 on the
+     4096-slot KV-major cache, K8 there at lengths 300, 1900, 2049 and
+     4096, K2 and K8 at group sizes 1 (32/32 heads) and 5 (40/8); phase
+     1 requires the head-dim-256 instances to spill no register, and
+     phase 2 checks K6 and K7 at Qwen2-14B's int4 shapes; 10b each
+     registry family at full width through eval_cli.build_agent (random
+     bf16 weights from seed 0; qwen2-moe-a2.7b, gemma-2b, mpt-7b,
+     llama3-8b, llama2-7b, mistral-7b, qwen2-14b also with --bits 4, and
+     mixtral-8x7b at 8 of its 32 layers, FAMILY_DEPTH: its bf16 weights
+     exceed the card): three agent calls (step 0, step 16, step 32 after
+     the window reset, with <memory>), each call's last-position prefill
+     logits under "auto" within cosine REF_MIN_COSINE of the same weights
+     under "dense" (int4: dequantized), exact K2 counts (none for MPT's
+     alibi, which takes dense attention as in the reference), K1 at every
+     tower pass, K6/K7 under --bits 4; vision, prefill and decode ms, ms
+     per decoded token, weight GiB and peak memory; Gemma also one call
+     under decode_kernel (K8 at head dim 256 once per layer per fed token,
+     a decode step against dense); each family's agents freed and the
+     card's memory back within FAMILY_MEMORY_SLACK; 10c every decode and
+     verify replay bit-equal to the eager step (3g) on qwen2-moe-a2.7b and
+     mpt-7b, and Qwen2-MoE's capacity dispatch at factor E/K against the
+     dense dispatch (cosine, prefill ms of both); 10d one streamvln_7b
+     call for each strided spatial_pool_mode (average, max) at 169 tokens
+     a frame, against dense, and the native loader: where jpeglib.h (the
+     libav headers) are on the host compiler's include path the JPEG
+     (video) library must build, resize_batch_u8 within one 8-bit step of
+     PIL on 480x640 frames and load_preprocess_jpegs timed per frame
+     against PIL; its record lands in chip_smoke.json under "families";
+ 11. print the kernels JSON line (K1-K8; each with bound_share = bound_ms
      / ms and vs_library = ms / library_ms; K1, K2 with their phase-8
      launches, K3-K5 and K7 with the QLoRA step's, K1 and K3-K5 with phase
-     9's and K3-K5 at S=32768 under "long_context"), the card line, and
-     the result line.
+     9's and K3-K5 at S=32768 under "long_context", every kernel with
+     phase 10's launches by family and K3 at head dim 256), the card line,
+     and the result line.
 """
 from __future__ import annotations
 
@@ -572,15 +604,18 @@ def check_vit(torch, F, va, B, rng_seed=0):
     return rec
 
 
-def check_flash(torch, F, fa, Sq, offsets=(300,), cap=4096, seed=1):
+def check_flash(torch, F, fa, Sq, offsets=(300,), cap=4096, seed=1,
+                Hq=28, Hkv=4, D=128, lse=False):
     """K2 against its plain version: a prefill of Sq queries into a
     cap-slot KV-head-major cache, one batch row per entry of `offsets`
     (row b's queries at positions offsets[b] .. offsets[b] + Sq - 1); query
     7 of row 0 sees no key (q_pos -1). Several rows are a batched worker's
     wave: rows at different offsets, an idle row whose queries all see no
     key (the last) and a row whose keys from slot 1000 on are INVALID_POS
-    (the one before it)."""
-    B, Hq, Hkv, D = len(offsets), 28, 4, 128
+    (the one before it). Heads and head dim default to Qwen2-7B's; with
+    `lse` it is K3 (the same forward with the row logsumexp), its output
+    held as K2's and its LSE within LSE_ATOL + LSE_RTOL * |ref|."""
+    B = len(offsets)
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((B, Sq, Hq, D), generator=g, device="cuda") \
         .to(torch.bfloat16)
@@ -595,9 +630,24 @@ def check_flash(torch, F, fa, Sq, offsets=(300,), cap=4096, seed=1):
     if B > 1:
         q_pos[-1] = -1                    # an idle row: no key at all
         k_pos[-2, 1000:] = fa.INVALID_POS
-    out = fa.flash_attention(q, k, v, q_pos, k_pos, kv_major=True)
-    torch.cuda.synchronize()
-    ref = fa.flash_attention_plain(q, k, v, q_pos, k_pos, kv_major=True)
+    if lse:
+        out, out_lse = fa.flash_attention_lse(q, k, v, q_pos, k_pos,
+                                              kv_major=True)
+        torch.cuda.synchronize()
+        ref, ref_lse = fa.flash_attention_lse_plain(q, k, v, q_pos, k_pos,
+                                                    kv_major=True)
+        seen_any = ref_lse != fa.NEG_INF
+        lse_err = (out_lse - ref_lse).abs()[seen_any]
+        lse_share = (lse_err / (LSE_ATOL + LSE_RTOL * ref_lse.abs()[seen_any])
+                     ).max().item()
+        if not torch.equal(out_lse == fa.NEG_INF, ~seen_any):
+            raise AssertionError("flash_attention_lse: rows with no visible "
+                                 "key disagree")
+        del out_lse, ref_lse
+    else:
+        out = fa.flash_attention(q, k, v, q_pos, k_pos, kv_major=True)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_plain(q, k, v, q_pos, k_pos, kv_major=True)
     if not (torch.all(out[0, 7] == 0)
             and (B == 1 or torch.all(out[-1] == 0))):
         raise AssertionError("flash_attention: a row with no visible key "
@@ -611,14 +661,18 @@ def check_flash(torch, F, fa, Sq, offsets=(300,), cap=4096, seed=1):
                                      kv_major=True).float()), 0.0)
     c = compare(out, ref, term)
     c["queries_seeing_few_keys"] = int(few.sum())
+    if lse:
+        c["lse_tol_share"] = lse_share
     del term
+    kfn, pfn = (fa.flash_attention_lse, fa.flash_attention_lse_plain) \
+        if lse else (fa.flash_attention, fa.flash_attention_plain)
 
     def kernel():
-        return fa.flash_attention(q, k, v, q_pos, k_pos, kv_major=True)
+        return kfn(q, k, v, q_pos, k_pos, kv_major=True)
     ms, event_ms, h_us = device_ms(torch, [kernel]), time_ms(torch, kernel), \
         host_us(torch, kernel)
-    plain = time_ms(torch, lambda: fa.flash_attention_plain(
-        q, k, v, q_pos, k_pos, kv_major=True), iters=3)
+    plain = time_ms(torch, lambda: pfn(q, k, v, q_pos, k_pos, kv_major=True),
+                    iters=3)
     # yardstick on the live prefix only (the slots the kernel reads),
     # GQA without copies where this torch has enable_gqa
     k_live = min(int(q_pos.max().item()) + 1, cap)  # slots any query sees
@@ -640,7 +694,7 @@ def check_flash(torch, F, fa, Sq, offsets=(300,), cap=4096, seed=1):
     # each row reads the keys some query of it sees
     seen = (k_pos <= q_pos.max(dim=1, keepdim=True).values).sum().item()
     nbytes = 2 * (2 * B * Sq * Hq * D + 2 * Hkv * seen * D) \
-        + 4 * (B * Sq + B * cap)
+        + 4 * (B * Sq + B * cap) + (4 * B * Hq * Sq if lse else 0)
     b_ms, b_by = bound(4.0 * pairs * D * Hq, nbytes)
     rows = f"B={B} offsets={list(offsets)} " if B > 1 else \
         f"offset={offsets[0]} "
@@ -649,12 +703,15 @@ def check_flash(torch, F, fa, Sq, offsets=(300,), cap=4096, seed=1):
            **c, "ms": ms, "event_ms": event_ms, "host_us": h_us,
            "plain_ms": plain, "library_ms": lib,
            "library_event_ms": lib_event, "bound_ms": b_ms, "bound_by": b_by}
-    log(f"K2 flash_attention {rec['shape']}: {tol_text(c)} kernel {ms:.4f} "
+    what = "K3 flash_attention_lse" if lse else "K2 flash_attention"
+    lse_text = f", LSE {c['lse_tol_share']:.3f} of {LSE_ATOL} + " \
+        f"{LSE_RTOL}*|ref|" if lse else ""
+    log(f"{what} {rec['shape']}: {tol_text(c)}{lse_text} kernel {ms:.4f} "
         f"ms device ({event_ms:.4f} event-timed, {h_us:.1f} us host per "
         f"call) plain {plain:.4f} ms sdpa {lib:.4f} ms device "
         f"({lib_event:.4f} event-timed) bound {b_ms:.4f} ms ({b_by})")
-    if not c["tol_share"] <= 1.0:
-        raise AssertionError(f"flash_attention disagrees: {c}")
+    if not (c["tol_share"] <= 1.0 and c.get("lse_tol_share", 0.0) <= 1.0):
+        raise AssertionError(f"{what} disagrees: {c}")
     return rec
 
 
@@ -713,7 +770,12 @@ INT4_SHAPES = (("qkv", 3584, 4608, 1), ("o", 3584, 3584, 1),
                ("gu", 3584, 37888, 1), ("down", 18944, 3584, 1),
                ("lm_head", 3584, 152064, 1), ("gu", 3584, 37888, 128),
                ("qkv", 3584, 4608, 7), ("o", 3584, 3584, 7),
-               ("gu", 3584, 37888, 7), ("down", 18944, 3584, 7))
+               ("gu", 3584, 37888, 7), ("down", 18944, 3584, 7),
+               # Qwen2-14B --bits 4 (phase 10b) at one row; its prefill's
+               # K7 launches at the same (din, dout) are checked with them
+               ("qkv 14b", 5120, 7168, 1), ("o 14b", 5120, 5120, 1),
+               ("gu 14b", 5120, 27648, 1), ("down 14b", 13824, 5120, 1),
+               ("lm_head 14b", 5120, 152064, 1))
 # K7 alone at the unfused projections a QLoRA step unpacks (LoRA keeps q,
 # k, v and gate, up apart; q is o's shape): k/v and gate/up
 K7_SHAPES = (("k/v", 3584, 512), ("gate/up", 3584, 18944))
@@ -847,13 +909,14 @@ def check_dequant(torch, i4, name, wp, s):
 
 
 def check_decode(torch, F, da, lengths=(300, 1900, 4096, 2049), L=28,
-                 cap=4096, seed=7):
+                 cap=4096, seed=7, Hq=28, Hkv=4, D=128):
     """K8 against its plain version run in f32 on the same (upcast) inputs,
-    at a 28-layer bf16 cache's shapes: |err| <= 2^-8 |ref| + 1e-5 (the
-    kernel's one bf16 output rounding, half an ulp, plus f32 summation
-    order); a second call bit-equal; one kernel per call. Timed over the
-    28 layers in turn, beside SDPA on the live prefix (enable_gqa)."""
-    B, Hq, Hkv, D = 1, 28, 4, 128
+    at an L-layer bf16 cache's shapes (heads and head dim Qwen2-7B's by
+    default): |err| <= 2^-8 |ref| + 1e-5 (the kernel's one bf16 output
+    rounding, half an ulp, plus f32 summation order); a second call
+    bit-equal; one kernel per call. Timed over the L layers in turn,
+    beside SDPA on the live prefix (enable_gqa)."""
+    B = 1
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((L, B, 1, Hq, D), generator=g, device="cuda") \
         .to(torch.bfloat16)
@@ -1695,9 +1758,10 @@ def log_captures(what, captures):
 
 
 def graphs_vs_eager(torch, engines, cfg, tok, frames, instruction,
-                    what="3g"):
-    """Phase 3g: each serving variant over steps 0..32 (9 calls across the
-    window reset and its <memory> call), every decode forward checked:
+                    what="3g", n_steps=33):
+    """Phase 3g: each serving variant over steps 0..n_steps-1 (33: 9 calls
+    across the window reset and its <memory> call), every decode forward
+    checked:
     before each replay the captured step runs eagerly from the state the
     replay starts from (cache, shadow, loop state; those are put back
     after it, and its launches are taken back from the counts), and the
@@ -1735,16 +1799,17 @@ def graphs_vs_eager(torch, engines, cfg, tok, frames, instruction,
             agent.reset_memory(0)
             r0, f0, d0 = box["replays"], eng.decode_forwards, \
                 len(box["differ"])
-            for step in range(33):
+            for step in range(n_steps):
                 agent.step(0, frames[step], instruction,
                            run_model=step % cfg.num_future_steps == 0)
             out[name] = {"replays": box["replays"] - r0,
                          "decode_forwards": eng.decode_forwards - f0,
                          "differing_replays": box["differ"][d0:]}
             log(f"{what} {name}: {out[name]['replays']} replays for "
-                f"{out[name]['decode_forwards']} decode forwards over 9 "
-                f"calls, {len(out[name]['differing_replays'])} differing "
-                f"from the eager step")
+                f"{out[name]['decode_forwards']} decode forwards over "
+                f"{-(-n_steps // cfg.num_future_steps)} calls, "
+                f"{len(out[name]['differing_replays'])} differing from the "
+                f"eager step")
     finally:
         dg.StepGraph.replay = replay
     eng = next(iter(engines.values()))
@@ -4686,6 +4751,532 @@ def train_cli(torch, np, F, va, fa, reset, train4b, card, model_size="7b",
     return rec
 
 
+# phase 10: the LLM families of the registry at full width, each built by
+# the entry points' own eval_cli.build_agent (random bf16 weights from seed
+# 0 made on the card), in this order; Mixtral at 8 of its 32 layers: its 87
+# GiB of bf16 weights exceed the card's 80 GB, and the reference's
+# layer-by-layer quantized init has no MoE leaves (an int4 Mixtral would
+# first hold the whole bf16 tree)
+FAMILY_SIZES = ("qwen2-moe-a2.7b", "gemma-2b", "mpt-7b", "llama3-8b",
+                "llama2-7b", "mistral-7b", "qwen2-14b", "mixtral-8x7b")
+FAMILY_DEPTH = {"mixtral-8x7b": 8}
+# the three agent calls of each family: step 0, a mid-window step, and the
+# first call after the 32-step window reset (<memory>, history backfill)
+FAMILY_STEPS = (0, 16, 32)
+# a family's device memory after its agents are freed may exceed what the
+# card held before it by at most this (allocator rounding)
+FAMILY_MEMORY_SLACK = 256 * 2**20
+
+
+@contextlib.contextmanager
+def family_depth(configs, name):
+    """While open, the registry builds `name` at FAMILY_DEPTH's depth (its
+    widths unchanged), so the entry point's own build_agent makes it."""
+    depth = FAMILY_DEPTH.get(name)
+    preset = configs.LLM_REGISTRY[name]
+    if depth is not None:
+        import dataclasses
+        configs.LLM_REGISTRY[name] = lambda: dataclasses.replace(
+            preset(), num_layers=depth)
+    try:
+        yield
+    finally:
+        configs.LLM_REGISTRY[name] = preset
+
+
+def family_kernels(torch, F, fa, da):
+    """Phase 10a: the kernels at the families' new shapes against their
+    plain versions, at phase 2's tolerances: K2 and K3 at Gemma's head dim
+    256 (8 query heads on 1 KV head) at Sq 768 and 2560 on the 4096-slot
+    KV-major cache, K8 there at lengths 300, 1900, 2049 and 4096 (18
+    layers' caches in turn: Gemma's depth), and K2 and K8 at group sizes 1
+    (32/32 heads: Llama-2, Qwen2-MoE's 16/16 in kind) and 5 (40/8:
+    Qwen2-14B). Each timed by device time beside its plain version and
+    SDPA, with its bound."""
+    recs = {"flash": [], "flash_lse": [], "decode": []}
+    for Sq in (768, 2560):
+        recs["flash"].append(check_flash(torch, F, fa, Sq, Hq=8, Hkv=1,
+                                         D=256, seed=21))
+        recs["flash_lse"].append(check_flash(torch, F, fa, Sq, Hq=8, Hkv=1,
+                                             D=256, seed=22, lse=True))
+    for Hq, Hkv in ((32, 32), (40, 8)):
+        recs["flash"].append(check_flash(torch, F, fa, 768, Hq=Hq, Hkv=Hkv,
+                                         seed=23))
+    recs["decode"] += check_decode(torch, F, da, (300, 1900, 2049, 4096),
+                                   L=18, Hq=8, Hkv=1, D=256, seed=24)
+    for Hq, Hkv, L in ((32, 32, 12), (40, 8, 28)):
+        recs["decode"] += check_decode(torch, F, da, (300, 4096), L=L,
+                                       Hq=Hq, Hkv=Hkv, seed=25)
+    torch.cuda.empty_cache()
+    return recs
+
+
+def step_logits(torch, eng, impl):
+    """One more decode step from the engine's cache (a copy of it) under
+    `impl`: the f32 logits of its pending token."""
+    from streamvln_tpu_torch.models import qwen2
+    cfg = eng.cfg.llm
+    c = qwen2.KVCache(eng.cache.k.clone(), eng.cache.v.clone(),
+                      eng.cache.length.clone())
+    ids = torch.tensor([[eng.envs[0].pending_token]], device=eng.device)
+    emb = qwen2.embed_tokens(eng.params["llm"], ids, cfg).to(
+        eng.compute_dtype)
+    with torch.no_grad():
+        logits, _ = qwen2.forward(eng.params["llm"], cfg, emb,
+                                  c.length[:, None], cache=c, attn_impl=impl)
+    del c
+    return logits[:, 0]
+
+
+def family_calls(torch, agent, ref_agent, frames, instruction, reset):
+    """The three calls (FAMILY_STEPS) of `agent` ("auto") and `ref_agent`
+    (the same weights under "dense") in lockstep over steps 0..32: each
+    call's last-position prefill logits compared (cosine), its tokens and
+    phase times recorded; after each call the dense engine takes the auto
+    engine's dialogue (resync), so every call compares one input. A
+    warm-up call of each (its state reset) captures the decode graphs
+    first, as drive_calls does; `reset()` zeroes the launch counts after
+    it."""
+    eng, ref = agent.engine, ref_agent.engine
+    for a in (agent, ref_agent):
+        a.step(0, frames[0], instruction, run_model=True)
+        a.reset_memory(0)
+    torch.cuda.synchronize()
+    reset()
+    calls = []
+    for step in range(FAMILY_STEPS[-1] + 1):
+        run = step in FAMILY_STEPS
+        made, restore = record_calls(torch, eng)
+        t0 = time.perf_counter()
+        try:
+            agent.step(0, frames[step], instruction, run_model=run)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            restore()
+        ref_agent.step(0, frames[step], instruction, run_model=run)
+        if not run:
+            continue
+        toks = made[0]["tokens"]
+        agree = logits_agreement(torch, eng.last_logits, ref.last_logits)
+        vis, pre, dec = made[0]["phase_ms"]
+        calls.append({"step": step, "tokens": toks, "wall_ms": wall,
+                      "vision_ms": vis, "prefill_ms": pre, "decode_ms": dec,
+                      "decode_ms_per_token": dec / max(len(toks) - 1, 1),
+                      "logits_finite": made[0]["logits_finite"],
+                      "kv_length": int(eng.cache.length[0]), **agree})
+        if eng.envs[0].kv_length != int(eng.cache.length[0]):
+            raise AssertionError(f"step {step}: KV length bookkeeping")
+        resync(ref, eng, toks)
+    return calls
+
+
+def serve_family(torch, np, va, name, frames, instruction, counts, reset,
+                 bits=16):
+    """Phase 10b for one family: build_agent(None, name, bits) on the card;
+    the three calls under "auto" against the same weights under "dense"
+    (int4: dequantized to bf16), cosine > REF_MIN_COSINE each; exact K2
+    launches (one per layer per call; none for alibi, which the
+    reference's gate sends to dense attention), K1 at every tower pass,
+    K6/K7 with int4 and no K8; vision, prefill, decode ms, ms per decoded
+    token, weight GiB and peak memory. Returns (record, agent, dense
+    engine): the caller frees them."""
+    from streamvln_tpu_torch import configs, eval_cli
+    from streamvln_tpu_torch.agent import VLNAgent
+    from streamvln_tpu_torch.models import quant
+    from streamvln_tpu_torch.streaming.engine import StreamingEngine
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with family_depth(configs, name):
+        agent = eval_cli.build_agent(None, name, bits=bits)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    eng = agent.engine
+    cfg = eng.cfg
+    ref_params = quant.dequantize_llm(eng.params, eng.compute_dtype) \
+        if bits == 4 else eng.params
+    ref = StreamingEngine(ref_params, cfg, cache_capacity=eng.cache.capacity,
+                          max_new_tokens=eng.max_new, stop_ids=eng.stop_ids,
+                          spec_lookup=eng.spec_lookup, attn_impl="dense",
+                          compute_dtype=eng.compute_dtype, device=eng.device)
+    del ref_params
+    ref_agent = VLNAgent(ref, agent.tok, deterministic_conjunction=False)
+    calls = family_calls(torch, agent, ref_agent, frames, instruction,
+                         reset)
+    got, vit_batches = counts(), by_batch(va)
+    L, Lv = cfg.llm.num_layers, cfg.vision.num_layers
+    alibi = cfg.llm.positional == "alibi"
+    rec = {"model_size": name, "bits": bits, "layers": L,
+           "layers_published": configs.LLM_REGISTRY[name]().num_layers,
+           "head_dim": cfg.llm.head_dim,
+           "group": cfg.llm.num_heads // cfg.llm.num_kv_heads,
+           "build_s": build_s, "calls": calls, "launches": got,
+           "vit_launches_by_batch": vit_batches,
+           "weights_gib": tree_bytes(eng.params["llm"]) / 2**30,
+           "kv_cache_bytes": eng.cache.k.numel() * eng.cache.k.element_size()
+           * 2, "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    log(f"10b {name}{' int4' if bits == 4 else ''} ({L} layers, head dim "
+        f"{cfg.llm.head_dim}, G={rec['group']}): built in {build_s:.2f} s, "
+        f"LLM weights {rec['weights_gib']:.3f} GiB, peak "
+        f"{rec['peak_memory_bytes'] / 2**30:.2f} GiB; launches {got}")
+    for c in calls:
+        log(f"  step {c['step']}: vision {c['vision_ms']:.2f} prefill "
+            f"{c['prefill_ms']:.2f} decode {c['decode_ms']:.2f} ms "
+            f"({len(c['tokens'])} tokens, {c['decode_ms_per_token']:.2f} "
+            f"ms/decoded token); auto vs dense cosine {c['cosine']:.6f} "
+            f"top-1 agree {c['top1_agree']}")
+    require(f"10b {name} bits {bits}",
+            calls_made=len(calls) == len(FAMILY_STEPS),
+            tokens_emitted=all(c["tokens"] for c in calls),
+            finite_logits=all(c["logits_finite"] for c in calls),
+            auto_matches_dense=all(c["cosine"] > REF_MIN_COSINE
+                                   for c in calls),
+            k2_once_per_layer_per_call=got["flash_attention"]
+            == (0 if alibi else L * len(calls)),
+            k1_every_tower_layer=got["vit_attention"] > 0
+            and got["vit_attention"] % Lv == 0
+            and sum(vit_batches.values()) == got["vit_attention"],
+            int4_kernels=(got["int4_matmul"] > 0
+                          and got["int4_dequant_split"] > 0)
+            if bits == 4 else got["int4_matmul"] == 0,
+            no_decode_kernel=got["decode_attention"] == 0)
+    return rec, agent, ref
+
+
+def gemma_decode_kernel(torch, agent, frames, instruction, counts, reset):
+    """Phase 10b, Gemma under attn_impl="decode_kernel": after a warm-up
+    call (graph capture), one agent call (greedy, so that every decode
+    forward has one query) with K8 at head dim 256 exactly once per layer
+    per fed token; then one more decode step
+    from its cache through K8 and through the dense path (cosine >
+    REF_MIN_COSINE)."""
+    from streamvln_tpu_torch.agent import VLNAgent
+    from streamvln_tpu_torch.streaming.engine import StreamingEngine
+    src = agent.engine
+    eng = StreamingEngine(src.params, src.cfg,
+                          cache_capacity=src.cache.capacity,
+                          max_new_tokens=src.max_new, stop_ids=src.stop_ids,
+                          attn_impl="decode_kernel",
+                          compute_dtype=src.compute_dtype, device=src.device)
+    dk_agent = VLNAgent(eng, agent.tok)
+    dk_agent.step(0, frames[0], instruction, run_model=True)   # capture
+    dk_agent.reset_memory(0)
+    torch.cuda.synchronize()
+    made, restore = record_calls(torch, eng)
+    reset()
+    try:
+        dk_agent.step(0, frames[0], instruction, run_model=True)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    got = counts()
+    fed = fed_tokens(made)
+    L = src.cfg.llm.num_layers
+    agree = logits_agreement(torch, step_logits(torch, eng, "decode_kernel"),
+                             step_logits(torch, eng, "dense"))
+    vis, pre, dec = made[0]["phase_ms"]
+    rec = {"tokens": made[0]["tokens"], "fed_tokens": fed, "launches": got,
+           "vision_ms": vis, "prefill_ms": pre, "decode_ms": dec,
+           "decode_ms_per_token": dec / max(fed, 1), "reference": agree}
+    log(f"10b gemma-2b decode_kernel: {fed} fed tokens, launches {got}; "
+        f"decode {dec:.2f} ms ({rec['decode_ms_per_token']:.2f} ms/token); "
+        f"a decode step through K8 vs dense: cosine {agree['cosine']:.6f}")
+    require("10b gemma-2b decode_kernel",
+            k8_once_per_layer_per_fed_token=got["decode_attention"] == L * fed
+            and fed > 0, agrees_with_dense=agree["cosine"] > REF_MIN_COSINE)
+    del eng
+    return rec
+
+
+def moe_graphs_and_dispatch(torch, agent, frames, instruction):
+    """Phase 10c on one MoE family: every decode and verify replay of a
+    greedy and a speculative engine over 3 calls bit-equal to the eager
+    step (graphs_vs_eager); then moe_dispatch="capacity" at capacity factor
+    E/K (no token dropped) against the dense dispatch on the step-0 call
+    (cosine > REF_MIN_COSINE), each engine's prefill timed on its second
+    call."""
+    import dataclasses
+
+    from streamvln_tpu_torch.agent import VLNAgent
+    from streamvln_tpu_torch.streaming.engine import StreamingEngine
+    src = agent.engine
+    rec = {"graphs": family_graphs(torch, agent, frames, instruction)}
+    lc = src.cfg.llm
+    cap = dataclasses.replace(src.cfg, llm=dataclasses.replace(
+        lc, moe_dispatch="capacity",
+        moe_capacity_factor=lc.num_experts / lc.num_experts_per_tok))
+    out = {}
+    for what, cfg in (("dense", src.cfg), ("capacity", cap)):
+        eng = StreamingEngine(src.params, cfg,
+                              cache_capacity=src.cache.capacity,
+                              max_new_tokens=src.max_new,
+                              stop_ids=src.stop_ids,
+                              compute_dtype=src.compute_dtype,
+                              device=src.device)
+        a = VLNAgent(eng, agent.tok)
+        prefill = []
+        for _ in range(2):
+            made, restore = record_calls(torch, eng)
+            try:
+                a.step(0, frames[0], instruction, run_model=True)
+            finally:
+                restore()
+            prefill.append(made[0]["phase_ms"][1])
+            a.reset_memory(0)
+        out[what] = {"prefill_ms": prefill, "logits": eng.last_logits.float()}
+        del a, eng
+    agree = logits_agreement(torch, out["capacity"]["logits"],
+                             out["dense"]["logits"])
+    rec["capacity"] = {"factor": cap.llm.moe_capacity_factor,
+                       "prefill_ms": out["capacity"]["prefill_ms"],
+                       "dense_prefill_ms": out["dense"]["prefill_ms"],
+                       **agree}
+    log(f"10c {lc.num_experts} experts top-{lc.num_experts_per_tok}: "
+        f"capacity dispatch at factor {cap.llm.moe_capacity_factor:g} vs "
+        f"dense dispatch: cosine {agree['cosine']:.6f}; prefill "
+        f"{out['capacity']['prefill_ms'][1]:.2f} vs "
+        f"{out['dense']['prefill_ms'][1]:.2f} ms")
+    require("10c capacity dispatch", agrees=agree["cosine"] > REF_MIN_COSINE)
+    return rec
+
+
+def family_graphs(torch, agent, frames, instruction):
+    """graphs_vs_eager on a greedy and a speculative engine over the
+    agent's weights (fresh engines: their graphs are captured here)."""
+    from streamvln_tpu_torch.streaming.engine import StreamingEngine
+    src = agent.engine
+    engines = {f"spec{spec}": StreamingEngine(
+        src.params, src.cfg, cache_capacity=src.cache.capacity,
+        max_new_tokens=src.max_new, stop_ids=src.stop_ids, spec_lookup=spec,
+        compute_dtype=src.compute_dtype, device=src.device)
+        for spec in (0, 6)}
+    rec = graphs_vs_eager(torch, engines, src.cfg, agent.tok, frames,
+                          instruction, what=f"10c {src.cfg.llm.num_layers}"
+                          f"-layer {src.cfg.llm.positional}", n_steps=9)
+    del engines
+    return rec
+
+
+def pool_modes(torch, np, frames, instruction, counts, reset):
+    """Phase 10d (pool modes): one streamvln_7b agent call (vision,
+    prefill, decode) for each strided spatial_pool_mode, "average" and
+    "max", on random bf16 weights from seed 0: 169 tokens a frame in the
+    feature cache, the call's tokens and finite logits, K1 and K2 on the
+    path, and the prefill logits against the same mode under "dense"
+    (cosine > REF_MIN_COSINE)."""
+    import dataclasses
+
+    from streamvln_tpu_torch.agent import VLNAgent
+    from streamvln_tpu_torch.configs import streamvln_7b
+    from streamvln_tpu_torch.data.tokenizer import ByteTokenizer
+    from streamvln_tpu_torch.models.fuse import fuse_projections
+    from streamvln_tpu_torch.streaming.engine import StreamingEngine
+    from streamvln_tpu_torch.weights import init
+    tok = ByteTokenizer()
+    params = fuse_projections(init(streamvln_7b(), torch.Generator(
+        device="cuda").manual_seed(0), device="cuda"))
+    out = {}
+    for mode in ("average", "max"):
+        cfg = dataclasses.replace(streamvln_7b(), spatial_pool_mode=mode)
+        logits = {}
+        for impl in ("auto", "dense"):
+            eng = StreamingEngine(params, cfg, cache_capacity=4096,
+                                  max_new_tokens=16,
+                                  stop_ids=(tok.im_end_id,), attn_impl=impl)
+            made, restore = record_calls(torch, eng)
+            reset()
+            try:
+                VLNAgent(eng, tok).step(0, frames[0], instruction,
+                                        run_model=True)
+                torch.cuda.synchronize()
+            finally:
+                restore()
+            logits[impl] = eng.last_logits.float()
+            if impl == "auto":
+                vis, pre, dec = made[0]["phase_ms"]
+                r = {"tokens_per_frame": cfg.tokens_per_frame,
+                     "feature_cache_tokens": eng.feat_cache.shape[2],
+                     "tokens": made[0]["tokens"], "launches": counts(),
+                     "kv_length": int(eng.cache.length[0]),
+                     "vision_ms": vis, "prefill_ms": pre, "decode_ms": dec,
+                     "logits_finite": made[0]["logits_finite"]}
+            del eng
+        r.update(logits_agreement(torch, logits["auto"], logits["dense"]))
+        out[mode] = r
+        log(f"10d spatial_pool_mode {mode}: {r['feature_cache_tokens']} "
+            f"tokens a frame, {len(r['tokens'])} tokens, KV length "
+            f"{r['kv_length']}; vision {vis:.2f} prefill {pre:.2f} decode "
+            f"{dec:.2f} ms; launches {r['launches']}; auto vs dense cosine "
+            f"{r['cosine']:.6f}")
+        require(f"10d {mode}", tokens_per_frame_169=r["tokens_per_frame"]
+                == r["feature_cache_tokens"] == 169,
+                tokens_emitted=bool(r["tokens"]),
+                finite_logits=r["logits_finite"],
+                kernels_on_the_path=r["launches"]["vit_attention"] > 0
+                and r["launches"]["flash_attention"] > 0,
+                auto_matches_dense=r["cosine"] > REF_MIN_COSINE)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def header_found(include: str) -> bool:
+    """Whether the host compiler finds `include` on its include path."""
+    import shutil
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        return False
+    src = f'extern "C" {{\n#include <{include}>\n}}\n'
+    return subprocess.run([cxx, "-E", "-x", "c++", "-"], input=src,
+                          capture_output=True, text=True).returncode == 0
+
+
+def native_loader(np, tmp):
+    """Phase 10d (the native loader): where jpeglib.h is on the host
+    compiler's include path the JPEG library must build, its
+    resize_batch_u8 stay within one 8-bit step of PIL's bicubic on 480x640
+    frames (the reference test's bound; the count of differing values is
+    reported), and load_preprocess_jpegs is timed per frame against the
+    PIL loader on 8 JPEGs; where the libav headers are found the video
+    library must build, and with cv2 at hand a written clip is probed and
+    sampled. What was absent is printed."""
+    from PIL import Image
+
+    from streamvln_tpu_torch import native
+    from streamvln_tpu_torch.ops.preprocess import preprocess_frames_host
+    rec = {"jpeglib_h": header_found("jpeglib.h"),
+           "libav_h": header_found("libavcodec/avcodec.h")}
+    if rec["jpeglib_h"]:
+        rec["built"] = native.available()
+        require("10d native JPEG library", builds=rec["built"])
+        fr = np.random.default_rng(5).integers(0, 256, (8, 480, 640, 3),
+                                               np.uint8)
+        out = native.resize_batch_u8(fr, 384)
+        pil = np.stack([np.asarray(Image.fromarray(f).resize(
+            (384, 384), Image.BICUBIC)) for f in fr])
+        diff = np.abs(out.astype(int) - pil.astype(int))
+        rec.update(resize_max_diff=int(diff.max()),
+                   resize_values_differing=int((diff > 0).sum()),
+                   resize_values=int(diff.size))
+        paths = []
+        for i, f in enumerate(fr):
+            paths.append(os.path.join(tmp, f"f{i}.jpg"))
+            Image.fromarray(f).save(paths[-1], quality=95)
+
+        def pil_loader():
+            return preprocess_frames_host(np.stack([np.asarray(
+                Image.open(p).convert("RGB"), np.uint8) for p in paths]), 384)
+        # each loader twice in turns; the second (warm) time is kept
+        timed = {}
+        for what, fn in (("native", lambda: native.load_preprocess_jpegs(
+                paths, 384)), ("pil", pil_loader)) * 2:
+            t0 = time.perf_counter()
+            fn()
+            timed[what] = (time.perf_counter() - t0) * 1e3 / len(paths)
+        rec.update(native_ms_per_frame=timed["native"],
+                   pil_ms_per_frame=timed["pil"])
+        log(f"10d native JPEG library built; resize_batch_u8 vs PIL on "
+            f"480x640 -> 384: max diff {rec['resize_max_diff']} "
+            f"({rec['resize_values_differing']} of {rec['resize_values']} "
+            f"values differ); load_preprocess_jpegs "
+            f"{timed['native']:.3f} ms/frame vs PIL {timed['pil']:.3f}")
+        require("10d resize_batch_u8", within_one_step_of_pil=diff.max() <= 1)
+    else:
+        log("10d jpeglib.h not on the host compiler's include path: the JPEG "
+            "library was not built; the callers take PIL")
+    if rec["libav_h"]:
+        rec["video_built"] = native.video_available()
+        require("10d native video library", builds=rec["video_built"])
+        try:
+            import cv2
+        except ImportError:
+            cv2 = None
+        if cv2 is not None:
+            path = os.path.join(tmp, "clip.mp4")
+            wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 10,
+                                 (64, 48))
+            for i in range(30):
+                wr.write(np.full((48, 64, 3), i * 8 % 256, np.uint8))
+            wr.release()
+            rec["video_info"] = native.video_info(path)
+            rec["video_sampled"] = list(native.video_sample_frames(
+                path, frames_upbound=8, force_sample=True).shape)
+            require("10d video decode", probed=rec["video_info"][3] == 30,
+                    sampled=rec["video_sampled"] == [8, 48, 64, 3])
+        clip = f"present: a clip probed {rec['video_info']}" \
+            if cv2 is not None else "absent: no clip written"
+        log(f"10d native video library built; cv2 {clip}")
+    else:
+        log("10d libav headers not on the host compiler's include path: the "
+            "video library was not built; the callers take cv2")
+    return rec
+
+
+def families(torch, np, F, fa, da, va, frames, instruction, counts, reset,
+             card, sizes=FAMILY_SIZES):
+    """Phase 10: 10a the kernels at the families' shapes; 10b each family
+    through the entry points' build_agent (qwen2-14b also with --bits 4,
+    Gemma also under decode_kernel); 10c the MoE (qwen2-moe-a2.7b) and
+    alibi (mpt-7b) graph replays against eager, and the capacity dispatch;
+    10d the strided pool modes and the native loader. Each family's agents
+    are freed before the next is built, and the card's memory must return.
+    Returns the phase's record."""
+    import tempfile
+    t_phase = time.perf_counter()
+    rec = {"kernels": family_kernels(torch, F, fa, da), "families": [],
+           "graphs": {}}
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in sizes:
+        for bits in ((16, 4) if name == "qwen2-14b" else (16,)):
+            base = torch.cuda.memory_allocated()
+            r, agent, ref = serve_family(torch, np, va, name, frames,
+                                         instruction, counts, reset, bits)
+            del ref
+            if name == "gemma-2b":
+                r["decode_kernel"] = gemma_decode_kernel(
+                    torch, agent, frames, instruction, counts, reset)
+            if name == "qwen2-moe-a2.7b":
+                rec["graphs"][name] = moe_graphs_and_dispatch(
+                    torch, agent, frames, instruction)
+            if name == "mpt-7b":
+                rec["graphs"][name] = {"graphs": family_graphs(
+                    torch, agent, frames, instruction)}
+            del agent
+            gc.collect()
+            torch.cuda.empty_cache()
+            r["memory_after_bytes"] = torch.cuda.memory_allocated()
+            r["memory_before_bytes"] = base
+            rec["families"].append(r)
+            require(f"10b {name}: its memory returns",
+                    freed=r["memory_after_bytes"] <= base
+                    + FAMILY_MEMORY_SLACK)
+    rec["pool_modes"] = pool_modes(torch, np, frames, instruction, counts,
+                                   reset)
+    with tempfile.TemporaryDirectory() as tmp:
+        rec["native"] = native_loader(np, tmp)
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(families_summary(rec, card))
+    return rec
+
+
+def families_summary(rec, card) -> str:
+    """Phase 10 on one line, beside the card's name and power limit."""
+    parts = []
+    for r in rec["families"]:
+        c = r["calls"]
+        parts.append(
+            f"{r['model_size']}{' int4' if r['bits'] == 4 else ''} prefill "
+            f"{statistics.median(x['prefill_ms'] for x in c):.1f} ms, "
+            f"{statistics.median(x['decode_ms_per_token'] for x in c):.2f} "
+            f"ms/token, {r['weights_gib']:.1f} GiB, min cosine "
+            f"{min(x['cosine'] for x in c):.4f}")
+    return (f"phase 10 families ({card}): " + "; ".join(parts)
+            + f"; {rec['seconds']:.1f} s")
+
+
 def device_ms(torch, fns, calls=None) -> float:
     """Device time per call of a rotation of `fns`: the summed durations
     of the CUDA kernels they launch (torch.profiler), so that a host
@@ -4827,6 +5418,18 @@ def train_cli_summary(cli, card) -> str:
             f"{cli['seconds']:.1f} s")
 
 
+def family_launches(fam, name) -> dict:
+    """A kernel's launches in phase 10b, by family (the Gemma call under
+    decode_kernel apart)."""
+    out = {}
+    for r in fam["families"]:
+        key = r["model_size"] + (" int4" if r["bits"] == 4 else "")
+        out[key] = r["launches"][name]
+        if "decode_kernel" in r:
+            out[key + " decode_kernel"] = r["decode_kernel"]["launches"][name]
+    return out
+
+
 def by_batch(va) -> dict:
     """K1's launches by batch size since its counts were last reset."""
     return {f"B={b}": n for b, n in sorted(va.launches_by_batch.items())}
@@ -4894,6 +5497,22 @@ def main() -> int:
     if bwd_log is not None and not registers_ok(bwd_log):
         raise AssertionError("the K4/K5 kernels spill registers or "
                              "serialize their wgmma")
+    # the head-dim-256 instances of K2/K3 and K8 (the families) spill no
+    # register; ptxas's notes on serialized wgmma are printed
+    for name, label in (("flash_attention", "attention_fwd_kernel<256>"),
+                        ("decode_attention",
+                         "decode_attention_kernel<bf16,1,256>")):
+        text = build.build_logs.get(name)
+        if text is None:
+            continue
+        inst = [x for x in ptxas_summary(text).split("; ")
+                if x.startswith(label + ":")]
+        for line in text.splitlines():
+            if "serialized" in line:
+                log(f"  {name} ptxas: {line.strip()[:220]}")
+        if len(inst) != 1 or not inst[0].endswith(" 0 B spill"):
+            raise AssertionError(f"{label} spills registers or was not "
+                                 f"built: {inst}")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
@@ -5057,10 +5676,21 @@ def main() -> int:
     cli = train_cli(torch, np, F, va, fa, reset_training, train, card)
     cli["captures"] = captures[n_captures:]
     log_captures("phase 9", cli["captures"])
-    # phase 2's K1 check, extended to every tower batch phase 9 sent
+    # phase 2's K1 check, extended to every tower batch phases 9 and 10
+    # sent
     cli_batches = {f"B={b}" for b in cli["command"]["vit_batches_sent"]} | \
         set(cli["export"]["vit_launches_by_batch"]) | \
         set(cli["long_step"]["vit_launches_by_batch"])
+
+    # 10. the LLM families at full width through the entry points, the
+    # kernels at their shapes, the pool modes and the native loader
+    n_captures = len(captures)
+    fam = families(torch, np, F, fa, da, va, frames, instruction,
+                   serving_counts, reset_counts, card)
+    fam["captures"] = captures[n_captures:]
+    log_captures("phase 10", fam["captures"])
+    cli_batches |= {b for r in fam["families"]
+                    for b in r["vit_launches_by_batch"]}
     for b in sorted(int(x[2:]) for x in cli_batches
                     - {f"B={r['batch']}" for r in vit}):
         vit.append(check_vit(torch, F, va, b))
@@ -5084,7 +5714,9 @@ def main() -> int:
                              f"check")
     log(f"K7 launches by shape over the whole run: {k7_shapes}")
 
-    # 10. summary
+    # 11. summary
+    flash += fam["kernels"]["flash"]
+    decode_recs += fam["kernels"]["decode"]
     kernels = [
         kernel_entry("vit_attention",
                      "streamvln_tpu_torch/csrc/vit_attention.cu",
@@ -5101,7 +5733,9 @@ def main() -> int:
                      launches_turnkey=turnkey["launches"]["vit_attention"],
                      launches_quantized_tail=qtail_launches(
                          qtail, "vit_attention"),
-                     launches_train_cli=cli_launches(cli, "vit_attention")),
+                     launches_train_cli=cli_launches(cli, "vit_attention"),
+                     launches_families=family_launches(fam,
+                                                       "vit_attention")),
         kernel_entry("flash_attention",
                      "streamvln_tpu_torch/csrc/flash_attention.cu",
                      "streamvln_tpu/ops/flash_attention.py:49", n_flash,
@@ -5115,7 +5749,9 @@ def main() -> int:
                          "flash_attention"],
                      launches_quantized_tail=qtail_launches(
                          qtail, "flash_attention"),
-                     launches_train_cli=cli_launches(cli, "flash_attention"))]
+                     launches_train_cli=cli_launches(cli, "flash_attention"),
+                     launches_families=family_launches(fam,
+                                                       "flash_attention"))]
     for name, src in (
             ("flash_attention_lse",
              "streamvln_tpu_torch/csrc/flash_attention.cu"),
@@ -5133,13 +5769,16 @@ def main() -> int:
             **shares(r), "shape": r["shape"], "library": r["library"],
             "launches_qlora": qtail["qlora"]["launches"][name],
             "launches_train_cli": cli_launches(cli, name),
-            "long_context": long_entry(cli, name)})
+            "long_context": long_entry(cli, name),
+            **({"head_dim_256": fam["kernels"]["flash_lse"]}
+               if name == "flash_attention_lse" else {})})
     kernels += [
         kernel_entry("int4_matmul",
                      "streamvln_tpu_torch/csrc/int4_matmul.cu",
                      "streamvln_tpu/ops/int4_matmul.py:93",
                      int4["launches"]["int4_matmul"], int4_recs, head=2,
-                     library=int4_recs[2]["library"]),
+                     library=int4_recs[2]["library"],
+                     launches_families=family_launches(fam, "int4_matmul")),
         kernel_entry("int4_dequant_split",
                      "streamvln_tpu_torch/csrc/int4_matmul.cu",
                      "streamvln_tpu/ops/int4_matmul.py:170",
@@ -5148,18 +5787,23 @@ def main() -> int:
                          "int4_dequant_split"],
                      launches_qlora_per_micro_step=qtail["qlora"][
                          "k7_per_micro_step"],
-                     launches_by_shape=k7_shapes),
+                     launches_by_shape=k7_shapes,
+                     launches_families=family_launches(
+                         fam, "int4_dequant_split")),
         kernel_entry("decode_attention",
                      "streamvln_tpu_torch/csrc/decode_attention.cu",
                      "streamvln_tpu/ops/decode_attention.py:31",
                      dk["launches"]["decode_attention"], decode_recs,
                      library="F.scaled_dot_product_attention (enable_gqa) "
-                             "on the live prefix")]
+                             "on the live prefix",
+                     launches_families=family_launches(fam,
+                                                       "decode_attention"))]
     seconds = time.perf_counter() - t_start
     log(serving_summary(serving))
     log(turnkey_summary(turnkey, card))
     log(quantized_tail_summary(qtail, card))
     log(train_cli_summary(cli, card))
+    log(families_summary(fam, card))
     log(f"chip_smoke: all phases passed in {seconds:.1f} s")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -5172,7 +5816,8 @@ def main() -> int:
                    "training_kernels": train_k, "training": train,
                    "evaluation": evaluation, "serving_stack": serving,
                    "turnkey": turnkey, "quantized_tail": qtail,
-                   "train_cli": cli, "seconds": seconds}, f, indent=1,
+                   "train_cli": cli, "families": fam, "seconds": seconds},
+                  f, indent=1,
                   default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

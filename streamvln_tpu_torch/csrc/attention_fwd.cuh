@@ -26,9 +26,16 @@
 // softmax of one overlaps the products of the other. setmaxnreg moves
 // registers from the producer warpgroup to the consumers.
 //
-// Head dims: the padded head dim DP is 64 (CLIP), 80 (SigLIP's 72) or 128
-// (Qwen2). Each tile is kept as 64-column chunks with the 128-byte swizzle
-// (a 128-byte row is one swizzle span), and DP = 80 adds a 16-column chunk
+// Head dims: the padded head dim DP is 64 (CLIP), 80 (SigLIP's 72), 128
+// (Qwen2 and most families) or 256 (Gemma). At DP = 256 a 64-row O
+// accumulator is 128 f32 registers a thread before S and P, and ptxas caps
+// each thread of a 384-thread block at 168 registers whatever setmaxnreg
+// says, so that instance runs ONE consumer warpgroup (64-row query tiles,
+// 256-thread blocks, up to 255 registers a thread, no setmaxnreg and no
+// ping-pong) and a ring of 3 stages: Q 32 KB + 3 x (K 32 KB + V 32 KB)
+// fits the 227 KB of shared memory. Each tile is kept as 64-column chunks
+// with the 128-byte swizzle (a 128-byte row is one swizzle span; DP = 256
+// has four chunks per row), and DP = 80 adds a 16-column chunk
 // with the 32-byte swizzle; the TMA box of that chunk reads columns 64-71
 // and zero-fills 72-79, which add nothing to Q K^T and give output
 // columns that are never stored. Every chunk region starts on a 1024-byte
@@ -213,15 +220,18 @@ constexpr int kConsumers = 2;          // consumer warpgroups per block
 
 template <int DP>
 struct FwdShape {
-  static constexpr int BM = 64 * kConsumers;   // query rows per block
+  // consumer warpgroups: two, or one at DP = 256 (registers, above)
+  static constexpr int NC = DP == 256 ? 1 : kConsumers;
+  static constexpr int BM = 64 * NC;           // query rows per block
   // keys per tile: 128 where the stages fit (fewer pipeline round trips
   // per key, wider S products), else 64 (DP = 128)
   static constexpr int BN = DP <= 80 ? 128 : 64;
   static constexpr int NW = DP / 64;                 // 64-column chunks
   static constexpr int TAIL = DP % 64;               // 0 or 16
-  static_assert(TAIL == 0 || TAIL == 16, "head dim 64, 80 or 128");
-  static constexpr int ST = 4;   // stages: a consumer holds two at a time
-  static constexpr int THREADS = 128 * (kConsumers + 1);
+  static_assert(TAIL == 0 || TAIL == 16, "head dim 64, 80, 128 or 256");
+  // stages: a consumer holds two at a time; three where four do not fit
+  static constexpr int ST = DP == 256 ? 3 : 4;
+  static constexpr int THREADS = 128 * (NC + 1);
   // bytes of a Q and of a K/V tile, and the offsets of their tail chunks
   static constexpr int Q_BYTES = BM * DP * 2;
   static constexpr int KV_BYTES = BN * DP * 2;
@@ -230,14 +240,15 @@ struct FwdShape {
   static constexpr int Q_OFF = 0;
   // Q buffers: two where a block walks several items (the next item's Q
   // loads during the current one); the prefill and training kernels
-  // (DP = 128, positions) take one item per block and need one
-  static constexpr int QB = DP == 128 ? 1 : 2;
+  // (DP >= 128, positions) take one item per block and need one
+  static constexpr int QB = DP >= 128 ? 1 : 2;
   static constexpr int K_OFF = Q_OFF + QB * Q_BYTES;
   static constexpr int V_OFF = K_OFF + ST * KV_BYTES;
   static constexpr int POS_OFF = V_OFF + ST * KV_BYTES;
   static constexpr int META_OFF = POS_OFF + ST * BN * 4;
   static constexpr int BAR_OFF = META_OFF + ST * 8;     // 8-byte aligned
   static constexpr int SMEM = BAR_OFF + (4 + 2 * ST) * 8 + 1024;  // + align
+  static_assert(SMEM <= 232448, "the block's shared memory fits the SM");
 };
 
 // ---- consumer steps -------------------------------------------------------
@@ -394,7 +405,7 @@ __global__ void __launch_bounds__(FwdShape<DP>::THREADS, 1)
 attention_fwd_kernel(__grid_constant__ const FwdMaps maps, const FwdArgs a) {
   using S = FwdShape<DP>;
   constexpr int BM = S::BM, BN = S::BN, NW = S::NW, TAIL = S::TAIL;
-  constexpr int ST = S::ST;
+  constexpr int ST = S::ST, NC = S::NC;
 
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -418,11 +429,11 @@ attention_fwd_kernel(__grid_constant__ const FwdMaps maps, const FwdArgs a) {
   if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i) {
       mbar_init(qfull0 + 8 * i, 1);
-      mbar_init(qempty0 + 8 * i, kConsumers * 4);
+      mbar_init(qempty0 + 8 * i, NC * 4);
     }
     for (int s = 0; s < ST; ++s) {
       mbar_init(full0 + 8 * s, 1);
-      mbar_init(empty0 + 8 * s, kConsumers * 4);
+      mbar_init(empty0 + 8 * s, NC * 4);
     }
     mbar_init_fence();
   }
@@ -430,7 +441,7 @@ attention_fwd_kernel(__grid_constant__ const FwdMaps maps, const FwdArgs a) {
 
   if (wg == 0) {
     // ---------------- producer ----------------
-    setmaxnreg_dec<40>();
+    if constexpr (NC == 2) setmaxnreg_dec<40>();
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
       constexpr int PL = BN / 32;   // key positions a lane reads per tile
@@ -534,7 +545,7 @@ attention_fwd_kernel(__grid_constant__ const FwdMaps maps, const FwdArgs a) {
     }
   } else {
     // ---------------- consumers ----------------
-    setmaxnreg_inc<232>();
+    if constexpr (NC == 2) setmaxnreg_inc<232>();
     const int cw = wg - 1;                        // consumer index
     const int t = threadIdx.x - 128 * wg;
     const int lane = t & 31;
@@ -561,8 +572,9 @@ attention_fwd_kernel(__grid_constant__ const FwdMaps maps, const FwdArgs a) {
     // while that product is still on the tensor cores, and releases stage
     // j-1 once it is done. A pair of named barriers makes the two consumer
     // warpgroups take turns issuing their products, so one warpgroup's
-    // softmax overlaps the other's products.
-    if (cw == 1) named_arrive(1, 256);   // warpgroup 0 goes first
+    // softmax overlaps the other's products (a lone consumer, DP = 256,
+    // takes no turns).
+    if (NC == 2 && cw == 1) named_arrive(1, 256);   // warpgroup 0 first
     int stage = 0;
     uint32_t phase = 0;
     int li = 0;
@@ -593,12 +605,12 @@ attention_fwd_kernel(__grid_constant__ const FwdMaps maps, const FwdArgs a) {
       int prev = -1;                               // stage of P_{j-1}
       if (meta_k0[stage] >= 0) {
         // first tile: S_0 and its softmax (O is still zero)
-        named_sync(1 + cw, 256);
+        if (NC == 2) named_sync(1 + cw, 256);
         wgmma_fence();
         const uint32_t so = stage * S::KV_BYTES;
         issue_qk<DP>(s, dq, dqt, desc_add(dk, so), desc_add(dkt, so));
         wgmma_commit();
-        named_arrive(2 - cw, 256);
+        if (NC == 2) named_arrive(2 - cw, 256);
         wgmma_wait<0>();
         fence_regs<NS>(s);
         softmax_tile<NS>(s, meta_full[stage] != 0, capped, use_pos,
@@ -612,7 +624,7 @@ attention_fwd_kernel(__grid_constant__ const FwdMaps maps, const FwdArgs a) {
           mbar_wait(full0 + 8 * stage, phase);
           const int k0 = meta_k0[stage];
           if (k0 < 0) break;
-          named_sync(1 + cw, 256);
+          if (NC == 2) named_sync(1 + cw, 256);
           wgmma_fence();
           const uint32_t so = stage * S::KV_BYTES;
           issue_qk<DP>(s, dq, dqt, desc_add(dk, so), desc_add(dkt, so));
@@ -622,7 +634,7 @@ attention_fwd_kernel(__grid_constant__ const FwdMaps maps, const FwdArgs a) {
           const uint32_t po = prev * S::KV_BYTES;
           issue_pv<DP>(o, p, desc_add(dv, po), desc_add(dvt, po));
           wgmma_commit();
-          named_arrive(2 - cw, 256);
+          if (NC == 2) named_arrive(2 - cw, 256);
           wgmma_wait<1>();
           fence_regs<NS>(s);
           softmax_tile<NS>(s, meta_full[stage] != 0, capped, use_pos,

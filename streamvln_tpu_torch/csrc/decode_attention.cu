@@ -53,9 +53,17 @@
 //   first, then sums the scaled terms in order. Two calls give bit-equal
 //   results; the wrapper allocates the output only.
 //
+// Head dims: 128 (Qwen2 and most families) and 256 (Gemma), a template
+// parameter. At D = 256 a key row is twice the bytes: a bf16 stage of 64
+// keys (K and V) takes 66 KB, so the ring has two stages and a block ~185
+// KB of shared memory, one block per SM (decode_splits counts that), and
+// each consumer warp holds twice the O^T and q^T fragments; only bf16
+// with G <= 8 (one n tile of heads: Gemma's G = 8) is instantiated there.
+//
 // C interface (ctypes): q [B, 1, Hq, D] and k/v strided (elements; the
 // head dim contiguous, k/v rows 16-byte aligned); out contiguous [B, 1,
-// Hq, D]. D must be 128 and G <= 16.
+// Hq, D]. D = 128 with G <= 16 (bf16 or f32), or D = 256 with G <= 8
+// (bf16).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,7 +77,6 @@ namespace svt {
 // with another loaded library's (int4_matmul.cu includes them too).
 namespace {
 
-constexpr int K8_D = 128;
 constexpr int K8_MAXG = 16;
 constexpr int K8_PRODUCERS = 1;            // producer warps
 constexpr int K8_THREADS = 128 + 32 * K8_PRODUCERS;   // + 4 consumer warps
@@ -90,24 +97,25 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
 // of head row g at block g % P: at most 2 MAXG slots; (max, sum) pairs),
 // the barriers (full and empty per stage, then the receive barrier). The
 // warps' partials lie over the ring once it is drained.
-template <typename T>
+template <typename T, int D>
 struct DecShape {
-  static constexpr int RB = K8_D * sizeof(T);      // bytes of a key row
+  static constexpr int RB = D * sizeof(T);         // bytes of a key row
   static constexpr int ROW = RB + 16;              // padded row
   static constexpr int TILE = kDecTile * ROW;      // one K or V tile
   static constexpr int STAGE = 2 * TILE;           // K, then V
-  static constexpr int ST = sizeof(T) == 2 ? 4 : 2;
+  static constexpr int ST = sizeof(T) == 2 && D == 128 ? 4 : 2;
   static constexpr int SLOTS = 2 * K8_MAXG;
   static constexpr int Q_OFF = ST * STAGE;
-  static constexpr int R_ACC = Q_OFF + K8_MAXG * K8_D * 4;  // [SLOTS][D]
-  static constexpr int R_ML = R_ACC + SLOTS * K8_D * 4;     // [SLOTS][2]
+  static constexpr int R_ACC = Q_OFF + K8_MAXG * D * 4;     // [SLOTS][D]
+  static constexpr int R_ML = R_ACC + SLOTS * D * 4;        // [SLOTS][2]
   static constexpr int BAR_OFF = R_ML + SLOTS * 8;
   static constexpr int SMEM = BAR_OFF + 16 * ST + 8;
   // each warp's (output, max, sum), over the drained ring
   static constexpr int W_ACC = 0;                            // [4][G][D]
-  static constexpr int W_M = W_ACC + 4 * K8_MAXG * K8_D * 4; // [4][G]
+  static constexpr int W_M = W_ACC + 4 * K8_MAXG * D * 4;    // [4][G]
   static constexpr int W_L = W_M + 4 * K8_MAXG * 4;
   static_assert(W_L + 4 * K8_MAXG * 4 <= Q_OFF, "the partials fit the ring");
+  static_assert(SMEM <= 232448, "the block's shared memory fits the SM");
 };
 
 // n <= N (max, sum, output) partials (log2 units) merged in order: the
@@ -152,33 +160,34 @@ __device__ __forceinline__ uint32_t transpose8(uint32_t x) {
 
 // bf16 consumer: 16 keys of every stage on the tensor cores, transposed so
 // that the G <= 8 NG heads of the KV head are the n side of the products
-// (no padded rows): S^T [16 keys x 8 NG heads] = K q^T, then O^T [128 x 8
+// (no padded rows): S^T [16 keys x 8 NG heads] = K q^T, then O^T [D x 8
 // NG] += V^T P^T, K and V^T the A operands from shared memory (ldmatrix,
 // V^T transposed on the load), q^T and P^T the B operands in registers
 // (P^T's accumulator layout turned into the B layout by movmatrix). Writes
 // the warp's partial (heads < G) to the merge area.
-template <typename T, int NG>
+template <typename T, int NG, int D>
 __device__ __forceinline__ void consume_bf16(
     unsigned char* sm, uint32_t base, uint32_t full0, uint32_t empty0,
     const T* qh, long long q_sh, int G, int nkeys, int ntiles, float sl2,
     int warp, int lane) {
-  using S = DecShape<T>;
+  using S = DecShape<T, D>;
+  constexpr int DS = D / 16;         // 16-wide steps of the head dim
   const int gq = lane >> 2, tq = lane & 3;
-  uint32_t qb[NG][8][2];             // B fragments of q^T, 16 depths each
+  uint32_t qb[NG][DS][2];            // B fragments of q^T, 16 depths each
 #pragma unroll
   for (int n = 0; n < NG; ++n)
 #pragma unroll
-    for (int s = 0; s < 8; ++s) {
+    for (int s = 0; s < DS; ++s) {
       qb[n][s][0] = q_pair(qh, 8 * n + gq, G, q_sh, 16 * s + 2 * tq);
       qb[n][s][1] = q_pair(qh, 8 * n + gq, G, q_sh, 16 * s + 2 * tq + 8);
     }
   // O^T (i, n): head dims 16 i + gq (+ 8 for [2], [3]), heads 8 n + 2 tq
   // (+ 1 for [1], [3]); m, l per head 8 n + 2 tq + c
-  float o[8][NG][4], m[NG][2], l[NG][2];
+  float o[DS][NG][4], m[NG][2], l[NG][2];
 #pragma unroll
   for (int n = 0; n < NG; ++n) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < DS; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[i][n][e] = 0.f;
     m[n][0] = m[n][1] = K8_NEG_INF;
@@ -204,7 +213,7 @@ __device__ __forceinline__ void consume_bf16(
       for (int n = 0; n < NG; ++n)
         sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
 #pragma unroll
-      for (int s = 0; s < 8; ++s) {
+      for (int s = 0; s < DS; ++s) {
         uint32_t kf[4];
         ldsm_x4(kf, stg + k_off + 32 * s);
 #pragma unroll
@@ -230,7 +239,7 @@ __device__ __forceinline__ void consume_bf16(
           sc[n][c + 2] = ex2(sc[n][c + 2] - mx[c]);
           l[n][c] = l[n][c] * alpha + sc[n][c] + sc[n][c + 2];
 #pragma unroll
-          for (int i = 0; i < 8; ++i) {
+          for (int i = 0; i < DS; ++i) {
             o[i][n][c] *= alpha;
             o[i][n][c + 2] *= alpha;
           }
@@ -249,7 +258,7 @@ __device__ __forceinline__ void consume_bf16(
         }
       }
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < DS; ++i) {
         uint32_t vf[4];
         ldsm_x4_t(vf, stg + v_off + 32 * i);
 #pragma unroll
@@ -270,7 +279,7 @@ __device__ __forceinline__ void consume_bf16(
       for (int off = 4; off < 32; off <<= 1)
         l[n][c] += __shfl_xor_sync(0xffffffffu, l[n][c], off);
   bar_sync(1, 128);                  // every consumer is done with the ring
-  float* wacc = reinterpret_cast<float*>(sm + S::W_ACC) + warp * K8_MAXG * K8_D;
+  float* wacc = reinterpret_cast<float*>(sm + S::W_ACC) + warp * K8_MAXG * D;
   float* wm = reinterpret_cast<float*>(sm + S::W_M) + warp * K8_MAXG;
   float* wl = reinterpret_cast<float*>(sm + S::W_L) + warp * K8_MAXG;
 #pragma unroll
@@ -280,9 +289,9 @@ __device__ __forceinline__ void consume_bf16(
       const int g = 8 * n + 2 * tq + c;
       if (g < G) {
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          wacc[g * K8_D + 16 * i + gq] = o[i][n][c];
-          wacc[g * K8_D + 16 * i + gq + 8] = o[i][n][c + 2];
+        for (int i = 0; i < DS; ++i) {
+          wacc[g * D + 16 * i + gq] = o[i][n][c];
+          wacc[g * D + 16 * i + gq + 8] = o[i][n][c + 2];
         }
         if (gq == 0) {
           wm[g] = m[n][c];
@@ -292,14 +301,15 @@ __device__ __forceinline__ void consume_bf16(
     }
 }
 
-// f32 consumer: 16 keys of every stage on the CUDA cores (lane: key
-// lane & 15, half lane >> 4 of the head dim for the scores; head dims
+// f32 consumer (D = 128): 16 keys of every stage on the CUDA cores (lane:
+// key lane & 15, half lane >> 4 of the head dim for the scores; head dims
 // 4 lane..4 lane + 3 for P V). q in f32 at Q_OFF.
 template <typename T>
 __device__ __forceinline__ void consume_f32(
     unsigned char* sm, uint32_t full0, uint32_t empty0, int G, int nkeys,
     int ntiles, float sl2, int warp, int lane) {
-  using S = DecShape<T>;
+  constexpr int K8_D = 128;
+  using S = DecShape<T, K8_D>;
   const float* qs = reinterpret_cast<const float*>(sm + S::Q_OFF);
   const int key = lane & 15, half = lane >> 4;
   float m[K8_MAXG], l[K8_MAXG], o[K8_MAXG][4];
@@ -393,8 +403,9 @@ __device__ __forceinline__ void consume_f32(
   }
 }
 
-// NG: heads of a KV head in tiles of 8 (bf16: 1 for G <= 8, else 2)
-template <typename T, int NG>
+// NG: heads of a KV head in tiles of 8 (bf16: 1 for G <= 8, else 2); D:
+// the head dim
+template <typename T, int NG, int D>
 __global__ void __launch_bounds__(K8_THREADS, 1)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
@@ -403,7 +414,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         long long k_sh, long long k_ss, long long v_sb,
                         long long v_sh, long long v_ss, int Hq, int Hkv,
                         int Smax, float scale) {
-  using S = DecShape<T>;
+  using S = DecShape<T, D>;
   extern __shared__ __align__(128) unsigned char sm[];
   const uint32_t base = smem_u32(sm);
   const uint32_t full0 = base + S::BAR_OFF, empty0 = full0 + 8 * S::ST;
@@ -459,12 +470,13 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncwarp();
   } else if constexpr (sizeof(T) == 2) {
-    consume_bf16<T, NG>(sm, base, full0, empty0, qh, q_sh, G, nkeys, ntiles,
-                        scale * kLog2e, warp, lane);
+    consume_bf16<T, NG, D>(sm, base, full0, empty0, qh, q_sh, G, nkeys,
+                           ntiles, scale * kLog2e, warp, lane);
   } else {
+    static_assert(D == 128, "f32 decode takes head dim 128");
     float* qs = reinterpret_cast<float*>(sm + S::Q_OFF);
-    for (int i = threadIdx.x; i < G * K8_D; i += 128)
-      qs[i] = qh[(i / K8_D) * q_sh + i % K8_D];
+    for (int i = threadIdx.x; i < G * D; i += 128)
+      qs[i] = qh[(i / D) * q_sh + i % D];
     bar_sync(1, 128);
     consume_f32<T>(sm, full0, empty0, G, nkeys, ntiles, scale * kLog2e, warp,
                    lane);
@@ -472,11 +484,11 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // ---- merge: the block's four warps, sent to the block that owns the
   // head row (g % P); each owner then merges its rows over the P blocks.
-  // Thread t takes head dims 4 (t % 32) + 0..3 of rows t / 32 + 4 i. ----
+  // Thread t takes head dims 4 (t % 32) + 128 j + 0..3 of rows t / 32 +
+  // 4 i. ----
   if (warp >= 4) return;
   bar_sync(1, 128);                  // the warps' partials are written
   cluster_wait();                    // every receive barrier is ready
-  const int d4 = 4 * lane;
   {
     const float* wacc = reinterpret_cast<const float*>(sm + S::W_ACC);
     const float* wm = reinterpret_cast<const float*>(sm + S::W_M);
@@ -486,19 +498,23 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            wm[3 * K8_MAXG + g]};
       const float pl[4] = {wl[g], wl[K8_MAXG + g], wl[2 * K8_MAXG + g],
                            wl[3 * K8_MAXG + g]};
-      float o4[4], mm, ll;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float po[4];
-#pragma unroll
-        for (int w = 0; w < 4; ++w)
-          po[w] = wacc[(w * K8_MAXG + g) * K8_D + d4 + c];
-        merge<4>(pm, pl, po, 4, mm, ll, o4[c]);
-      }
       const uint32_t owner = g % P, slot = g / P * P + p;
       const uint32_t bar = cluster_addr(recv, owner);
-      st_async4(cluster_addr(base + S::R_ACC + 4 * (slot * K8_D + d4), owner),
-                make_float4(o4[0], o4[1], o4[2], o4[3]), bar);
+      float mm, ll;
+#pragma unroll
+      for (int d4 = 4 * lane; d4 < D; d4 += 128) {
+        float o4[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float po[4];
+#pragma unroll
+          for (int w = 0; w < 4; ++w)
+            po[w] = wacc[(w * K8_MAXG + g) * D + d4 + c];
+          merge<4>(pm, pl, po, 4, mm, ll, o4[c]);
+        }
+        st_async4(cluster_addr(base + S::R_ACC + 4 * (slot * D + d4), owner),
+                  make_float4(o4[0], o4[1], o4[2], o4[3]), bar);
+      }
       if (lane == 0)
         st_async2(cluster_addr(base + S::R_ML + 8 * slot, owner),
                   make_float2(mm, ll), bar);
@@ -506,40 +522,42 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   const int owned = p < G ? (G - 1 - p) / P + 1 : 0;
   if (owned == 0) return;
-  if (threadIdx.x == 0) mbar_arrive_tx(recv, owned * P * (K8_D * 4 + 8));
+  if (threadIdx.x == 0) mbar_arrive_tx(recv, owned * P * (D * 4 + 8));
   mbar_wait(recv, 0);
   const float* racc = reinterpret_cast<const float*>(sm + S::R_ACC);
   const float* rml = reinterpret_cast<const float*>(sm + S::R_ML);
-  const int d = threadIdx.x;
   for (int g = p; g < G; g += P) {
     const int s0 = g / P * P;
-    float pm[kDecCluster], pl[kDecCluster], po[kDecCluster];
 #pragma unroll
-    for (int r = 0; r < kDecCluster; ++r)
-      if (r < P) {
-        pm[r] = rml[2 * (s0 + r)];
-        pl[r] = rml[2 * (s0 + r) + 1];
-        po[r] = racc[(s0 + r) * K8_D + d];
-      }
-    float mm, ll, oo;
-    merge<kDecCluster>(pm, pl, po, P, mm, ll, oo);
-    out[(static_cast<size_t>(b) * Hq + h * G + g) * K8_D + d] =
-        from_f<T>(ll > 0.f ? oo / ll : 0.f);
+    for (int d = threadIdx.x; d < D; d += 128) {
+      float pm[kDecCluster], pl[kDecCluster], po[kDecCluster];
+#pragma unroll
+      for (int r = 0; r < kDecCluster; ++r)
+        if (r < P) {
+          pm[r] = rml[2 * (s0 + r)];
+          pl[r] = rml[2 * (s0 + r) + 1];
+          po[r] = racc[(s0 + r) * D + d];
+        }
+      float mm, ll, oo;
+      merge<kDecCluster>(pm, pl, po, P, mm, ll, oo);
+      out[(static_cast<size_t>(b) * Hq + h * G + g) * D + d] =
+          from_f<T>(ll > 0.f ? oo / ll : 0.f);
+    }
   }
 }
 
-template <typename T, int NG>
+template <typename T, int NG, int D>
 cudaError_t launch_decode(const void* q, const void* k, const void* v,
                           const int* lengths, void* out,
                           const long long* st8, int B, int Hq, int Hkv,
                           int Smax, float scale, cudaStream_t st) {
-  using S = DecShape<T>;
+  using S = DecShape<T, D>;
   static const cudaError_t ready =
-      allow_launch(decode_attention_kernel<T, NG>, S::SMEM, true);
+      allow_launch(decode_attention_kernel<T, NG, D>, S::SMEM, true);
   if (ready != cudaSuccess) return ready;
-  const int P = decode_splits(Smax, B, Hkv);
+  const int P = decode_splits(Smax, B, Hkv, D);
   return launch_clustered(
-      decode_attention_kernel<T, NG>, dim3(P, Hkv, B), K8_THREADS, P,
+      decode_attention_kernel<T, NG, D>, dim3(P, Hkv, B), K8_THREADS, P,
       S::SMEM, st, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lengths, static_cast<T*>(out), st8[0],
       st8[1], st8[2], st8[3], st8[4], st8[5], st8[6], st8[7], Hq, Hkv, Smax,
@@ -555,21 +573,24 @@ extern "C" int svt_decode_attention(const void* q, const void* k,
                                     void* out, const long long* strides,
                                     int B, int Hq, int Hkv, int Smax, int D,
                                     float scale, int is_bf16, void* stream) {
-  if (D != svt::K8_D || Hkv < 1 || Hq % Hkv || Hq / Hkv > svt::K8_MAXG ||
-      B < 1 || B > 65535 || Hkv > 65535 || Smax < 1)
+  const bool wide = Hkv > 0 && Hq / Hkv > 8;
+  if ((D != 128 && D != 256) || (D == 256 && (!is_bf16 || wide)) ||
+      Hkv < 1 || Hq % Hkv || Hq / Hkv > svt::K8_MAXG || B < 1 ||
+      B > 65535 || Hkv > 65535 || Smax < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
-  const bool wide = Hq / Hkv > 8;
-  const cudaError_t err = !is_bf16
-      ? svt::launch_decode<float, 1>(q, k, v, len, out, strides, B, Hq, Hkv,
-                                     Smax, scale, st)
-      : wide ? svt::launch_decode<__nv_bfloat16, 2>(q, k, v, len, out,
-                                                    strides, B, Hq, Hkv,
-                                                    Smax, scale, st)
-             : svt::launch_decode<__nv_bfloat16, 1>(q, k, v, len, out,
-                                                    strides, B, Hq, Hkv,
-                                                    Smax, scale, st);
+  using bf16 = __nv_bfloat16;
+  const cudaError_t err =
+      D == 256 ? svt::launch_decode<bf16, 1, 256>(q, k, v, len, out, strides,
+                                                  B, Hq, Hkv, Smax, scale, st)
+      : !is_bf16 ? svt::launch_decode<float, 1, 128>(q, k, v, len, out,
+                                                     strides, B, Hq, Hkv,
+                                                     Smax, scale, st)
+      : wide ? svt::launch_decode<bf16, 2, 128>(q, k, v, len, out, strides, B,
+                                                Hq, Hkv, Smax, scale, st)
+             : svt::launch_decode<bf16, 1, 128>(q, k, v, len, out, strides, B,
+                                                Hq, Hkv, Smax, scale, st);
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);
 }

@@ -15,8 +15,10 @@
 //
 // Bound on the H100: the work is 4*Sq*Sk_visible*D*Hq FLOPs against
 // q + visible k/v + o bytes; at the main path's prefill (Sq >= 256,
-// D=128, GQA 28/4) and in training (S=4096) that is hundreds to thousands
-// of FLOPs per byte, so the tensor cores bound it. The design
+// D=128, GQA 28/4; Gemma's D=256, 8/1) and in training (S=4096) that is
+// hundreds to thousands of FLOPs per byte, so the tensor cores bound it.
+// Head dims 64, 128 and 256 (the D = 256 instance: one consumer
+// warpgroup, attention_fwd.cuh). The design
 // (attention_fwd.cuh): wgmma on TMA-loaded, swizzled K/V tiles that a
 // producer warp keeps in flight behind mbarriers (loads overlap the
 // products, V is read transposed by the tensor cores), 128-row blocks of
@@ -60,6 +62,7 @@ static int flash_forward(
   switch (D) {
     case 64: return svt::attention_forward<64>(a, st);
     case 128: return svt::attention_forward<128>(a, st);
+    case 256: return svt::attention_forward<256>(a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

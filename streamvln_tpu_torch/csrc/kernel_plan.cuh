@@ -59,12 +59,16 @@ constexpr int kDecMinShare = 64;     // no block takes fewer keys than this
 constexpr int kDecCluster = 16;
 
 // Blocks (one cluster) that split the live prefix of one (batch row, KV
-// head): enough for two blocks per SM, at most kDecCluster, and no more
-// than the capacity has minimum shares. It depends on the shapes alone:
-// the length stays on the device.
-SVT_HD int decode_splits(int smax, int batch, int kv_heads) {
+// head): enough for the blocks an SM holds at once (two at head dim 128;
+// one at 256, whose key rows are twice the bytes and whose ring takes
+// ~185 KB of shared memory), at most kDecCluster, and no more than the
+// capacity has minimum shares. It depends on the shapes alone: the length
+// stays on the device.
+SVT_HD int decode_splits(int smax, int batch, int kv_heads,
+                         int head_dim = 128) {
   const int rows = batch * kv_heads;
-  int p = (2 * kSms + rows - 1) / rows;
+  const int per_sm = head_dim > 128 ? 1 : 2;
+  int p = (per_sm * kSms + rows - 1) / rows;
   const int most = (smax + kDecMinShare - 1) / kDecMinShare;
   if (p > most) p = most;
   if (p > kDecCluster) p = kDecCluster;

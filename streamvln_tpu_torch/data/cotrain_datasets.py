@@ -11,9 +11,9 @@ shards):
   (task ids 1, 2);
 - MMC4 interleaved shards: text_list + image_info matched by
   matched_text_index, <= 6 images per doc, task id 3.
-Video files are sampled through cv2 (the JAX package's C++ decoder is not
-ported); without cv2 a video sample raises ImportError, as the reference's
-cv2 branch does.
+Video files are sampled through the native libav decoder (native/) where
+it builds, else through cv2; without either a video sample raises
+ImportError, as the reference's cv2 branch does.
 """
 from __future__ import annotations
 
@@ -160,8 +160,12 @@ class ConversationDataset:
         return self._load(paths), len(paths)
 
     def _decode_video(self, path: str) -> np.ndarray:
-        """Uniform num_frames_qa sample from a video container through
-        cv2."""
+        """Uniform num_frames_qa sample from a video container: the native
+        libav decoder (native/video.cpp) where it builds, cv2 otherwise."""
+        from streamvln_tpu_torch import native
+        if native.video_available():
+            return native.video_sample_frames(
+                path, frames_upbound=self.num_frames_qa, force_sample=True)
         import cv2
         cap = cv2.VideoCapture(path)
         if not cap.isOpened():

@@ -16,9 +16,10 @@ generator streamvln_trajectory_generation.py:118-137):
 The window logic is split from the file reading: `vln_window` picks the
 window's steps and frame indices, `vln_sample` builds the conversation
 over frames that are already preprocessed (numpy or tensors, e.g. made
-on the card), and `VLNActionDataset.__getitem__` loads the JPEGs with PIL
-(`preprocess_frames_host`) between the two. The JAX package's C++ loader
-(`native/`) is not ported. PIL is imported only where files are read or
+on the card), and `VLNActionDataset.__getitem__` loads the JPEGs between
+the two: through the native C++ loader (`native/`) where it builds and no
+augmentation is asked for, else with PIL (`preprocess_frames_host`), as
+the reference chooses. PIL is imported only where files are read or
 written.
 """
 from __future__ import annotations
@@ -164,6 +165,13 @@ class VLNActionDataset:
                           self.task_id)
 
     def _load_images(self, paths: List[str]) -> np.ndarray:
+        # the threaded C++ decode, resize and normalize (native/) where it
+        # builds and no augmentation is asked for, else PIL, as the
+        # reference chooses
+        if self.transform is None:
+            from streamvln_tpu_torch import native
+            if native.available():
+                return native.load_preprocess_jpegs(paths, self.image_size)
         from PIL import Image
         raw = []
         for p in paths:

@@ -137,11 +137,10 @@ def remote_env_factory(
 
 
 def resize_rgb_transform(size: int):
-    """Picklable worker-side obs transform: a PIL bicubic resize of
-    obs['rgb'] to [size, size, 3], so pipes and the host->device link carry
-    compact frames. The reference prefers its native resize
-    (native/dataloader.cpp) where built; the port has only the PIL path
-    until the native loader is ported (ROADMAP queue 1 item 7)."""
+    """Picklable worker-side obs transform: a PIL-exact bicubic resize of
+    obs['rgb'] to [size, size, 3] through the native library
+    (native/dataloader.cpp), or PIL where the library does not build, so
+    pipes and the host->device link carry compact frames."""
     return _ResizeRGB(size)
 
 
@@ -153,8 +152,13 @@ class _ResizeRGB:
         if isinstance(obs, dict) and "rgb" in obs:
             rgb = obs["rgb"]
             if rgb.shape[0] != self.size or rgb.shape[1] != self.size:
-                from PIL import Image
+                from streamvln_tpu_torch import native
                 obs = dict(obs)
-                obs["rgb"] = np.asarray(Image.fromarray(rgb).resize(
-                    (self.size, self.size), Image.BICUBIC), np.uint8)
+                if native.available():
+                    obs["rgb"] = native.resize_batch_u8(rgb[None],
+                                                        self.size)[0]
+                else:
+                    from PIL import Image
+                    obs["rgb"] = np.asarray(Image.fromarray(rgb).resize(
+                        (self.size, self.size), Image.BICUBIC), np.uint8)
         return obs

@@ -75,12 +75,14 @@ class _Builder:
         return out
 
     def stack(self, fmt: str, n: int, transpose: bool = False,
-              shape=None) -> torch.Tensor:
-        """[n, ...] from the tensors fmt.format(0..n-1), each transposed
-        (2-D) or reshaped to `shape` (then transposed) first."""
+              shape=None, rows: Optional[slice] = None) -> torch.Tensor:
+        """[n, ...] from the tensors fmt.format(0..n-1), each cut to `rows`
+        (a slice of its first dim), reshaped to `shape`, then transposed
+        (2-D) as asked."""
         srcs = [self.src(fmt.format(i)) for i in range(n)]
 
         def view(t):
+            t = t[rows] if rows is not None else t
             t = t.reshape(shape) if shape is not None else t
             return t.T if transpose else t
         out = torch.empty((n, *view(srcs[0]).shape), dtype=self.dtype,
@@ -93,6 +95,12 @@ class _Builder:
     def one(self, name: str, transpose: bool = False,
             shape=None) -> torch.Tensor:
         return self.stack(name, 1, transpose, shape)[0]
+
+    def experts(self, fmt: str, layers: int, n: int) -> torch.Tensor:
+        """[layers, n, in, out] from the Linear weights fmt.format(layer,
+        expert), each transposed, built in place layer by layer."""
+        return torch.stack([self.stack(fmt.format(i, "{}"), n, True)
+                            for i in range(layers)])
 
 
 def _qwen2(b: _Builder, cfg: Qwen2Config, prefix: str,
@@ -165,20 +173,66 @@ def convert_qwen2(state: State, cfg: Qwen2Config, prefix: str = "model.",
     return _qwen2(_Builder(state, device, dtype), cfg, prefix, include_mlp)
 
 
+# Llama, Mistral and Gemma name their modules as Qwen2 does (the bias-free
+# families have no qkv biases, which `cfg.qkv_bias` skips): one converter
+# serves them all, as in the reference.
+convert_llm = convert_qwen2
+
+
 def convert_moe_llm(state: State, cfg: Qwen2Config, prefix: str = "model.",
                     dtype=torch.bfloat16, device="cuda") -> dict:
-    raise NotImplementedError(
-        "Mixtral / Qwen2-MoE checkpoints: the LLM families are ROADMAP "
-        "queue 1 item 10 of the PyTorch port (models/qwen2.py serves "
-        "Qwen2 only)")
+    """A Mixtral or Qwen2-MoE state dict -> the tree with the router and
+    the stacked experts [L, E, in, out]. Mixtral names the block
+    `block_sparse_moe` with experts w1/w3/w2; Qwen2-MoE names it `mlp`
+    with gate_proj/up_proj/down_proj and adds the shared expert and its
+    gate; which one is read off the state dict, as the reference does."""
+    b = _Builder(state, device, dtype)
+    params = _qwen2(b, cfg, prefix, include_mlp=False)
+    L, E = cfg.num_layers, cfg.num_experts
+    mixtral = any("block_sparse_moe" in k for k in state)
+    blk = f"{prefix}layers.{{}}.{'block_sparse_moe' if mixtral else 'mlp'}."
+    names = ("w1", "w3", "w2") if mixtral else \
+        ("gate_proj", "up_proj", "down_proj")
+    layers = params["layers"]
+    layers["router_w"] = b.stack(blk + "gate.weight", L, True)
+    for ours, theirs in zip(("e_gate", "e_up", "e_down"), names):
+        layers[ours] = b.experts(blk + "experts.{}." + theirs + ".weight",
+                                 L, E)
+    if cfg.shared_expert_intermediate_size:
+        sp = f"{prefix}layers.{{}}.mlp."
+        for ours, theirs in (("s_gate_w", "shared_expert.gate_proj"),
+                             ("s_up_w", "shared_expert.up_proj"),
+                             ("s_down_w", "shared_expert.down_proj"),
+                             ("s_route_w", "shared_expert_gate")):
+            layers[ours] = b.stack(sp + theirs + ".weight", L, True)
+    return params
 
 
 def convert_mpt(state: State, cfg: Qwen2Config,
                 prefix: str = "transformer.", dtype=torch.bfloat16,
                 device="cuda") -> dict:
-    raise NotImplementedError(
-        "MPT checkpoints: the LLM families are ROADMAP queue 1 item 10 of "
-        "the PyTorch port (models/qwen2.py serves Qwen2 only)")
+    """An MptForCausalLM state dict -> the tree: the fused Wqkv [3D, D]
+    split into q/k/v, weight-only LayerNorms, the ungated up/down MLP, the
+    head tied to wte unless the config unties it."""
+    b = _Builder(state, device, dtype)
+    L, D, p = cfg.num_layers, cfg.hidden_size, prefix + "blocks.{}."
+    layers = {
+        "ln1": b.stack(p + "norm_1.weight", L),
+        "q_w": b.stack(p + "attn.Wqkv.weight", L, True, rows=slice(0, D)),
+        "k_w": b.stack(p + "attn.Wqkv.weight", L, True,
+                       rows=slice(D, 2 * D)),
+        "v_w": b.stack(p + "attn.Wqkv.weight", L, True,
+                       rows=slice(2 * D, 3 * D)),
+        "o_w": b.stack(p + "attn.out_proj.weight", L, True),
+        "ln2": b.stack(p + "norm_2.weight", L),
+        "up_w": b.stack(p + "ffn.up_proj.weight", L, True),
+        "down_w": b.stack(p + "ffn.down_proj.weight", L, True),
+    }
+    params = {"embed": b.one(prefix + "wte.weight"), "layers": layers,
+              "final_norm": b.one(prefix + "norm_f.weight")}
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = b.one("lm_head.weight", transpose=True)
+    return params
 
 
 def convert_siglip(state: State, cfg: SigLIPConfig,

@@ -8,8 +8,10 @@ weights). Every quantization of models/quant.py is per output column, so
 the scales (int8 [L, 1, dout], int4 [L, G, dout]) and the biases
 concatenate the same way.
 
-A group is left unfused when a member is missing, the members' dtypes or
-satellites (`_scale`, `_b`) differ, or any carries a LoRA adapter. The
+A group is left unfused when a member is missing (an ungated MLP has no
+gate_w, an MoE layer no gate/up; the bias-free families fuse q/k/v
+without biases), the members' dtypes or satellites (`_scale`, `_b`)
+differ, or any carries a LoRA adapter. The
 vision tower stays unfused, as in the JAX package. The fused stacks are
 copies: a caller that keeps the unfused tree keeps both in memory.
 """

@@ -27,9 +27,12 @@ def add_lora(params: dict, generator: torch.Generator, rank: int = 16,
              dtype=torch.float32) -> dict:
     """Insert adapters that leave the model unchanged: A ~ N(0, 1/din),
     B = 0, on the base weights' device. Returns a new tree that shares
-    every base tensor with `params` (no copy). A packed-int4 base
-    [L, din/2, dout] gets adapters of its unpacked width din (the
-    reference reads din off the packed shape, ROADMAP §3.5)."""
+    every base tensor with `params` (no copy). Targets a family lacks are
+    skipped, as in the reference: an ungated MLP has no gate_w, and MoE
+    layers (expert stacks, no gate/up/down) take adapters on attention
+    only. A packed-int4 base [L, din/2, dout] gets adapters of its
+    unpacked width din (the reference reads din off the packed shape,
+    ROADMAP §3.5)."""
     layers = dict(params["llm"]["layers"])
     for name in targets:
         if name not in layers:

@@ -23,6 +23,10 @@ import torch
 from streamvln_tpu_torch.ops.int4_matmul import unpack_nibbles
 
 QUANT_TARGETS = ("q_w", "k_w", "v_w", "o_w", "gate_w", "up_w", "down_w")
+# MoE expert stacks ([L, E, din, dout]) and Qwen2-MoE's shared expert; the
+# router stays full precision, as in the reference
+MOE_QUANT_TARGETS = ("e_gate", "e_up", "e_down", "s_gate_w", "s_up_w",
+                     "s_down_w")
 VISION_QUANT_TARGETS = ("q_w", "k_w", "v_w", "o_w", "fc1_w", "fc2_w")
 INT4_GROUP = 64
 
@@ -155,13 +159,15 @@ def quantize_llm(params: dict, targets: Sequence[str] = QUANT_TARGETS,
     """Quantize the LLM layer-stack projections (and the lm_head; the embed
     to per-row int8 with quantize_embed). Returns a new tree with `<name>`
     as int8 (bits=8) or packed int4 (bits=4) and `<name>_scale` beside it;
-    the input tree is not changed. Stacks are quantized layer by layer."""
+    the input tree is not changed. Stacks are quantized layer by layer; a
+    family's missing targets are skipped, and MoE layers quantize their
+    expert stacks and shared expert (MOE_QUANT_TARGETS) the same way."""
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
     qfn = quantize_weight if bits == 8 else quantize_weight_int4
     llm = dict(params["llm"])
     layers = dict(llm["layers"])
-    for name in targets:
+    for name in tuple(targets) + MOE_QUANT_TARGETS:
         if name not in layers:
             continue
         layers[name], layers[name + "_scale"] = _per_layer(qfn, layers[name])

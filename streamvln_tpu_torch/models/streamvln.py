@@ -1,5 +1,6 @@
 """StreamVLN multimodal stack for the PyTorch port: vision encode
-(SigLIP tower -> projector -> 2x2 bilinear pool), the layout-driven
+(SigLIP tower -> projector -> 2x2 pool: bilinear, average or max), the
+layout-driven
 token splice, and the training forward with its (chunked) cross-entropy.
 
 Counterpart of `streamvln_tpu/models/streamvln.py`. The host builds a
@@ -28,18 +29,29 @@ Params = dict
 
 def pool_2d(feats: torch.Tensor, side: int, stride: int,
             mode: str = "bilinear") -> torch.Tensor:
-    """[N, side*side, D] -> [N, ceil(side/stride)^2, D] by bilinear resize
-    with half-pixel centres (F.interpolate align_corners=False, no
-    antialias, as the reference's get_2dPool)."""
-    if mode != "bilinear":
-        raise NotImplementedError(
-            f"spatial_pool_mode {mode!r} is a later slice of the port")
+    """[N, side*side, D] pooled as the reference's get_2dPool: "bilinear"
+    resizes to ceil(side/stride) a side with half-pixel centres
+    (F.interpolate align_corners=False, no antialias); "average" and "max"
+    trim the grid to floor(side/stride) * stride and take the mean or the
+    max of each stride x stride window, giving floor(side/stride)^2
+    tokens (cfg.tokens_per_frame counts either)."""
     N, _, D = feats.shape
-    out_side = -(-side // stride)
-    grid = feats.reshape(N, side, side, D).permute(0, 3, 1, 2)
-    pooled = F.interpolate(grid, size=(out_side, out_side), mode="bilinear",
-                           align_corners=False, antialias=False)
-    return pooled.permute(0, 2, 3, 1).reshape(N, out_side * out_side, D)
+    grid = feats.reshape(N, side, side, D)
+    if mode == "bilinear":
+        out_side = -(-side // stride)
+        pooled = F.interpolate(grid.permute(0, 3, 1, 2),
+                               size=(out_side, out_side), mode="bilinear",
+                               align_corners=False, antialias=False)
+        pooled = pooled.permute(0, 2, 3, 1)
+    elif mode in ("average", "max"):
+        out_side = side // stride
+        blocks = grid[:, :out_side * stride, :out_side * stride].reshape(
+            N, out_side, stride, out_side, stride, D)
+        pooled = blocks.mean(dim=(2, 4)) if mode == "average" \
+            else blocks.amax(dim=(2, 4))
+    else:
+        raise ValueError(mode)
+    return pooled.reshape(N, out_side * out_side, D)
 
 
 def encode_frames(params: Params, cfg: StreamVLNConfig,
@@ -173,9 +185,10 @@ def stack_layouts(layouts) -> dict:
 
 def splice_embeds(params: Params, vision_flat: torch.Tensor,
                   token_ids: torch.Tensor, is_vision: torch.Tensor,
-                  vision_index: torch.Tensor) -> torch.Tensor:
-    """Gather + select: [B, T] layout -> [B, T, llm_hidden]."""
-    text = qwen2.embed_tokens(params["llm"], token_ids)
+                  vision_index: torch.Tensor, llm_cfg=None) -> torch.Tensor:
+    """Gather + select: [B, T] layout -> [B, T, llm_hidden]; `llm_cfg`
+    scales the text embeddings where its family does (Gemma)."""
+    text = qwen2.embed_tokens(params["llm"], token_ids, llm_cfg)
     vis = torch.gather(vision_flat, 1, vision_index.long()[:, :, None]
                        .expand(-1, -1, vision_flat.shape[-1]))
     return torch.where(is_vision[:, :, None], vis.to(text.dtype), text)
@@ -199,7 +212,8 @@ def forward_train(
     backward."""
     vision_flat = encode_frames(params, cfg, images, attn_impl, remat=remat)
     embeds = splice_embeds(params, vision_flat, layout["token_ids"],
-                           layout["is_vision"], layout["vision_index"])
+                           layout["is_vision"], layout["vision_index"],
+                           cfg.llm)
     valid = layout["valid"]
     B, T = valid.shape
     positions = torch.where(valid, torch.cumsum(valid.int(), dim=1) - 1,

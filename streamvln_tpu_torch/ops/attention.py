@@ -31,18 +31,30 @@ def _masked_softmax(logits, mask, logits_soft_cap):
     return torch.softmax(logits, dim=-1)
 
 
+def _add_bias(logits, bias):
+    """logits [B, Hkv, G, Sq, Sk] + an additive bias [B, Hq, Sq, Sk] (alibi)
+    in f32, query head h = kv head * G + g."""
+    if bias is None:
+        return logits
+    return logits + bias.float().reshape(bias.shape[0], logits.shape[1],
+                                         logits.shape[2], *bias.shape[2:])
+
+
 def dense_attention(q, k, v, mask: Optional[torch.Tensor] = None,
                     scale: Optional[float] = None,
-                    logits_soft_cap: Optional[float] = None) -> torch.Tensor:
-    """softmax(q k^T * scale) v with GQA, f32 math; q [B, Sq, Hq, D],
-    k/v [B, Sk, Hkv, D], mask [B, Sq, Sk] or [B, 1, Sq, Sk] bool."""
+                    logits_soft_cap: Optional[float] = None,
+                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """softmax(q k^T * scale + bias) v with GQA, f32 math; q [B, Sq, Hq,
+    D], k/v [B, Sk, Hkv, D], mask [B, Sq, Sk] or [B, 1, Sq, Sk] bool, bias
+    [B, Hq, Sq, Sk] additive (alibi) before the soft cap and the mask."""
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
     if scale is None:
         scale = D ** -0.5
     qf = q.float().reshape(B, Sq, Hkv, G, D)
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
+    logits = _add_bias(
+        torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale, bias)
     if mask is not None:
         mask = mask[:, None, None] if mask.dim() == 3 else mask[:, :, None]
     probs = _masked_softmax(logits, mask, logits_soft_cap)
@@ -54,7 +66,8 @@ def dense_attention_kvmajor(q, k, v, mask: Optional[torch.Tensor] = None,
                             scale: Optional[float] = None,
                             logits_soft_cap: Optional[float] = None,
                             k_scale: Optional[torch.Tensor] = None,
-                            v_scale: Optional[torch.Tensor] = None
+                            v_scale: Optional[torch.Tensor] = None,
+                            bias: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
     """dense_attention over a KV-head-major cache [B, Hkv, Sk, D]: q is
     cast to the cache dtype, products accumulate in f32, probabilities are
@@ -78,6 +91,7 @@ def dense_attention_kvmajor(q, k, v, mask: Optional[torch.Tensor] = None,
                           k.to(cdt).float()) * scale
     if quant:
         logits = logits * k_scale[:, :, None, None, :]
+    logits = _add_bias(logits, bias)
     probs = _masked_softmax(logits, None if mask is None
                             else mask[:, None, None], logits_soft_cap)
     if quant:

@@ -5,8 +5,8 @@ Replaces `streamvln_tpu/ops/decode_attention.py::_decode_kernel` with
 bound on the H100 and the design: a cluster of blocks per (row, KV head)
 splits the live prefix, read on the device, streams K and V through a
 ring of asynchronous copies, computes on the tensor cores for bf16 and merges its
-splits in a fixed order inside the one launch; `csrc/kernel_plan.cuh`
-sizes the grid and the shares). q [B, 1, Hq, D] attends over keys
+splits in a fixed order inside the one launch, at head dim 128 or 256;
+`csrc/kernel_plan.cuh` sizes the grid and the shares). q [B, 1, Hq, D] attends over keys
 0..length[b]-1 of k/v [B, Hkv, Smax, D], GQA kv head = q head // G, f32
 math, output in q's dtype; a row of length 0 gives zeros. Keys are
 masked by index (< length), not by position: the two agree because the
@@ -27,8 +27,10 @@ import torch
 from streamvln_tpu_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIM = 128        # the kernel's head dim
-MAX_GROUP = 16        # query heads per KV head the kernel takes
+# the kernel's head dims, each with the most query heads per KV head it
+# takes (and its dtypes): 128 (Qwen2 and most families) up to 16 heads, in
+# bf16 or f32; 256 (Gemma) up to 8, in bf16
+HEAD_DIMS = {128: 16, 256: 8}
 
 launches = 0
 
@@ -62,14 +64,16 @@ def _check(q, k, v, lengths):
             or k.shape[3] != D or Hq % k.shape[1]:
         raise ValueError(f"decode_attention: bad shapes q={tuple(q.shape)} "
                          f"k={tuple(k.shape)} v={tuple(v.shape)}")
-    if D != HEAD_DIM or Hq // k.shape[1] > MAX_GROUP:
-        raise ValueError(f"decode_attention kernel takes head dim "
-                         f"{HEAD_DIM} and at most {MAX_GROUP} query heads "
-                         f"per KV head, got {D} and {Hq // k.shape[1]}")
-    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise TypeError(f"decode_attention kernel takes bf16 or f32 q/k/v "
-                        f"of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if D not in HEAD_DIMS or Hq // k.shape[1] > HEAD_DIMS[D]:
+        raise ValueError(f"decode_attention kernel takes (head dim: most "
+                         f"query heads per KV head) {HEAD_DIMS}, got {D} "
+                         f"and {Hq // k.shape[1]}")
+    dtypes = (torch.bfloat16, torch.float32) if D == 128 \
+        else (torch.bfloat16,)
+    if q.dtype not in dtypes or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"decode_attention kernel takes q/k/v of one dtype "
+                        f"in {dtypes} at head dim {D}, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
     epc = 16 // q.element_size()
     for x in (k, v):
         if x.stride(3) != 1 or any(st % epc for st in x.stride()[:3]) \

@@ -156,7 +156,7 @@ def _decode_step(params, cfg, cache, fed, live, attn_impl, dtype,
     """One cached forward of `fed` [B, S] at each row's length. Rows with
     live False are not written; with `advance` the live rows' lengths
     grow by S. Returns f32 logits [B, S, V]."""
-    emb = qwen2.embed_tokens(params["llm"], fed).to(dtype)
+    emb = qwen2.embed_tokens(params["llm"], fed, cfg.llm).to(dtype)
     S = fed.shape[1]
     pos = cache.length[:, None] + torch.arange(
         S, dtype=torch.int32, device=fed.device)[None]
@@ -659,7 +659,7 @@ class StreamingEngine:
         # 3. splice + prefill
         timer.mark()
         embeds = streamvln.splice_embeds(params, pool, token_ids, is_vision,
-                                         vision_index).to(dt)
+                                         vision_index, self.cfg.llm).to(dt)
         positions = self.cache.length[:, None] + torch.arange(
             T, dtype=torch.int32, device=self.device)[None]
         offsets = self.cache.length.clone()

@@ -40,8 +40,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--model_path", type=str, default=None,
                    help="HF checkpoint dir to load (else random init)")
     p.add_argument("--model_size", type=str, default="7b",
-                   help="7b/1.5b/0.5b/tiny (other LLM families: ROADMAP "
-                        "item 10)")
+                   help="7b/1.5b/0.5b/tiny or any configs.LLM_REGISTRY "
+                        "family name (llama2-7b, mistral-7b, "
+                        "mixtral-8x7b, mpt-7b, ...)")
     p.add_argument("--spatial_pool_mode", type=str, default="bilinear")
     # streaming/data params (reference defaults)
     p.add_argument("--num_frames", type=int, default=32)

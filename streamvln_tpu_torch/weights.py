@@ -111,7 +111,11 @@ def init(cfg: StreamVLNConfig, generator: Optional[torch.Generator] = None,
          device="cuda", dtype=torch.bfloat16) -> dict:
     """Random weights made directly on `device`, in the reference's
     fan-in-scaled normal form (weights ~ N(0, 1/fan_in), biases 0,
-    norms 1). The numbers differ from the JAX init of the same seed."""
+    norms 1), with the leaves of the config's family (an ungated MLP has
+    no gate_w; an MoE layer has router_w and the expert stacks e_gate,
+    e_up, e_down [L, E, ...], and the shared expert's s_* leaves where the
+    config has one). The numbers differ from the JAX init of the same
+    seed."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -153,21 +157,37 @@ def init(cfg: StreamVLNConfig, generator: Optional[torch.Generator] = None,
 
     L, Dm, F = lc.num_layers, lc.hidden_size, lc.intermediate_size
     Hq, Hkv, Dh = lc.num_heads, lc.num_kv_heads, lc.head_dim
-    llm = {
-        "embed": dense((lc.vocab_size, Dm), Dm),
-        "layers": {
-            "ln1": ones((L, Dm)),
-            "q_w": dense((L, Dm, Hq * Dh), Dm), "q_b": zeros((L, Hq * Dh)),
-            "k_w": dense((L, Dm, Hkv * Dh), Dm), "k_b": zeros((L, Hkv * Dh)),
-            "v_w": dense((L, Dm, Hkv * Dh), Dm), "v_b": zeros((L, Hkv * Dh)),
-            "o_w": dense((L, Hq * Dh, Dm), Hq * Dh),
-            "ln2": ones((L, Dm)),
-            "gate_w": dense((L, Dm, F), Dm),
-            "up_w": dense((L, Dm, F), Dm),
-            "down_w": dense((L, F, Dm), F),
-        },
-        "final_norm": ones((Dm,)),
+    embed = dense((lc.vocab_size, Dm), Dm)    # first: the stream's order
+    layers = {
+        "ln1": ones((L, Dm)),
+        "q_w": dense((L, Dm, Hq * Dh), Dm), "q_b": zeros((L, Hq * Dh)),
+        "k_w": dense((L, Dm, Hkv * Dh), Dm), "k_b": zeros((L, Hkv * Dh)),
+        "v_w": dense((L, Dm, Hkv * Dh), Dm), "v_b": zeros((L, Hkv * Dh)),
+        "o_w": dense((L, Hq * Dh, Dm), Hq * Dh),
+        "ln2": ones((L, Dm)),
     }
+    if lc.num_experts:
+        # the reference's MoE leaves: router, expert stacks [L, E, ...],
+        # and Qwen2-MoE's shared expert with its sigmoid route
+        E, Fe = lc.num_experts, lc.moe_intermediate_size or F
+        layers.update({
+            "router_w": dense((L, Dm, E), Dm),
+            "e_gate": dense((L, E, Dm, Fe), Dm),
+            "e_up": dense((L, E, Dm, Fe), Dm),
+            "e_down": dense((L, E, Fe, Dm), Fe)})
+        if lc.shared_expert_intermediate_size:
+            Fs = lc.shared_expert_intermediate_size
+            layers.update({
+                "s_gate_w": dense((L, Dm, Fs), Dm),
+                "s_up_w": dense((L, Dm, Fs), Dm),
+                "s_down_w": dense((L, Fs, Dm), Fs),
+                "s_route_w": dense((L, Dm, 1), Dm)})
+    else:
+        if lc.mlp_gated:
+            layers["gate_w"] = dense((L, Dm, F), Dm)
+        layers["up_w"] = dense((L, Dm, F), Dm)
+        layers["down_w"] = dense((L, F, Dm), F)
+    llm = {"embed": embed, "layers": layers, "final_norm": ones((Dm,))}
     if not lc.tie_word_embeddings:
         llm["lm_head"] = dense((Dm, lc.vocab_size), Dm)
     return {"vision": vision, "projector": {"layers": proj}, "llm": llm,

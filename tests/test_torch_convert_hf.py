@@ -9,6 +9,7 @@ siglip features on converted `transformers` models against transformers'
 own (f32, rtol = atol = 2e-4 as in tests/test_convert_hf.py: summation
 order only).
 """
+import dataclasses
 import json
 import os
 
@@ -256,9 +257,15 @@ def test_missing_key_or_shard_raises(tmp_path, hf_state):
                                      torch.float32, "cpu")
     with pytest.raises(FileNotFoundError, match="no checkpoint shards"):
         convert_hf.load_state_dict(str(tmp_path))
-    for fn in (convert_hf.convert_moe_llm, convert_hf.convert_mpt):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            fn(state, tcfg.tiny_llm())
+    # the family converters read their own names: a Qwen2 state dict has
+    # no MoE block and no MPT block
+    moe = dataclasses.replace(tcfg.tiny_llm(), num_experts=2)
+    with pytest.raises(KeyError, match="mlp.gate.weight"):
+        convert_hf.convert_moe_llm(state, moe, dtype=torch.float32,
+                                   device="cpu")
+    with pytest.raises(KeyError, match="transformer.blocks.0"):
+        convert_hf.convert_mpt(state, tcfg.tiny_llm(), dtype=torch.float32,
+                               device="cpu")
 
 
 def test_projector_matches_torch_sequential():
@@ -348,3 +355,89 @@ def test_a_bf16_checkpoint_loads_as_in_the_reference(tmp_path, jax_params):
     assert_trees_equal(tree, from_jax_params(jt, cfg, device="cpu"))
     for (k, a), (_, b) in zip(_leaves(tree), _leaves(tp)):
         assert torch.equal(a, b.to(torch.bfloat16).float()), k
+
+
+def _family_state(kind, L=2, D=32, Hq=4, Hkv=2, Dh=8, F=64, E=4, Fe=48,
+                  Fs=64, V=128, seed=0):
+    """A synthetic HF state dict (numpy, f32) of a tiny Mixtral, Qwen2-MoE
+    or MPT, under the names each family's checkpoints use."""
+    rng = np.random.default_rng(seed)
+
+    def w(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+    s = {}
+    if kind == "mpt":
+        p = "transformer."
+        s[p + "wte.weight"] = w(V, D)
+        s[p + "norm_f.weight"] = w(D)
+        for i in range(L):
+            b = f"{p}blocks.{i}."
+            s[b + "attn.Wqkv.weight"] = w(3 * D, D)
+            s[b + "attn.out_proj.weight"] = w(D, D)
+            s[b + "ffn.up_proj.weight"] = w(4 * D, D)
+            s[b + "ffn.down_proj.weight"] = w(D, 4 * D)
+            s[b + "norm_1.weight"] = w(D)
+            s[b + "norm_2.weight"] = w(D)
+        return s
+    s["model.embed_tokens.weight"] = w(V, D)
+    s["model.norm.weight"] = w(D)
+    s["lm_head.weight"] = w(V, D)
+    for i in range(L):
+        b = f"model.layers.{i}."
+        for n, dout in (("q", Hq * Dh), ("k", Hkv * Dh), ("v", Hkv * Dh)):
+            s[b + f"self_attn.{n}_proj.weight"] = w(dout, D)
+            if kind == "qwen2_moe":
+                s[b + f"self_attn.{n}_proj.bias"] = w(dout)
+        s[b + "self_attn.o_proj.weight"] = w(D, Hq * Dh)
+        s[b + "input_layernorm.weight"] = w(D)
+        s[b + "post_attention_layernorm.weight"] = w(D)
+        if kind == "mixtral":
+            m = b + "block_sparse_moe."
+            names, fe = ("w1", "w3", "w2"), F
+        else:
+            m = b + "mlp."
+            names, fe = ("gate_proj", "up_proj", "down_proj"), Fe
+            s[m + "shared_expert.gate_proj.weight"] = w(Fs, D)
+            s[m + "shared_expert.up_proj.weight"] = w(Fs, D)
+            s[m + "shared_expert.down_proj.weight"] = w(D, Fs)
+            s[m + "shared_expert_gate.weight"] = w(1, D)
+        s[m + "gate.weight"] = w(E, D)
+        for e in range(E):
+            s[m + f"experts.{e}.{names[0]}.weight"] = w(fe, D)
+            s[m + f"experts.{e}.{names[1]}.weight"] = w(fe, D)
+            s[m + f"experts.{e}.{names[2]}.weight"] = w(D, fe)
+    return s
+
+
+FAMILY_CFGS = {
+    "mixtral": dict(qkv_bias=False, num_experts=4, num_experts_per_tok=2),
+    "qwen2_moe": dict(num_experts=4, num_experts_per_tok=2,
+                      norm_topk_prob=False, moe_intermediate_size=48,
+                      shared_expert_intermediate_size=64),
+    "mpt": dict(qkv_bias=False, tie_word_embeddings=True, mlp_act="gelu",
+                positional="alibi", norm_type="layernorm", mlp_gated=False,
+                num_kv_heads=4, intermediate_size=128),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(FAMILY_CFGS))
+def test_family_converters_match_jax(kind):
+    """convert_moe_llm (Mixtral's block_sparse_moe, Qwen2-MoE's mlp with its
+    shared expert) and convert_mpt (the fused Wqkv split) against the JAX
+    package's on one synthetic state dict: the same leaves, bit for bit in
+    f32."""
+    kw = dict(vocab_size=128, hidden_size=32, intermediate_size=64,
+              num_layers=2, num_heads=4, num_kv_heads=2, head_dim=8)
+    kw.update(FAMILY_CFGS[kind])
+    state = _family_state(kind, Hkv=kw["num_kv_heads"])
+    jfn, tfn = (jconvert.convert_mpt, convert_hf.convert_mpt) \
+        if kind == "mpt" else (jconvert.convert_moe_llm,
+                               convert_hf.convert_moe_llm)
+    want = jax.tree.map(np.asarray, jfn(state, jcfg.Qwen2Config(**kw),
+                                        dtype=jnp.float32))
+    got = tfn({k: torch.from_numpy(v) for k, v in state.items()},
+              tcfg.Qwen2Config(**kw), dtype=torch.float32, device="cpu")
+    w, g = dict(_leaves(want)), dict(_leaves(got))
+    assert set(g) == set(w)
+    for k in w:
+        np.testing.assert_array_equal(g[k].numpy(), w[k], err_msg=k)

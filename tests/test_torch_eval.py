@@ -365,13 +365,16 @@ def test_eval_cli_builds_the_requested_agent():
     # a shard that cannot be read raises: no random weights in its place
     pytest.param(["--model_path", "CKPT"], ValueError,
                  "not a safetensors file", id="flags3-item 6"),
-    pytest.param(["--model_size", "llama2_7b"], NotImplementedError,
-                 "item 10", id="flags4-item 10")])
+    # the registry is served (item 10): a name outside it raises the
+    # reference's ValueError (its names take a hyphen: "llama2-7b")
+    pytest.param(["--model_size", "llama2_7b"], ValueError,
+                 "unknown LLM 'llama2_7b'", id="flags4-item 10")])
 def test_eval_cli_refuses_what_the_port_lacks(tmp_path, monkeypatch, flags,
                                               error, match):
     """What the port still lacks raises; --kv_int8 and --vision_int8 (its
     first two cases, which raised before the quantized tail) now run to
-    the end, with an int8 KV cache or an int8 tower built."""
+    the end, with an int8 KV cache or an int8 tower built; an unknown
+    --model_size raises as in the reference."""
     ckpt = tmp_path / "ckpt"
     ckpt.mkdir()
     (ckpt / "model.safetensors").write_bytes(b"")
@@ -395,3 +398,42 @@ def test_eval_cli_refuses_what_the_port_lacks(tmp_path, monkeypatch, flags,
     assert eng.cache.quantized == (match == "kv_int8")
     assert (layers["fc1_w"].dtype == torch.int8) == (match == "vision_int8")
     assert ("fc1_w_scale" in layers) == (match == "vision_int8")
+
+
+# tiny variants of the families (their knobs on tiny_llm's widths)
+TINY_FAMILIES = {
+    "gemma": dict(qkv_bias=False, tie_word_embeddings=True,
+                  mlp_act="gelu_tanh", norm_offset=True,
+                  scale_embeddings=True),
+    "mpt": dict(qkv_bias=False, tie_word_embeddings=True, mlp_act="gelu",
+                positional="alibi", norm_type="layernorm", mlp_gated=False,
+                num_kv_heads=4),
+    "mixtral": dict(qkv_bias=False, num_experts=4, num_experts_per_tok=2)}
+
+
+@pytest.mark.parametrize("family", sorted(TINY_FAMILIES))
+def test_eval_cli_serves_a_tiny_family(tmp_path, monkeypatch, family):
+    """eval_cli.main --model_size tiny with the tiny decoder swapped for a
+    family's (the registry's full-width presets take the same path):
+    the episodes run to the end on the CPU and the engine holds that
+    family's leaves."""
+    import dataclasses
+
+    from streamvln_tpu_torch import configs as tcfgs
+    tiny = tcfgs.tiny_llm
+    monkeypatch.setattr(tcfgs, "tiny_llm", lambda vocab_size=512:
+                        dataclasses.replace(tiny(vocab_size),
+                                            **TINY_FAMILIES[family]))
+    built = []
+    build = eval_cli.build_agent
+    monkeypatch.setattr(eval_cli, "build_agent",
+                        lambda *a, **k: built.append(build(*a, **k))
+                        or built[-1])
+    final = eval_cli.main([
+        "--model_size", "tiny", "--device", "cpu", "--env_backend", "fake",
+        "--num_episodes", "1", "--max_steps_per_episode", "4",
+        "--output_path", str(tmp_path / family)])
+    assert final["length"] == 1
+    layers = built[0].engine.params["llm"]["layers"]
+    assert ("e_gate" in layers) == (family == "mixtral")
+    assert ("gate_w" in layers or "gu_w" in layers) == (family == "gemma")

@@ -28,6 +28,9 @@ void i4_groups(int groups, int splits, int z, int* out) {
 int dec_splits(int smax, int batch, int kv_heads) {
   return svt::decode_splits(smax, batch, kv_heads);
 }
+int dec_splits_d(int smax, int batch, int kv_heads, int head_dim) {
+  return svt::decode_splits(smax, batch, kv_heads, head_dim);
+}
 void dec_keys(int length, int splits, int p, int* out) {
   const svt::Range r = svt::decode_keys(length, splits, p);
   out[0] = r.begin;
@@ -109,6 +112,17 @@ def test_int4_splits_cover_every_group_once(plan, M, din, dout):
     (4096, 300, 4, 1)])
 def test_decode_splits(plan, smax, batch, kv_heads, want):
     assert plan.dec_splits(smax, batch, kv_heads) == want
+
+
+@pytest.mark.parametrize("smax,batch,kv_heads,head_dim,want", [
+    (4096, 1, 4, 128, 16),     # head dim 128 is the default
+    (4096, 1, 1, 256, 16),     # Gemma-2B: one KV head, capped by the cluster
+    (4096, 8, 8, 256, 3),      # one block per SM at head dim 256 ...
+    (4096, 8, 8, 128, 5),      # ... two at 128
+    (4096, 32, 8, 256, 1)])
+def test_decode_splits_by_head_dim(plan, smax, batch, kv_heads, head_dim,
+                                   want):
+    assert plan.dec_splits_d(smax, batch, kv_heads, head_dim) == want
 
 
 @pytest.mark.parametrize("splits", [1, 2, 5, 8, 16])

@@ -800,3 +800,91 @@ def test_prefetcher_uploads_on_a_side_stream_in_order(dev):
             x = pf.get()["x"]
             assert x.device.type == "cuda"
             assert x.min().item() == x.max().item() == float(i)
+
+
+# The LLM families' shapes: K2/K3 at Gemma's head dim 256 (8 query heads
+# on one KV head; the kernel's one-consumer instance), K2 at group sizes 1
+# (Llama-2, Qwen2-MoE: 32/32) and 5 (Qwen2-14B: 40/8), on the KV-major
+# 4096-slot cache at a prefill's offset, ragged query tiles included
+@pytest.mark.parametrize("Sq,off,Hq,Hkv,D", [
+    (768, 300, 8, 1, 256), (2560, 0, 8, 1, 256), (130, 1900, 8, 1, 256),
+    (768, 300, 32, 32, 128), (700, 1000, 40, 8, 128)])
+def test_flash_kernel_at_the_family_shapes(dev, Sq, off, Hq, Hkv, D):
+    rng = np.random.default_rng(13)
+    B, cap = 1, 4096
+    q = _rand(rng, (B, Sq, Hq, D), dev)
+    k, v = (_rand(rng, (B, Hkv, cap, D), dev) for _ in range(2))
+    q_pos = (off + torch.arange(Sq, device=dev, dtype=torch.int32))[None]
+    q_pos[0, 5] = -1                      # a row that sees no key
+    k_pos = torch.arange(cap, device=dev, dtype=torch.int32)[None]
+    n0 = fa.launches
+    out = fa.flash_attention(q, k, v, q_pos, k_pos, kv_major=True)
+    torch.cuda.synchronize()
+    assert fa.launches == n0 + 1
+    assert torch.all(out[0, 5] == 0)
+    _assert_close(out, fa.flash_attention_plain(q, k, v, q_pos, k_pos,
+                                                kv_major=True),
+                  fa.flash_attention_plain(q, k, v.abs(), q_pos, k_pos,
+                                           kv_major=True))
+
+
+@pytest.mark.parametrize("S,n_valid,kv_major", [(200, 170, False),
+                                                (384, 384, True)])
+def test_flash_lse_kernel_at_head_dim_256(dev, S, n_valid, kv_major):
+    """K3 at D = 256 (the same instance as K2) against its plain version;
+    K4/K5 are not built for 256 and raise (ROADMAP §2c)."""
+    rng = np.random.default_rng(14)
+    B, Hq, Hkv, D = 2, 8, 1, 256
+    q = _rand(rng, (B, S, Hq, D), dev)
+    kshape = (B, Hkv, S, D) if kv_major else (B, S, Hkv, D)
+    k, v = _rand(rng, kshape, dev), _rand(rng, kshape, dev)
+    q_pos, k_pos = _train_positions(B, S, S, n_valid, dev, None)
+    n3 = fa.lse_launches
+    out, lse = fa.flash_attention_lse(q, k, v, q_pos, k_pos,
+                                      kv_major=kv_major)
+    torch.cuda.synchronize()
+    assert fa.lse_launches == n3 + 1
+    ref_out, ref_lse = fa.flash_attention_lse_plain(q, k, v, q_pos, k_pos,
+                                                    kv_major=kv_major)
+    _assert_close(out, ref_out, fa.flash_attention_plain(
+        q, k, v.abs(), q_pos, k_pos, kv_major=kv_major))
+    unseen = ref_lse == fa.NEG_INF
+    assert torch.equal(lse == fa.NEG_INF, unseen)
+    err = (lse - ref_lse).abs()[~unseen]
+    assert bool((err <= 1e-4 + 1e-5 * ref_lse.abs()[~unseen]).all())
+    dsum = fa._dsum(out, out)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        fa.flash_bwd_dq(q, k, v, out, lse, dsum, q_pos, k_pos,
+                        kv_major=kv_major)
+
+
+# K8 at the families' shapes: Gemma's head dim 256 with G = 8 (ragged
+# lengths and the 4096-slot cache), G = 1 (32/32) and G = 5 (40/8) at 128;
+# a second call bit-equal; f32 and G > 8 at head dim 256 raise
+@pytest.mark.parametrize("Hq,Hkv,D,lengths,cap", [
+    (8, 1, 256, _LENGTHS, 1024),
+    (8, 1, 256, (300, 1900, 2049, 4096), 4096),
+    (32, 32, 128, (300, 4096), 4096),
+    (40, 8, 128, (1900, 2049), 4096)])
+def test_decode_kernel_at_the_family_shapes(dev, Hq, Hkv, D, lengths, cap):
+    from streamvln_tpu_torch.ops import decode_attention as da
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    B = lengths.numel()
+    rng = np.random.default_rng(15)
+    q = _rand(rng, (B, 1, Hq, D), dev)
+    k, v = (_rand(rng, (B, Hkv, cap, D), dev) for _ in range(2))
+    n0 = da.launches
+    out = da.decode_attention(q, k, v, lengths)
+    again = da.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert da.launches == n0 + 2 and torch.equal(out, again)
+    ref = da.decode_attention_plain(q.float(), k.float(), v.float(), lengths)
+    assert torch.all(out[lengths == 0] == 0)
+    err = (out.float() - ref).abs()
+    assert bool((err <= 2.0 ** -8 * ref.abs() + 1e-5).all()), err.max()
+    if D == 256:
+        with pytest.raises(TypeError, match="256"):
+            da.decode_attention(q.float(), k.float(), v.float(), lengths)
+        wide = _rand(rng, (B, 1, 16, D), dev)
+        with pytest.raises(ValueError, match="head dim"):
+            da.decode_attention(wide, k, v, lengths)

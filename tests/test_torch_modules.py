@@ -183,9 +183,16 @@ def test_qwen2_cache_prefill_and_decode_match_jax(name, jc, S):
 
 
 def test_unsupported_decoder_configs_raise():
-    cfg = dataclasses.replace(tcfg.tiny_llm(), num_experts=4)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    """Every family of the registry is served; what the reference itself
+    rejects, an unknown mlp_act, raises ValueError as its `_mlp_act_fn`
+    does."""
+    for name in tcfg.LLM_REGISTRY:
+        tqwen2.check_supported(tcfg.llm_config(name))
+    cfg = dataclasses.replace(tcfg.tiny_llm(), mlp_act="relu")
+    with pytest.raises(ValueError, match="unknown mlp_act: relu"):
         tqwen2.check_supported(cfg)
+    with pytest.raises(ValueError, match="unknown mlp_act: relu"):
+        jqwen2._mlp_act_fn("relu")
 
 
 def test_init_matches_jax_layout_and_fused_params_are_refused(stack):

@@ -26,7 +26,6 @@ import numpy as np
 import pytest
 import torch
 
-from streamvln_tpu import native as jnative
 from streamvln_tpu import train as jtrain_cli
 from streamvln_tpu.data.vln_dataset import (write_annotations,
                                             write_trajectory)
@@ -81,7 +80,6 @@ def shared(init_params, monkeypatch):
     """Both CLIs start from the JAX init; the port's adapters are JAX's
     (add_lora draws them from PRNGKey(seed + 1), seed 0)."""
     jc, npp = init_params
-    monkeypatch.setattr(jnative, "available", lambda: False)
     monkeypatch.setattr(jsv, "init", lambda key, cfg, dtype=jnp.float32:
                         jax.tree.map(lambda x: jnp.asarray(x, dtype)
                                      if x.dtype.kind == "f"
@@ -366,20 +364,58 @@ def test_lora_int4_port_alone(traj_root, tmp_path, shared):
     (["--fsdp", "2"], NotImplementedError, "item 8"),
     (["--dp", "2"], NotImplementedError, "item 8"),
     (["--tp", "2"], NotImplementedError, "item 8"),
-    (["--model_size", "llama2-7b"], NotImplementedError, "item 10"),
+    (["--model_size", "gpt-j"], ValueError, "unknown LLM 'gpt-j'"),
 ])
 def test_refusals(traj_root, tmp_path, argv, exc, match):
-    """The reference's SystemExits word for word (JAX's own are checked on
-    the same arguments); a mesh of more than one device names ROADMAP item
-    8, another LLM family item 10."""
+    """The reference's SystemExits and its ValueError for a name outside
+    the LLM registry word for word (JAX's own are checked on the same
+    arguments); a mesh of more than one device names ROADMAP item 8."""
     common = ["--video_folders", traj_root, "--output_dir",
               str(tmp_path)] + TINY
     with pytest.raises(exc, match=match) as got:
         ttrain_cli.main(common + argv + ["--device", "cpu"])
-    if exc is SystemExit:
-        with pytest.raises(SystemExit) as want:
+    if exc in (SystemExit, ValueError):
+        with pytest.raises(exc) as want:
             jtrain_cli.main(common + argv)
         assert str(got.value) == str(want.value)
+
+
+def test_tiny_family_matches_jax(traj_root, tmp_path, monkeypatch):
+    """The command on a tiny Mixtral (its knobs on tiny_llm's widths,
+    patched into both packages' tiny_llm, which build_config reads): two
+    full-SFT steps from one JAX init, the same logs and parameters."""
+    import dataclasses
+
+    from streamvln_tpu import configs as jcfgs
+    from streamvln_tpu_torch import configs as tcfgs
+    moe = dict(qkv_bias=False, num_experts=4, num_experts_per_tok=2)
+    for mod in (jcfgs, tcfgs):
+        tiny = mod.tiny_llm
+        monkeypatch.setattr(mod, "tiny_llm", lambda vocab_size=512, t=tiny:
+                            dataclasses.replace(t(vocab_size), **moe))
+    args = jtrain_cli.build_argparser().parse_args(
+        ["--video_folders", traj_root, "--output_dir", "unused"] + TINY)
+    jc = jtrain_cli.build_config(args)
+    npp = jax.tree.map(np.asarray, jsv.init(jax.random.PRNGKey(0), jc))
+    assert "e_gate" in npp["llm"]["layers"]
+    monkeypatch.setattr(jsv, "init", lambda key, cfg, dtype=jnp.float32:
+                        jax.tree.map(lambda x: jnp.asarray(x, dtype)
+                                     if x.dtype.kind == "f"
+                                     else jnp.asarray(x), npp))
+    monkeypatch.setattr(
+        tweights, "init", lambda cfg, generator=None, device="cuda",
+        dtype=torch.bfloat16: tweights.from_jax_params(
+            npp, cfg, device=device, dtype=dtype))
+    monkeypatch.setenv("WANDB_MODE", "disabled")
+    argv = ["--num_steps", "2", "--save_steps", "5"]
+    jout, tout = str(tmp_path / "jax"), str(tmp_path / "port")
+    jstate = jtrain_cli.main(["--video_folders", traj_root, "--output_dir",
+                              jout] + TINY + argv)
+    tstate = ttrain_cli.main(["--video_folders", traj_root, "--output_dir",
+                              tout] + TINY + argv + ["--device", "cpu"])
+    assert tstate.step == int(jstate.step) == 2
+    _same_logs(jout, tout)
+    _same_params(jstate, tstate)
 
 
 def test_no_card_raises(traj_root, tmp_path, monkeypatch):

@@ -224,12 +224,15 @@ def test_conversation_dataset_matches_jax(media_tree, kind, n_images, task):
 
 
 def test_video_file_needs_cv2(media_tree, monkeypatch):
-    """A video file is sampled through cv2; without it the sample raises
-    ImportError, as the reference's cv2 branch does (its C++ decoder
-    switched off here)."""
+    """A video file is sampled through cv2 where the native decoder is
+    not built; without cv2 the sample raises ImportError, as the
+    reference's cv2 branch does (both packages' C++ decoders switched off
+    here)."""
     from streamvln_tpu import native as jnative
+    from streamvln_tpu_torch import native as tnative
     monkeypatch.setitem(sys.modules, "cv2", None)
     monkeypatch.setattr(jnative, "video_available", lambda: False)
+    monkeypatch.setattr(tnative, "video_available", lambda: False)
     entry = [{"id": 3, "video": "clip.mp4", "conversations": [
         {"from": "human", "value": "?"}, {"from": "gpt", "value": "!"}]}]
     for mod, tok, cfg in ((tco, ByteTokenizer(), t_tiny()),
