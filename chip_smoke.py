@@ -249,12 +249,42 @@ Phases (any failure exits non-zero before the result line):
      (video) library must build, resize_batch_u8 within one 8-bit step of
      PIL on 480x640 frames and load_preprocess_jpegs timed per frame
      against PIL; its record lands in chip_smoke.json under "families";
- 11. print the kernels JSON line (K1-K8; each with bound_share = bound_ms
+ 11. the vision tail and the offline tools (vision_tail): 11a K1 at the
+     encoder zoo's and anyres's (B, S, H, D) (VIT_ZOO_SHAPES: head dims 88
+     and 104 on the DP=128 instance, 64 at S2's 1, 4 and 9 crops, 72 at
+     anyres's tile batches 3-5) against its plain version at phase 2's
+     tolerance, timed beside SDPA and its bound, with the padding's share
+     of the products; 11b every tower of ZOO_TOWERS (CLIP-L-336 and its S2
+     at 336/672/1008, MLCD-bigG-336, CLIP-bigG, EVA01-CLIP-g, EVA02-L-336,
+     EVA02-B-16) at its published depth and width through
+     build_vision_tower (random bf16 weights from seed 0), one frame under
+     "auto" within cosine REF_MIN_COSINE of "dense" with K1 at every block
+     and nothing else, ms per image, weight GiB and peak memory, each
+     freed before the next with the card's memory back within
+     ZOO_MEMORY_SLACK; convert_hf_clip_tower and convert_eva_tower round
+     trips bit-equal on state dicts made on the card from CLIP-L's and
+     EVA02-B's weights; the perceiver and qformer resamplers on [8, 729,
+     1152] bf16 features against f32; 11c one streamvln_7b agent
+     (build_agent) shared by everything after: generate_anyres on a
+     480x640 and a 384x1152 image (first-step logits against dense, K1
+     once per tower layer at the tile batch, K2 once per layer per
+     generated token, ms per generated token), K2 at each image's
+     uncached prefill length against its plain version and causal SDPA,
+     offline.main (2 square videos, 2 anyres images), benchmark.main in
+     process (2 tasks x 3 entries) and run_external_benchmark (a child at
+     --model_size 0.5b on cuda); 11d dagger.main (2 fake-env episodes,
+     data_iteration 1) and trajectory_generation.main (4 episodes), the
+     annotation schema, the save gate's decision of every episode and
+     episodes per minute; everything written under tempfile.gettempdir()
+     and removed. Every K1 shape phase 11 sent must be one 11a or phase 2
+     checked;
+ 12. print the kernels JSON line (K1-K8; each with bound_share = bound_ms
      / ms and vs_library = ms / library_ms; K1, K2 with their phase-8
      launches, K3-K5 and K7 with the QLoRA step's, K1 and K3-K5 with phase
      9's and K3-K5 at S=32768 under "long_context", every kernel with
-     phase 10's launches by family and K3 at head dim 256), the card line,
-     and the result line.
+     phase 10's launches by family and K3 at head dim 256, K1 and K2 with
+     phase 11's by sub-phase and their shapes), the card line, and the
+     result line.
 """
 from __future__ import annotations
 
@@ -567,18 +597,25 @@ def tol_text(c: dict) -> str:
             f"mean |ref| {c['ref_mean_abs']:.3e})")
 
 
-def check_vit(torch, F, va, B, rng_seed=0):
-    """K1 against its plain version at the SigLIP shape, batch B. Times:
-    the kernel's device time (torch.profiler; at batch 1 the wrapper's
-    host cost exceeds it, so an event time would measure the host), its
-    event time and host cost per call, SDPA's device and event time."""
-    S, H, D = 729, 16, 72
+def check_vit(torch, F, va, B, rng_seed=0, S=729, H=16, D=72):
+    """K1 against its plain version at the SigLIP shape (or the given S, H,
+    D), batch B. Times: the kernel's device time (torch.profiler; at batch
+    1 the wrapper's host cost exceeds it, so an event time would measure
+    the host), its event time and host cost per call, SDPA's device and
+    event time. The bound counts the unpadded products; padding_share is
+    the share of the kernel's products spent on the head dim's padding."""
     g = torch.Generator(device="cuda").manual_seed(rng_seed)
     q, k, v = (torch.randn((B, S, H, D), generator=g, device="cuda")
                .to(torch.bfloat16) for _ in range(3))
     out = va.vit_attention(q, k, v)
     torch.cuda.synchronize()
-    c = compare(out, va.vit_attention_plain(q, k, v))
+    # every query sees all S keys: below FEW_KEYS the rounding of P does
+    # not average out (KERNEL_ATOL's note)
+    few = S < FEW_KEYS
+    c = compare(out, va.vit_attention_plain(q, k, v), 2.0 ** -8
+                * va.vit_attention_plain(q, k, v.abs()).float()
+                if few else None)
+    c["queries_seeing_few_keys"] = B * S if few else 0
 
     def kernel():
         return va.vit_attention(q, k, v)
@@ -591,7 +628,9 @@ def check_vit(torch, F, va, B, rng_seed=0):
         return F.scaled_dot_product_attention(qt, kt, vt)
     lib, lib_event = device_ms(torch, [sdpa]), time_ms(torch, sdpa)
     b_ms, b_by = bound(4.0 * S * S * D * H * B, 4.0 * B * S * H * D * 2)
-    rec = {"shape": f"B={B} S={S} H={H} D={D} bf16", "batch": B, **c,
+    rec = {"shape": f"B={B} S={S} H={H} D={D} bf16", "batch": B,
+           "key": [B, S, H, D], "padded_head_dim": padded_head_dim(D),
+           "padding_share": 1.0 - D / padded_head_dim(D), **c,
            "ms": ms, "event_ms": event_ms, "host_us": h_us,
            "plain_ms": plain, "library_ms": lib,
            "library_event_ms": lib_event, "bound_ms": b_ms, "bound_by": b_by}
@@ -5262,6 +5301,638 @@ def families(torch, np, F, fa, da, va, frames, instruction, counts, reset,
     return rec
 
 
+# phase 11: the vision tail and the offline tools. 11a holds K1 at the
+# encoder zoo's and anyres's (B, S, H, D) against its plain version:
+# EVA01-CLIP-g (88), CLIP/MLCD-bigG (104), CLIP-L and EVA02 (64; S2's 1, 4
+# and 9 crops), anyres's SigLIP batches of thumbnail and tiles (72)
+VIT_ZOO_SHAPES = ((1, 257, 16, 88), (1, 257, 16, 104), (1, 577, 16, 104),
+                  (1, 577, 16, 64), (4, 577, 16, 64), (9, 577, 16, 64),
+                  (1, 197, 12, 64), (3, 729, 16, 72), (4, 729, 16, 72),
+                  (5, 729, 16, 72))
+# 11b: each tower at its published depth and width, one frame at its
+# image size; the CLIP-L weights also serve S2 (336/672/1008)
+ZOO_TOWERS = ("openai/clip-vit-large-patch14-336",
+              "DeepGlint-AI/mlcd-vit-bigG-patch14-336",
+              "laion/CLIP-ViT-bigG-14-laion2B-39B-b160k", "EVA01-CLIP-g-14",
+              "EVA02-CLIP-L-14-336", "EVA02-CLIP-B-16")
+S2_SCALES = (336, 672, 1008)
+# a tower's weights freed must give the card's memory back within this
+ZOO_MEMORY_SLACK = 64 * 2**20
+# 11c: anyres on the 7B agent, one 480x640 (2x2 tiles) and one 384x1152
+# (3x1 tiles) image, and the question the offline entries ask
+ANYRES_IMAGES = ((480, 640), (384, 1152))
+ANYRES_QUESTION = "Describe the scene and say where the door is."
+VISION_TAIL_EPISODES = {"dagger": 2, "trajectories": 4}
+
+
+def padded_head_dim(D: int) -> int:
+    """The head dim K1's instance computes at (csrc/vit_attention.cu)."""
+    return 64 if D <= 64 else 80 if D <= 80 else 128
+
+
+def check_flash_uncached(torch, F, fa, S, Hq=28, Hkv=4, D=128, seed=3):
+    """K2 as anyres's uncached full recompute runs it: S queries over the
+    same S keys (no cache, q_pos = k_pos = 0..S-1), Qwen2-7B's heads,
+    against its plain version at phase 2's tolerance; timed by device time
+    beside the plain version and causal SDPA."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((1, S, Hq, D), generator=g, device="cuda") \
+        .to(torch.bfloat16)
+    k, v = (torch.randn((1, S, Hkv, D), generator=g, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    pos = torch.arange(S, device="cuda", dtype=torch.int32)[None] \
+        .contiguous()
+    out = fa.flash_attention(q, k, v, pos, pos)
+    torch.cuda.synchronize()
+    c = compare(out, fa.flash_attention_plain(q, k, v, pos, pos), torch.where(
+        (pos + 1 < FEW_KEYS)[:, :, None, None],   # query p sees p + 1 keys
+        2.0 ** -8 * fa.flash_attention_plain(q, k, v.abs(), pos, pos)
+        .float(), 0.0))
+    c["queries_seeing_few_keys"] = min(S, FEW_KEYS - 1)
+
+    def kernel():
+        return fa.flash_attention(q, k, v, pos, pos)
+    ms, event_ms = device_ms(torch, [kernel]), time_ms(torch, kernel)
+    plain = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, pos,
+                                                            pos), iters=3)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    lib = device_ms(torch, [sdpa])
+    pairs = S * (S + 1) // 2
+    b_ms, b_by = bound(4.0 * pairs * D * Hq,
+                       2 * (2 * S * Hq * D + 2 * S * Hkv * D) + 8 * S)
+    rec = {"shape": f"Sq=Sk={S} Hq={Hq} Hkv={Hkv} D={D} uncached (anyres) "
+                    f"bf16", "batch": 1, **c, "ms": ms, "event_ms": event_ms,
+           "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+           "bound_by": b_by}
+    log(f"11c K2 flash_attention {rec['shape']}: {tol_text(c)} kernel "
+        f"{ms:.4f} ms device ({event_ms:.4f} event-timed) plain {plain:.4f} "
+        f"ms causal sdpa {lib:.4f} ms device bound {b_ms:.4f} ms ({b_by})")
+    if not c["tol_share"] <= 1.0:
+        raise AssertionError(f"flash_attention (uncached) disagrees: {c}")
+    return rec
+
+
+def clip_state_dict(params, cfg) -> dict:
+    """A transformers CLIPVisionModel state dict made on the card from the
+    port's CLIP tower (the inverse of convert_hf_clip_tower)."""
+    pre = "vision_model."
+    D, P = cfg.hidden_size, cfg.patch_size
+    sd = {pre + "embeddings.patch_embedding.weight":
+          params["patch_w"].t().reshape(D, 3, P, P).contiguous(),
+          pre + "embeddings.class_embedding": params["cls_embed"],
+          pre + "pre_layrnorm.weight": params["pre_ln_s"],
+          pre + "pre_layrnorm.bias": params["pre_ln_b"]}
+    if cfg.rope2d:
+        sd[pre + "class_pos_emb"] = params["class_pos_emb"][None]
+    else:
+        sd[pre + "embeddings.position_embedding.weight"] = \
+            params["pos_embed"]
+    names = (("ln1", "layer_norm1"), ("q", "self_attn.q_proj"),
+             ("k", "self_attn.k_proj"), ("v", "self_attn.v_proj"),
+             ("o", "self_attn.out_proj"), ("ln2", "layer_norm2"),
+             ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2"))
+    p = params["layers"]
+    for i in range(cfg.num_layers):
+        lp = f"{pre}encoder.layers.{i}."
+        for ours, theirs in names:
+            w = p[ours + "_s"][i] if ours.startswith("ln") \
+                else p[ours + "_w"][i].t().contiguous()
+            sd[lp + theirs + ".weight"] = w
+            sd[lp + theirs + ".bias"] = p[ours + "_b"][i]
+    return sd
+
+
+def eva_state_dict(params, cfg) -> dict:
+    """An EVA-CLIP visual state dict made on the card from the port's EVA
+    tower (the inverse of convert_eva_tower)."""
+    import torch
+    D, P = cfg.hidden_size, cfg.patch_size
+    sd = {"patch_embed.proj.weight":
+          params["patch_w"].t().reshape(D, 3, P, P).contiguous(),
+          "patch_embed.proj.bias": params["patch_b"],
+          "cls_token": params["cls_embed"].reshape(1, 1, D),
+          "pos_embed": params["pos_embed"][None]}
+    names = [("ln1_s", "norm1.weight"), ("ln1_b", "norm1.bias"),
+             ("q_b", "attn.q_bias"), ("v_b", "attn.v_bias"),
+             ("o_w", "attn.proj.weight"), ("o_b", "attn.proj.bias"),
+             ("ln2_s", "norm2.weight"), ("ln2_b", "norm2.bias")]
+    names += [("q_w", "attn.q_proj.weight"), ("k_w", "attn.k_proj.weight"),
+              ("v_w", "attn.v_proj.weight"),
+              ("attn_ln_s", "attn.inner_attn_ln.weight"),
+              ("attn_ln_b", "attn.inner_attn_ln.bias"),
+              ("ffn_ln_s", "mlp.ffn_ln.weight"),
+              ("ffn_ln_b", "mlp.ffn_ln.bias")] if cfg.subln else []
+    mlp = ("w1", "w2", "w3") if cfg.swiglu else ("fc1", "fc2")
+    names += [(m + s, f"mlp.{m}.{t}") for m in mlp
+              for s, t in (("_w", "weight"), ("_b", "bias"))]
+    names += [("gamma_1", "gamma_1"), ("gamma_2", "gamma_2")] \
+        if cfg.layer_scale else []
+    p = params["layers"]
+    for i in range(cfg.num_layers - 1):
+        if not cfg.subln:       # EVA01's fused qkv
+            sd[f"blocks.{i}.attn.qkv.weight"] = torch.cat(
+                [p[n][i].t() for n in ("q_w", "k_w", "v_w")]).contiguous()
+        for ours, theirs in names:
+            w = p[ours][i]
+            sd[f"blocks.{i}.{theirs}"] = w.t().contiguous() \
+                if ours.endswith("_w") else w
+    return sd
+
+
+def tree_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(tree_equal(a[k], b[k]) for k in a)
+    return a.dtype == b.dtype and a.shape == b.shape and bool((a == b).all())
+
+
+def zoo_tower(torch, va, name, counts, reset, s2_params=None):
+    """11b for one tower: built through build_vision_tower with random bf16
+    weights from seed 0 on the card, one frame at its image size under
+    "auto" (K1 at every block) and "dense", the selected features' cosine,
+    ms per image, weight GiB and peak memory; with `s2_params` the S2
+    wrapper over those weights (K1 at 1, 4 and 9 crops). Returns (record,
+    params)."""
+    from streamvln_tpu_torch.models import encoders
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    s2 = s2_params is not None
+    cfg, init_fn, fwd = encoders.build_vision_tower(
+        name, s2=s2, s2_scales=S2_SCALES)
+    params = s2_params if s2 else init_fn(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
+        dtype=torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    S = cfg.image_size
+    images = torch.randn((1, S, S, 3), generator=g, device="cuda") \
+        .to(torch.bfloat16)
+    with torch.no_grad():
+        reset()
+        va.launches_by_shape = {}
+        out = fwd(params, images, attn_impl="auto")
+        torch.cuda.synchronize()
+        got, shapes = counts(), dict(va.launches_by_shape)
+        ref = fwd(params, images, attn_impl="dense")
+        ms = time_ms(torch, lambda: fwd(params, images), iters=5, warmup=1)
+        dev_ms = device_ms(torch, [lambda: fwd(params, images)], calls=5)
+    a, b = out.float().flatten(), ref.float().flatten()
+    cos = torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+    tok_cos = torch.nn.functional.cosine_similarity(
+        out.float(), ref.float(), dim=-1).min().item()
+    blocks = cfg.num_layers - 1       # select_layer -2 / EVA's skipped last
+    per_fwd = blocks * (len(S2_SCALES) if s2 else 1)
+    N1 = cfg.num_patches + 1
+    want_shapes = {((s // S) ** 2, N1, cfg.num_heads, cfg.head_dim): blocks
+                   for s in (S2_SCALES if s2 else (S,))}
+    rec = {"tower": name + (" S2 " + "/".join(map(str, S2_SCALES))
+                            if s2 else ""),
+           "layers_run": blocks, "hidden": cfg.hidden_size,
+           "heads": cfg.num_heads, "head_dim": cfg.head_dim,
+           "padded_head_dim": padded_head_dim(cfg.head_dim), "tokens": N1,
+           "image_size": S, "features": list(out.shape),
+           "cosine_vs_dense": cos, "min_token_cosine_vs_dense": tok_cos,
+           "ms_per_image": ms, "device_ms_per_image": dev_ms,
+           "weights_gib": tree_bytes(params) / 2**30,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "launches": got, "vit_launches_by_shape": {
+               f"B={k[0]} S={k[1]} H={k[2]} D={k[3]}": n
+               for k, n in sorted(shapes.items())},
+           "shapes": sorted(shapes)}
+    log(f"11b {rec['tower']}: {blocks} blocks, {cfg.num_heads}x"
+        f"{cfg.head_dim} (K1 at {rec['padded_head_dim']}), S={N1}, features "
+        f"{rec['features']}; {ms:.3f} ms/image ({dev_ms:.3f} of it on the "
+        f"device), weights "
+        f"{rec['weights_gib']:.3f} GiB, peak "
+        f"{rec['peak_memory_bytes'] / 2**30:.2f} GiB; auto vs dense cosine "
+        f"{cos:.6f} (least token {tok_cos:.5f}); K1 {rec['vit_launches_by_shape']}")
+    require(f"11b {rec['tower']}",
+            finite=bool(torch.isfinite(out).all()),
+            feature_shape=list(out.shape) == [
+                1, cfg.num_patches, cfg.hidden_size
+                * (len(S2_SCALES) if s2 else 1)],
+            auto_matches_dense=cos >= REF_MIN_COSINE,
+            k1_at_every_block=got["vit_attention"] == per_fwd
+            and shapes == want_shapes,
+            no_other_kernel=got["flash_attention"] == 0)
+    return rec, params
+
+
+def resampler_on_card(torch, name, **kw):
+    """11b: a perceiver or qformer resampler on SigLIP's [8, 729, 1152]
+    features in bf16 (dense attention, no kernel, as the reference), its
+    output against the same weights and features in f32."""
+    from streamvln_tpu_torch.models import resampler
+    init, apply = resampler.build_resampler(name, **kw)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = init(1152, g, device="cuda", dtype=torch.bfloat16)
+    feats = torch.randn((8, 729, 1152), generator=g, device="cuda") \
+        .to(torch.bfloat16)
+    with torch.no_grad():
+        out = apply(params, feats)
+        ref = apply(tree_map(lambda t: t.float(), params), feats.float())
+        ms = time_ms(torch, lambda: apply(params, feats), iters=5, warmup=1)
+    cos = torch.nn.functional.cosine_similarity(
+        out.float().flatten(), ref.flatten(), dim=0).item()
+    rec = {"resampler": name, "output": list(out.shape), "ms": ms,
+           "cosine_vs_f32": cos, "weights_gib": tree_bytes(params) / 2**30}
+    log(f"11b {name} resampler [8, 729, 1152] -> {rec['output']}: {ms:.3f} "
+        f"ms, bf16 vs f32 cosine {cos:.6f}")
+    require(f"11b {name}", finite=bool(torch.isfinite(out).all()),
+            bf16_matches_f32=cos >= REF_MIN_COSINE)
+    return rec
+
+
+def zoo(torch, va, counts, reset):
+    """11b: every tower of ZOO_TOWERS (and CLIP-L under S2), each freed
+    before the next is built with the card's memory back within
+    ZOO_MEMORY_SLACK; the two converters round-tripped bit for bit on state
+    dicts made on the card from CLIP-L's and EVA02-B's own weights; the
+    perceiver and qformer resamplers."""
+    from streamvln_tpu_torch.models import encoders
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    towers, shapes, conversions = [], set(), {}
+    for name in ZOO_TOWERS:
+        rec, params = zoo_tower(torch, va, name, counts, reset)
+        towers.append(rec)
+        shapes |= set(rec["shapes"])
+        cfg = encoders.build_vision_tower(name)[0]
+        if name.startswith("openai"):
+            rec = zoo_tower(torch, va, name, counts, reset, params)[0]
+            towers.append(rec)
+            shapes |= set(rec["shapes"])
+        if name in ("openai/clip-vit-large-patch14-336", "EVA02-CLIP-B-16"):
+            eva = isinstance(cfg, encoders.EvaVisionConfig)
+            sd = (eva_state_dict if eva else clip_state_dict)(params, cfg)
+            conv = encoders.convert_eva_tower if eva \
+                else encoders.convert_hf_clip_tower
+            back = conv(sd, cfg, dtype=torch.bfloat16, device="cuda")
+            conversions[conv.__name__] = {
+                "tower": name, "tensors": len(sd),
+                "bit_equal": tree_equal(back, params)}
+            log(f"11b {conv.__name__} on {name}'s weights ({len(sd)} "
+                f"tensors on the card): round trip bit-equal "
+                f"{conversions[conv.__name__]['bit_equal']}")
+            del sd, back
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated() - base
+        towers[-1]["memory_left_bytes"] = left
+        log(f"11b {name} freed: {left / 2**20:.1f} MiB left on the card")
+        require(f"11b {name}: freed", memory_back=left <= ZOO_MEMORY_SLACK)
+    require("11b converters", **{k: v["bit_equal"]
+                                 for k, v in conversions.items()})
+    res = [resampler_on_card(torch, "perceiver"),
+           resampler_on_card(torch, "qformer")]
+    return {"towers": towers, "conversions": conversions,
+            "resamplers": res, "vit_shapes": sorted(shapes)}
+
+
+@contextlib.contextmanager
+def shared_agent(eval_cli, agent, box):
+    """While open, eval_cli.build_agent hands out `agent` (the entry points
+    share the phase's one 7B agent) and records each request's args in
+    box["builds"]."""
+    build0 = eval_cli.build_agent
+    box.setdefault("builds", [])
+
+    def build_agent(*a, **k):
+        box["builds"].append({"args": [str(x) for x in a],
+                              **{n: str(v) for n, v in k.items()}})
+        return agent
+    eval_cli.build_agent = build_agent
+    try:
+        yield box
+    finally:
+        eval_cli.build_agent = build0
+
+
+def anyres_on_card(torch, np, va, agent, counts, reset):
+    """11c: generate_anyres on the 7B agent's weights for each image of
+    ANYRES_IMAGES: the first step's logits under "auto" within cosine
+    REF_MIN_COSINE of "dense", K1 once per tower layer at the tile batch and
+    K2 once per layer per generated token, ms per generated token."""
+    from streamvln_tpu_torch.data import chatml
+    from streamvln_tpu_torch.models import anyres
+    eng, cfg, tok = agent.engine, agent.cfg, agent.tok
+    params = eng.params
+    ids, _ = chatml.tokenize_dialogue(
+        tok, [("user", "<image>\n" + ANYRES_QUESTION)], add_system=True,
+        with_labels=False)
+    ids = np.concatenate([ids, np.asarray(chatml.generation_prompt(tok),
+                                          np.int32)])
+    rng = np.random.default_rng(0)
+    recs = []
+    for h, w in ANYRES_IMAGES:
+        image = rng.integers(0, 256, (h, w, 3), np.uint8)
+        npw, nph = anyres.get_anyres_image_grid_shape(
+            (w, h), anyres.DEFAULT_GRID_PINPOINTS, cfg.vision.image_size)
+        n_tok = anyres.anyres_token_count(
+            (w, h), anyres.DEFAULT_GRID_PINPOINTS, cfg.vision.image_size,
+            cfg.vision.patches_per_side)
+        with torch.no_grad():
+            logits = {}
+            for impl in ("auto", "dense"):
+                feats = anyres.encode_anyres(params, cfg, image,
+                                             attn_impl=impl)
+                logits[impl] = anyres.anyres_logits(params, cfg, feats, ids,
+                                                    n_tok, impl)
+            del feats
+            torch.cuda.synchronize()
+            agree = logits_agreement(torch, logits["auto"][None],
+                                     logits["dense"][None])
+            t0 = time.perf_counter()
+            anyres.encode_anyres(params, cfg, image)
+            torch.cuda.synchronize()
+            encode_s = time.perf_counter() - t0
+        reset()
+        va.launches_by_shape = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = anyres.generate_anyres(params, cfg, tok, image, ids,
+                                     max_new=eng.max_new,
+                                     stop_ids=eng.stop_ids)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        got, shapes = counts(), dict(va.launches_by_shape)
+        tiles = npw * nph + 1
+        Sq = len(ids) - 1 + n_tok
+        rec = {"image_hw": [h, w], "tiles": [nph, npw], "tile_batch": tiles,
+               "image_tokens": n_tok, "prompt_ids": len(ids),
+               "first_sq": Sq, "last_sq": Sq + len(out) - 1,
+               "tokens": out, "launches": got,
+               "vit_shapes": sorted(shapes), "encode_ms": encode_s * 1e3,
+               "generate_s": gen_s,
+               "ms_per_generated_token": (gen_s - encode_s) * 1e3 / len(out),
+               **{f"first_logits_{k}": v for k, v in agree.items()}}
+        log(f"11c anyres {h}x{w}: {nph}x{npw} tiles + thumbnail (K1 batch "
+            f"{tiles}), {n_tok} image tokens, Sq {Sq}..{rec['last_sq']}; "
+            f"{len(out)} tokens in {gen_s:.2f} s ({encode_s * 1e3:.1f} ms "
+            f"encode, {rec['ms_per_generated_token']:.2f} ms per generated "
+            f"token); first-step logits auto vs dense cosine "
+            f"{agree['cosine']:.6f} top-1 agree {agree['top1_agree']}; "
+            f"launches {got}")
+        require(f"11c anyres {h}x{w}",
+                tokens=1 <= len(out) <= eng.max_new,
+                first_logits_match_dense=agree["cosine"] >= REF_MIN_COSINE,
+                k1_once_per_layer_at_the_tile_batch=got["vit_attention"]
+                == cfg.vision.num_layers and set(shapes) == {
+                    (tiles, cfg.vision.num_patches, cfg.vision.num_heads,
+                     cfg.vision.head_dim)},
+                k2_once_per_layer_per_token=got["flash_attention"]
+                == cfg.llm.num_layers * len(out),
+                no_other_kernel=got["decode_attention"] == 0
+                and got["int4_matmul"] == 0)
+        recs.append(rec)
+    return recs
+
+
+def write_jpegs(np, d, frames):
+    from PIL import Image
+    os.makedirs(d, exist_ok=True)
+    for i, f in enumerate(frames):
+        Image.fromarray(f).save(os.path.join(d, f"{i:03d}.jpg"))
+
+
+def offline_and_benchmark(torch, np, va, agent, counts, reset, tmp):
+    """11c: offline.main over 2 square video entries (3 frames each) and 2
+    anyres images under --image_aspect_ratio anyres; benchmark.main in
+    process over 2 tasks of 3 entries (multiple choice, contains); both on
+    the shared 7B agent. Then run_external_benchmark: one task in a child
+    process at --model_size 0.5b on cuda, which must report the card."""
+    from streamvln_tpu_torch import eval_cli
+    from streamvln_tpu_torch.eval import benchmark, offline
+    rng = np.random.default_rng(1)
+    media = os.path.join(tmp, "media")
+    for v in ("v0", "v1"):
+        write_jpegs(np, os.path.join(media, v),
+                    rng.integers(0, 256, (3, 480, 640, 3), np.uint8))
+    for i, (h, w) in enumerate(ANYRES_IMAGES):
+        write_jpegs(np, os.path.join(media, f"img{i}"),
+                    rng.integers(0, 256, (1, h, w, 3), np.uint8))
+    q = {"from": "human", "value": "<image>\n" + ANYRES_QUESTION}
+    entries = [{"id": "v0", "video": "v0", "conversations": [q]},
+               {"id": "v1", "video": "v1", "conversations": [q]},
+               {"id": "i0", "image": "img0/000.jpg", "conversations": [q]},
+               {"id": "i1", "image": "img1/000.jpg", "conversations": [q]}]
+    qfile = os.path.join(tmp, "questions.json")
+    with open(qfile, "w") as f:
+        json.dump(entries, f)
+    answers_file = os.path.join(tmp, "answers.jsonl")
+    box = {}
+    rec = {}
+    with shared_agent(eval_cli, agent, box):
+        reset()
+        t0 = time.perf_counter()
+        answers = offline.main(["--question_file", qfile, "--media_root",
+                                media, "--answers_file", answers_file,
+                                "--num_frames_qa", "3",
+                                "--image_aspect_ratio", "anyres"])
+        torch.cuda.synchronize()
+        rec["offline"] = {"seconds": time.perf_counter() - t0,
+                          "answered": len(answers), "launches": counts(),
+                          "answer_s": [a["answer_time"] for a in answers]}
+        lines = [json.loads(x) for x in open(answers_file)]
+        for t, (kind, answer) in enumerate((("multiple_choice", "B"),
+                                            ("contains", "door"))):
+            with open(os.path.join(tmp, f"task{t}.jsonl"), "w") as f:
+                for i in range(3):
+                    e = {"id": i, "question": f"{ANYRES_QUESTION} A. left "
+                         f"B. right", "answer": answer, "answer_type": kind}
+                    if i < 2:
+                        e["image"] = f"v{i}/000.jpg"
+                    f.write(json.dumps(e) + "\n")
+        reset()
+        t0 = time.perf_counter()
+        out_dir = os.path.join(tmp, "bench")
+        res = benchmark.main(["--tasks", "task0,task1", "--task_dir", tmp,
+                              "--media_root", media, "--output_path",
+                              out_dir])
+        torch.cuda.synchronize()
+        rec["benchmark"] = {"seconds": time.perf_counter() - t0,
+                            "results": res, "launches": counts()}
+    samples = [sum(1 for _ in open(os.path.join(out_dir,
+                                                f"samples_task{t}.jsonl")))
+               for t in (0, 1)]
+    rec["builds"] = box["builds"]
+    log(f"11c offline.main: {len(answers)} answers in "
+        f"{rec['offline']['seconds']:.2f} s (per entry "
+        f"{[round(x, 3) for x in rec['offline']['answer_s']]} s), launches "
+        f"{rec['offline']['launches']}; benchmark.main: {res['results']} in "
+        f"{rec['benchmark']['seconds']:.2f} s, launches "
+        f"{rec['benchmark']['launches']}")
+    require("11c offline and benchmark in process",
+            every_entry_answered=len(answers) == len(lines) == 4
+            and [a["question_id"] for a in lines] == [e["id"]
+                                                      for e in entries],
+            answers_are_text=all(isinstance(a["text"], str) for a in lines),
+            results_hold_every_entry=[res["results"][f"task{t}"]["n"]
+                                      for t in (0, 1)] == [3.0, 3.0]
+            and samples == [3, 3] and res["device"] == "cuda",
+            one_agent=len(box["builds"]) == 2,
+            k1_and_k2_ran=rec["offline"]["launches"]["vit_attention"] > 0
+            and rec["offline"]["launches"]["flash_attention"] > 0)
+    # the child: a fresh process on the card, its own 0.5b weights
+    t0 = time.perf_counter()
+    child_dir = os.path.join(tmp, "child")
+    flat = benchmark.run_external_benchmark(
+        tasks="task0", task_dir=tmp, output_path=child_dir,
+        model_size="0.5b", media_root=media, device="cuda")
+    with open(os.path.join(child_dir, "results.json")) as f:
+        payload = json.load(f)
+    rec["external"] = {"seconds": time.perf_counter() - t0, "flat": flat,
+                       "device": payload.get("device")}
+    log(f"11c run_external_benchmark (child at 0.5b): {flat} on "
+        f"{payload.get('device')} in {rec['external']['seconds']:.2f} s")
+    require("11c run_external_benchmark",
+            child_on_the_card=payload.get("device") == "cuda",
+            metrics=set(flat) == {"task0_accuracy"},
+            every_entry=payload["results"]["task0"]["n"] == 3.0)
+    return rec
+
+
+ANNOTATION_KEYS = {"id": int, "video": str, "instructions": list,
+                   "actions": list}
+
+
+def annotations_ok(root, anns) -> bool:
+    """The reference's annotation schema: {id, video, instructions,
+    actions}, a leading -1 action, one 1-based JPEG per action."""
+    for a in anns:
+        if set(a) != set(ANNOTATION_KEYS) or not all(
+                isinstance(a[k], t) for k, t in ANNOTATION_KEYS.items()):
+            return False
+        jpgs = sorted(os.listdir(os.path.join(root, a["video"], "rgb")))
+        if a["actions"][0] != -1 or jpgs[:1] != ["001.jpg"] \
+                or len(jpgs) != len(a["actions"]):
+            return False
+    return True
+
+
+def dagger_and_trajectories(torch, agent, counts, reset, tmp):
+    """11d: dagger.main over VISION_TAIL_EPISODES["dagger"] fake-env
+    episodes at data_iteration 1 on the shared 7B agent, and
+    trajectory_generation.main over VISION_TAIL_EPISODES["trajectories"]
+    episodes then merge; annotation schemas, the save gate's decision of
+    every episode, episodes per minute."""
+    from streamvln_tpu_torch import dagger, eval_cli, trajectory_generation
+    box = {}
+    out = os.path.join(tmp, "dagger")
+    n_d = VISION_TAIL_EPISODES["dagger"]
+    with shared_agent(eval_cli, agent, box):
+        reset()
+        t0 = time.perf_counter()
+        col = dagger.main(["--output_path", out, "--model_size", "7b",
+                           "--num_episodes", str(n_d), "--dagger_data_it",
+                           "1", "--env_backend", "fake"])
+        torch.cuda.synchronize()
+        d_s = time.perf_counter() - t0
+    anns = json.load(open(os.path.join(out, "annotations.json")))
+    rec = {"dagger": {"seconds": d_s, "episodes_per_minute": n_d / d_s * 60,
+                      "decisions": col.decisions, "saved": len(anns),
+                      "launches": counts(), "builds": box["builds"]}}
+    out_t = os.path.join(tmp, "trajectories")
+    n_t = VISION_TAIL_EPISODES["trajectories"]
+    t0 = time.perf_counter()
+    trajectory_generation.main(["--output_path", out_t, "--num_episodes",
+                                str(n_t), "--env_backend", "fake"])
+    t_s = time.perf_counter() - t0
+    merged = json.load(open(os.path.join(out_t, "annotations.json")))
+    rec["trajectories"] = {"seconds": t_s,
+                           "episodes_per_minute": n_t / t_s * 60,
+                           "episodes": len(merged),
+                           "actions": [len(a["actions"]) for a in merged]}
+    log(f"11d dagger.main: {n_d} episodes in {d_s:.2f} s "
+        f"({rec['dagger']['episodes_per_minute']:.2f} episodes/min), "
+        f"decisions {[(d['saved'], round(d['pl'], 3)) for d in col.decisions]}"
+        f", {len(anns)} saved, launches {rec['dagger']['launches']}; "
+        f"trajectory_generation.main: {len(merged)} episodes in {t_s:.2f} s "
+        f"({rec['trajectories']['episodes_per_minute']:.1f} episodes/min)")
+    require("11d dagger and trajectories",
+            gate_decided_every_episode=len(col.decisions) == n_d,
+            saved_as_decided=len(anns) == sum(d["saved"]
+                                              for d in col.decisions),
+            dagger_schema=annotations_ok(out, anns),
+            model_ran=rec["dagger"]["launches"]["vit_attention"] > 0,
+            trajectories_merged=len(merged) == n_t,
+            trajectory_schema=annotations_ok(out_t, merged)
+            and all(0 not in a["actions"] for a in merged))
+    return rec
+
+
+def vision_tail(torch, np, F, va, fa, counts, reset, card):
+    """Phase 11: 11a K1 at VIT_ZOO_SHAPES against its plain version, and K2
+    at anyres's uncached prefill; 11b the zoo and the resamplers; 11c
+    anyres, offline.main, benchmark.main and run_external_benchmark on one
+    shared streamvln_7b agent; 11d dagger.main and
+    trajectory_generation.main. Everything written goes under
+    tempfile.gettempdir() and is removed. Returns the phase's record, with
+    the K1 shapes every sub-phase sent (vit_shapes)."""
+    import shutil
+    import tempfile
+
+    from streamvln_tpu_torch import eval_cli
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    vit = [check_vit(torch, F, va, B, S=S, H=H, D=D)
+           for B, S, H, D in VIT_ZOO_SHAPES]
+    rec = {"vit": vit, "zoo": zoo(torch, va, counts, reset)}
+    shapes = set(rec["zoo"]["vit_shapes"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    agent = eval_cli.build_agent(None, "7b")
+    torch.cuda.synchronize()
+    rec["agent_build_s"] = time.perf_counter() - t0
+    rec["anyres"] = anyres_on_card(torch, np, va, agent, counts, reset)
+    shapes |= {tuple(s) for r in rec["anyres"] for s in r["vit_shapes"]}
+    rec["flash"] = [check_flash_uncached(torch, F, fa, r["first_sq"])
+                    for r in rec["anyres"]]
+    tmp = tempfile.mkdtemp(prefix="vision_tail_",
+                           dir=tempfile.gettempdir())
+    try:
+        va.launches_by_shape = {}
+        rec["entry_points"] = offline_and_benchmark(torch, np, va, agent,
+                                                    counts, reset, tmp)
+        rec["tools"] = dagger_and_trajectories(torch, agent, counts, reset,
+                                               tmp)
+        shapes |= set(va.launches_by_shape)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["peak_memory_bytes_7b"] = torch.cuda.max_memory_allocated()
+    del agent
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["vit_shapes"] = sorted(shapes)
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 11 ({card}): {rec['seconds']:.1f} s; K1 shapes sent "
+        f"{rec['vit_shapes']}")
+    return rec
+
+
+def vision_tail_summary(rec, card) -> str:
+    """Phase 11 on one line, beside the card's name and power limit."""
+    towers = "; ".join(f"{t['tower']} {t['ms_per_image']:.2f} ms/image "
+                       f"(cos {t['cosine_vs_dense']:.4f})"
+                       for t in rec["zoo"]["towers"])
+    anyres = "; ".join(f"{'x'.join(map(str, r['image_hw']))} "
+                       f"{r['ms_per_generated_token']:.1f} ms/token "
+                       f"({r['image_tokens']} image tokens)"
+                       for r in rec["anyres"])
+    tools = rec["tools"]
+    return (f"phase 11 vision tail ({card}): {towers}; anyres {anyres}; "
+            f"dagger {tools['dagger']['episodes_per_minute']:.2f} "
+            f"episodes/min, trajectories "
+            f"{tools['trajectories']['episodes_per_minute']:.1f} "
+            f"episodes/min; {rec['seconds']:.1f} s")
+
+
 def families_summary(rec, card) -> str:
     """Phase 10 on one line, beside the card's name and power limit."""
     parts = []
@@ -5430,6 +6101,20 @@ def family_launches(fam, name) -> dict:
     return out
 
 
+def tail_launches(tail, name) -> dict:
+    """A kernel's launches in phase 11, by sub-phase: each tower's forward
+    under "auto", each anyres generation, offline.main, benchmark.main and
+    dagger.main."""
+    out = {t["tower"]: t["launches"][name] for t in tail["zoo"]["towers"]}
+    out.update({"anyres " + "x".join(map(str, r["image_hw"])):
+                r["launches"][name] for r in tail["anyres"]})
+    ep = tail["entry_points"]
+    out.update(offline=ep["offline"]["launches"][name],
+               benchmark=ep["benchmark"]["launches"][name],
+               dagger=tail["tools"]["dagger"]["launches"][name])
+    return out
+
+
 def by_batch(va) -> dict:
     """K1's launches by batch size since its counts were last reset."""
     return {f"B={b}": n for b, n in sorted(va.launches_by_batch.items())}
@@ -5472,6 +6157,7 @@ def main() -> int:
     def reset_counts():
         va.launches = fa.launches = i4.launches = i4.dequant_launches = 0
         da.launches, va.launches_by_batch = 0, {}
+        va.launches_by_shape = {}
 
     def serving_counts():
         return {"vit_attention": va.launches, "flash_attention": fa.launches,
@@ -5497,9 +6183,11 @@ def main() -> int:
     if bwd_log is not None and not registers_ok(bwd_log):
         raise AssertionError("the K4/K5 kernels spill registers or "
                              "serialize their wgmma")
-    # the head-dim-256 instances of K2/K3 and K8 (the families) spill no
-    # register; ptxas's notes on serialized wgmma are printed
+    # the head-dim-256 instances of K2/K3 and K8 (the families) and K1's
+    # DP=128 instance (the zoo's head dims 88 and 104) spill no register;
+    # ptxas's notes on serialized wgmma are printed
     for name, label in (("flash_attention", "attention_fwd_kernel<256>"),
+                        ("vit_attention", "attention_fwd_kernel<128>"),
                         ("decode_attention",
                          "decode_attention_kernel<bf16,1,256>")):
         text = build.build_logs.get(name)
@@ -5691,8 +6379,21 @@ def main() -> int:
     log_captures("phase 10", fam["captures"])
     cli_batches |= {b for r in fam["families"]
                     for b in r["vit_launches_by_batch"]}
-    for b in sorted(int(x[2:]) for x in cli_batches
-                    - {f"B={r['batch']}" for r in vit}):
+
+    # 11. the vision tail: K1 at the zoo's and anyres's shapes, the towers,
+    # the resamplers, anyres, the offline and benchmark evaluators, DAgger
+    # and trajectory generation
+    n_captures = len(captures)
+    tail = vision_tail(torch, np, F, va, fa, serving_counts, reset_counts,
+                       card)
+    tail["captures"] = captures[n_captures:]
+    log_captures("phase 11", tail["captures"])
+    vit += tail["vit"]
+
+    def siglip_checked():
+        return {f"B={r['batch']}" for r in vit
+                if tuple(r["key"][1:]) == (729, 16, 72)}
+    for b in sorted(int(x[2:]) for x in cli_batches - siglip_checked()):
         vit.append(check_vit(torch, F, va, b))
 
     sent = set(vit_by_batch) | set(train["vit_launches_by_batch"]) | \
@@ -5700,10 +6401,16 @@ def main() -> int:
         set(serving["vit_launches_by_batch"]) | \
         set(turnkey["vit_launches_by_batch"]) | \
         set(qtail["vit_batches"]) | cli_batches
-    unchecked = sent - {f"B={r['batch']}" for r in vit}
+    unchecked = sent - siglip_checked()
     if unchecked:
         raise AssertionError(f"the main paths sent K1 batches {unchecked} "
                              f"that phase 2 did not check")
+    unchecked = {tuple(k) for k in tail["vit_shapes"]} - {
+        tuple(r["key"]) for r in vit}
+    if unchecked:
+        raise AssertionError(f"phase 11 sent K1 shapes (B, S, H, D) "
+                             f"{sorted(unchecked)} that phases 2 and 11a "
+                             f"did not check")
     k7_shapes = {f"{din}x{dout} {dt}": n for (din, dout, dt), n
                  in sorted(i4.dequant_launches_by_shape.items())}
     unchecked = set(i4.dequant_launches_by_shape) - {
@@ -5714,8 +6421,8 @@ def main() -> int:
                              f"check")
     log(f"K7 launches by shape over the whole run: {k7_shapes}")
 
-    # 11. summary
-    flash += fam["kernels"]["flash"]
+    # 12. summary
+    flash += fam["kernels"]["flash"] + tail["flash"]
     decode_recs += fam["kernels"]["decode"]
     kernels = [
         kernel_entry("vit_attention",
@@ -5735,7 +6442,9 @@ def main() -> int:
                          qtail, "vit_attention"),
                      launches_train_cli=cli_launches(cli, "vit_attention"),
                      launches_families=family_launches(fam,
-                                                       "vit_attention")),
+                                                       "vit_attention"),
+                     launches_vision_tail=tail_launches(tail,
+                                                        "vit_attention")),
         kernel_entry("flash_attention",
                      "streamvln_tpu_torch/csrc/flash_attention.cu",
                      "streamvln_tpu/ops/flash_attention.py:49", n_flash,
@@ -5751,7 +6460,9 @@ def main() -> int:
                          qtail, "flash_attention"),
                      launches_train_cli=cli_launches(cli, "flash_attention"),
                      launches_families=family_launches(fam,
-                                                       "flash_attention"))]
+                                                       "flash_attention"),
+                     launches_vision_tail=tail_launches(tail,
+                                                        "flash_attention"))]
     for name, src in (
             ("flash_attention_lse",
              "streamvln_tpu_torch/csrc/flash_attention.cu"),
@@ -5804,6 +6515,7 @@ def main() -> int:
     log(quantized_tail_summary(qtail, card))
     log(train_cli_summary(cli, card))
     log(families_summary(fam, card))
+    log(vision_tail_summary(tail, card))
     log(f"chip_smoke: all phases passed in {seconds:.1f} s")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -5816,7 +6528,8 @@ def main() -> int:
                    "training_kernels": train_k, "training": train,
                    "evaluation": evaluation, "serving_stack": serving,
                    "turnkey": turnkey, "quantized_tail": qtail,
-                   "train_cli": cli, "families": fam, "seconds": seconds},
+                   "train_cli": cli, "families": fam,
+                   "vision_tail": tail, "seconds": seconds},
                   f, indent=1,
                   default=str)
     print(json.dumps({"kernels": kernels}))

@@ -105,8 +105,6 @@ class VLNAgent:
         self.rgb_list[idx].append(rgb)
         step = self.step_id[idx]
         boundary = (not self.in_dialogue[idx]) and step != 0
-        turn_ids = self._build_turn(idx, instruction_text,
-                                    with_memory=boundary)
         # History is injected at EVERY first post-reset call, aligned or
         # not: the reference adds the memory clause whenever
         # output_ids is None and step_id != 0 (streamvln_eval.py:295-297,
@@ -120,8 +118,15 @@ class VLNAgent:
         # we follow the clause's (and the training distribution's)
         # intent instead: history sampled from time_ids[0], which is
         # the window-reset step in both regimes. Frames that never saw a
-        # model call are encoded on demand via backfill.
+        # model call are encoded on demand via backfill. A window's first
+        # call that follows only non-model steps from step 0 (an offline
+        # video's last frame, a DAgger rollout the expert began) has no
+        # history to show: it gets no memory clause, where the JAX package
+        # adds the clause and its splice reads the <memory> rows past the
+        # vision pool (ROADMAP §3, item 9).
         history = self._history_steps(idx) if boundary else []
+        turn_ids = self._build_turn(idx, instruction_text,
+                                    with_memory=bool(history))
         if history:
             # one dispatch for ALL missing history frames (engine
             # dedupes already-encoded steps)

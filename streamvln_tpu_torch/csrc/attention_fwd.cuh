@@ -27,7 +27,8 @@
 // registers from the producer warpgroup to the consumers.
 //
 // Head dims: the padded head dim DP is 64 (CLIP), 80 (SigLIP's 72), 128
-// (Qwen2 and most families) or 256 (Gemma). At DP = 256 a 64-row O
+// (Qwen2 and most families; in K1 the encoder zoo's 88 and 104) or 256
+// (Gemma). At DP = 256 a 64-row O
 // accumulator is 128 f32 registers a thread before S and P, and ptxas caps
 // each thread of a 384-thread block at 168 registers whatever setmaxnreg
 // says, so that instance runs ONE consumer warpgroup (64-row query tiles,
@@ -240,7 +241,9 @@ struct FwdShape {
   static constexpr int Q_OFF = 0;
   // Q buffers: two where a block walks several items (the next item's Q
   // loads during the current one); the prefill and training kernels
-  // (DP >= 128, positions) take one item per block and need one
+  // (DP >= 128, positions) take one item per block and need one. K1 at
+  // DP = 128 (head dims 88 and 104) walks items with the one buffer: the
+  // next item's Q loads once the current item's last S product is done
   static constexpr int QB = DP >= 128 ? 1 : 2;
   static constexpr int K_OFF = Q_OFF + QB * Q_BYTES;
   static constexpr int V_OFF = K_OFF + ST * KV_BYTES;

@@ -14,14 +14,20 @@
 // producer warp keeps in flight behind mbarriers, so loads overlap the
 // products; tiles with no ragged tail take no per-element mask. D=72 is
 // padded to 80 (a 64-column and a 16-column chunk; the padding is 11% of
-// the products). Blocks take 128-row query tiles (two consumer
-// warpgroups sharing each K/V tile) at every batch; at batch 1 that is
-// 6 x 16 = 96 blocks for the card's 132 SMs.
+// the products). The encoder zoo's towers add D=88 (EVA01-CLIP-g) and
+// D=104 (CLIP-bigG, MLCD-bigG): both run the DP=128 instance, two 64-column
+// chunks whose TMA boxes zero-fill the columns past D, as the TPU kernel
+// pads every D <= 128 to 128 lanes; the padding is 31% of the products at
+// 88 and 19% at 104, and the output columns past D are never stored.
+// Blocks take 128-row query tiles (two consumer warpgroups sharing each K/V
+// tile) at every batch; at batch 1 and S=729 that is 6 x 16 = 96 blocks for
+// the card's 132 SMs.
 //
 // C interface (ctypes): q/k/v/o are [B, S, H, D] bf16 with the head dim
 // contiguous; strides are in elements and multiples of 8 (TMA needs
-// 16-byte strides). D is 72 (SigLIP, padded to 80) or 64 (CLIP); any other
-// D, or a layout the tensor maps refuse, returns cudaErrorInvalidValue.
+// 16-byte strides). D is 64 (CLIP, EVA02), 72 (SigLIP, padded to 80), 88
+// or 104 (padded to 128); any other D, or a layout the tensor maps refuse,
+// returns cudaErrorInvalidValue.
 #include "attention_fwd.cuh"
 
 extern "C" int svt_vit_attention(
@@ -48,6 +54,8 @@ extern "C" int svt_vit_attention(
   switch (D) {
     case 64: return svt::attention_forward<64>(a, st);
     case 72: return svt::attention_forward<80>(a, st);
+    case 88:
+    case 104: return svt::attention_forward<128>(a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

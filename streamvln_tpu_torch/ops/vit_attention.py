@@ -11,7 +11,8 @@ a producer warp loads with TMA behind an mbarrier pipeline.
 
 `vit_attention` is the wrapper: on CPU tensors it runs `vit_attention_plain`;
 on CUDA tensors it launches the kernel or raises. `launches` counts kernel
-launches, `launches_by_batch` the same launches by batch size. It is differentiable (`_VitAttentionFn`): the backward is the
+launches, `launches_by_batch` the same launches by batch size and
+`launches_by_shape` by (B, S, H, D). It is differentiable (`_VitAttentionFn`): the backward is the
 dense torch-math recompute of the JAX package's custom VJP
 (`streamvln_tpu/ops/vit_attention.py:95-103`), which has no Pallas
 backward either, so there is no backward kernel to port.
@@ -26,7 +27,10 @@ from streamvln_tpu_torch.kernels import build
 
 launches = 0
 launches_by_batch: dict = {}       # batch size -> kernel launches
-KERNEL_HEAD_DIMS = (64, 72)        # CLIP, SigLIP
+launches_by_shape: dict = {}       # (B, S, H, D) -> kernel launches
+# CLIP-L and EVA02 (64), SigLIP (72, padded to 80), EVA01-CLIP-g (88) and
+# CLIP/MLCD-bigG (104), both padded to 128 as the TPU kernel pads them
+KERNEL_HEAD_DIMS = (64, 72, 88, 104)
 
 
 def vit_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -70,9 +74,12 @@ def _forward(q, k, v, scale: float) -> torch.Tensor:
     global launches
     if q.device.type == "cpu":
         return vit_attention_plain(q, k, v, scale)
+    B, S, H, D = q.shape
+    if D % 8:
+        raise ValueError(f"vit_attention kernel: head dim {D} is not a "
+                         f"multiple of 8 (TMA needs 16-byte strides)")
     if q.device.type != "cuda":
         raise ValueError(f"vit_attention: unsupported device {q.device}")
-    B, S, H, D = q.shape
     if q.dtype != torch.bfloat16 or D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"vit_attention kernel takes bf16 with head dim "
                          f"in {KERNEL_HEAD_DIMS}, got {q.dtype} and {D}; "
@@ -99,6 +106,8 @@ def _forward(q, k, v, scale: float) -> torch.Tensor:
     build.check(rc, "vit_attention")
     launches += 1
     launches_by_batch[B] = launches_by_batch.get(B, 0) + 1
+    launches_by_shape[(B, S, H, D)] = \
+        launches_by_shape.get((B, S, H, D), 0) + 1
     return out
 
 

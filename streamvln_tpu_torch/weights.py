@@ -1,5 +1,7 @@
 """Parameters of the port: carried across from the JAX package's pytree,
 or made at random on the device; and a JAX training state carried across.
+The encoder zoo's towers and the resamplers are carried across too
+(`from_jax_tower`, `from_jax_resampler`).
 
 Both give the reference's dict layout: {"vision", "projector", "llm",
 "image_newline"}, with per-layer weights stacked [L, ...] and matrices
@@ -12,7 +14,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from streamvln_tpu_torch.configs import StreamVLNConfig, resolve_device
+from streamvln_tpu_torch.configs import (SigLIPConfig, StreamVLNConfig,
+                                         resolve_device)
 from streamvln_tpu_torch.models.lora import is_lora_path
 from streamvln_tpu_torch.models.projector import parse_type
 
@@ -107,34 +110,11 @@ def from_jax_train_state(state, cfg: StreamVLNConfig, tcfg, device="cuda",
                       opt_state=port.opt_state)
 
 
-def init(cfg: StreamVLNConfig, generator: Optional[torch.Generator] = None,
-         device="cuda", dtype=torch.bfloat16) -> dict:
-    """Random weights made directly on `device`, in the reference's
-    fan-in-scaled normal form (weights ~ N(0, 1/fan_in), biases 0,
-    norms 1), with the leaves of the config's family (an ungated MLP has
-    no gate_w; an MoE layer has router_w and the expert stacks e_gate,
-    e_up, e_down [L, E, ...], and the shared expert's s_* leaves where the
-    config has one). The numbers differ from the JAX init of the same
-    seed."""
-    device = resolve_device(device)
-    if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
-
-    def dense(shape, fan_in):
-        w = torch.randn(shape, generator=generator, device=device,
-                        dtype=torch.float32)
-        return w.mul_(fan_in ** -0.5).to(dtype)
-
-    def zeros(shape):
-        return torch.zeros(shape, device=device, dtype=dtype)
-
-    def ones(shape):
-        return torch.ones(shape, device=device, dtype=dtype)
-
-    vc, lc = cfg.vision, cfg.llm
+def _siglip_leaves(vc, dense, zeros, ones) -> dict:
+    """The SigLIP tower's leaves, drawn in the order `init` draws them."""
     L, D, Fv, P = vc.num_layers, vc.hidden_size, vc.intermediate_size, \
         vc.patch_size
-    vision = {
+    return {
         "patch_w": dense((P * P * 3, D), P * P * 3),
         "patch_b": zeros((D,)),
         "pos_embed": dense((vc.num_patches, D), D),
@@ -149,7 +129,94 @@ def init(cfg: StreamVLNConfig, generator: Optional[torch.Generator] = None,
             "fc2_w": dense((L, Fv, D), Fv), "fc2_b": zeros((L, D)),
         },
     }
-    proj, d = [], D
+
+
+def leaf_makers(generator: Optional[torch.Generator], device, dtype):
+    """dense(shape, fan_in), zeros(shape), ones(shape) leaf makers on
+    `device` in `dtype`: dense weights ~ N(0, 1/fan_in), drawn in f32 from
+    `generator` (seed 0 on `device` when None)."""
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+
+    def dense(shape, fan_in):
+        w = torch.randn(shape, generator=generator, device=device,
+                        dtype=torch.float32)
+        return w.mul_(fan_in ** -0.5).to(dtype)
+
+    def zeros(shape):
+        return torch.zeros(shape, device=device, dtype=dtype)
+
+    def ones(shape):
+        return torch.ones(shape, device=device, dtype=dtype)
+    return dense, zeros, ones
+
+
+def siglip_init(cfg: SigLIPConfig,
+                generator: Optional[torch.Generator] = None, device="cuda",
+                dtype=torch.bfloat16) -> dict:
+    """Random SigLIP-tower weights on `device`, as `init` makes its
+    "vision" part (the tower the encoder builder gives for SigLIP
+    names)."""
+    device = resolve_device(device)
+    return _siglip_leaves(cfg, *leaf_makers(generator, device, dtype))
+
+
+def _to_torch(tree, device, dtype: Optional[torch.dtype]):
+    """A nested dict/list tree of numpy arrays as torch tensors on
+    `device`, float leaves cast to `dtype` when given."""
+    if isinstance(tree, dict):
+        return {k: _to_torch(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_torch(v, device, dtype) for v in tree]
+    t = torch.from_numpy(np.array(tree, copy=True))
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def from_jax_tower(tree, cfg, device="cuda",
+                   dtype: Optional[torch.dtype] = None) -> dict:
+    """A tower tree of `streamvln_tpu.models.encoders` (`init`,
+    `eva_init`, `convert_hf_clip_tower`, `convert_eva_tower`; leaves as
+    numpy arrays) as the port's tree for `models/encoders.py`'s
+    ClipVisionConfig or EvaVisionConfig `cfg`: the same keys, per-layer
+    stacks [L, ...] (an EVA tree holds num_layers - 1 blocks)."""
+    from streamvln_tpu_torch.models.encoders import EvaVisionConfig
+    want = cfg.num_layers - 1 if isinstance(cfg, EvaVisionConfig) \
+        else cfg.num_layers
+    got = np.shape(tree["layers"]["ln1_s"])[0]
+    if got != want:
+        raise ValueError(f"tower stack has {got} layers, config says {want}")
+    return _to_torch(tree, resolve_device(device), dtype)
+
+
+def from_jax_resampler(tree, device="cuda",
+                       dtype: Optional[torch.dtype] = None) -> dict:
+    """A perceiver or qformer tree of `streamvln_tpu.models.resampler`
+    (leaves as numpy arrays; per-layer dicts in a list) as the port's tree
+    for `models/resampler.py`."""
+    if not isinstance(tree, dict) or (tree and not isinstance(
+            tree.get("layers", []), (list, tuple))):
+        raise ValueError("a resampler tree is a dict whose 'layers' is a "
+                         "list of per-layer dicts")
+    return _to_torch(tree, resolve_device(device), dtype)
+
+
+def init(cfg: StreamVLNConfig, generator: Optional[torch.Generator] = None,
+         device="cuda", dtype=torch.bfloat16) -> dict:
+    """Random weights made directly on `device`, in the reference's
+    fan-in-scaled normal form (weights ~ N(0, 1/fan_in), biases 0,
+    norms 1), with the leaves of the config's family (an ungated MLP has
+    no gate_w; an MoE layer has router_w and the expert stacks e_gate,
+    e_up, e_down [L, E, ...], and the shared expert's s_* leaves where the
+    config has one). The numbers differ from the JAX init of the same
+    seed."""
+    device = resolve_device(device)
+    dense, zeros, ones = leaf_makers(generator, device, dtype)
+
+    vc, lc = cfg.vision, cfg.llm
+    vision = _siglip_leaves(vc, dense, zeros, ones)
+    proj, d = [], vc.hidden_size
     for _ in range(parse_type(cfg.projector_type)):
         proj.append({"w": dense((d, lc.hidden_size), d),
                      "b": zeros((lc.hidden_size,))})

@@ -70,3 +70,28 @@ def test_no_import_of_jax_or_the_jax_package_at_any_depth():
                     for n in names if _banned(n)]
     assert len(files) >= 30
     assert not bad, bad
+
+
+VISION_TAIL = ("models/encoders.py", "models/resampler.py", "models/anyres.py",
+               "utils/mm_utils.py", "utils/weight_tools.py",
+               "eval/offline.py", "eval/benchmark.py",
+               "eval/shortest_path.py", "trajectory_generation.py",
+               "dagger.py")
+
+
+def test_the_guards_cover_the_vision_tail_and_offline_tools():
+    """The two guards above walk the package; the vision tail's modules
+    and the offline tools are among what they import and parse."""
+    import pkgutil
+
+    import streamvln_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(
+        streamvln_tpu_torch.__path__, "streamvln_tpu_torch.")}
+    walked = set()
+    for d, dirs, files in os.walk(os.path.join(ROOT, "streamvln_tpu_torch")):
+        dirs[:] = [x for x in dirs if x != "_build"]
+        walked |= {os.path.relpath(os.path.join(d, n), os.path.join(
+            ROOT, "streamvln_tpu_torch")) for n in files}
+    for rel in VISION_TAIL:
+        assert rel in walked, rel
+        assert "streamvln_tpu_torch." + rel[:-3].replace("/", ".") in names

@@ -60,6 +60,35 @@ def test_vit_kernel_matches_plain(dev, B, S, H, D):
                   va.vit_attention_plain(q, k, v.abs()))
 
 
+# the encoder zoo's shapes: EVA01-CLIP-g (D=88, S=257), CLIP/MLCD-bigG
+# (D=104 at S=257 and 577; both padded to 128 in the kernel), CLIP-L and
+# EVA02 (D=64 at S=577 and 197; S2's 1, 4 and 9 crops), anyres's SigLIP
+# batches of thumbnail and tiles (D=72, B=3, 4, 5), and ragged tiles at the
+# new head dims
+@pytest.mark.parametrize("B,S,H,D", [
+    (1, 257, 16, 88), (1, 257, 16, 104), (1, 577, 16, 104),
+    (1, 577, 16, 64), (4, 577, 16, 64), (9, 577, 16, 64), (1, 197, 12, 64),
+    (3, 729, 16, 72), (4, 729, 16, 72), (5, 729, 16, 72),
+    (2, 65, 4, 88), (1, 129, 4, 104), (3, 191, 2, 88)])
+def test_vit_kernel_at_the_zoo_shapes(dev, B, S, H, D):
+    rng = np.random.default_rng(1)
+    q, k, v = (_rand(rng, (B, S, H, D), dev) for _ in range(3))
+    n0 = va.launches_by_shape.get((B, S, H, D), 0)
+    out = va.vit_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert va.launches_by_shape[(B, S, H, D)] == n0 + 1
+    _assert_close(out, va.vit_attention_plain(q, k, v),
+                  va.vit_attention_plain(q, k, v.abs()))
+
+
+def test_vit_kernel_refuses_head_dims_not_a_multiple_of_8(dev):
+    x = torch.zeros((1, 16, 2, 100), dtype=torch.bfloat16, device=dev)
+    n0 = va.launches
+    with pytest.raises(ValueError, match="not a multiple of 8"):
+        va.vit_attention(x, x, x)
+    assert va.launches == n0
+
+
 @pytest.mark.parametrize("Sq,cap,off,kv_major,soft_cap", [
     (256, 1024, 100, True, None),
     (100, 300, 37, False, None),
