@@ -82,7 +82,8 @@ Phases (any failure exits non-zero before the result line):
      (B=2, S=4096, 28/4 heads, D=128, bf16, 3,900 valid tokens, padded
      keys at INVALID_POS, one row that sees no key), each timed beside
      its plain version and SDPA's forward / backward under autograd; dQ,
-     dK and dV bit-equal over two calls;
+     dK and dV bit-equal over two calls; the same at Gemma-2B's training
+     shape (8/1 heads, D=256: K4/K5's Split instance);
      (b) LoRA SFT of streamvln_7b on the phase-3 weights (rank 16 on the
      seven default targets): 3 optimizer steps of 2 micro-batches of two
      VLN windows (8 <memory> + 8 current 480x640 frames each, bucket
@@ -278,13 +279,33 @@ Phases (any failure exits non-zero before the result line):
      episodes per minute; everything written under tempfile.gettempdir()
      and removed. Every K1 shape phase 11 sent must be one 11a or phase 2
      checked;
- 12. print the kernels JSON line (K1-K8; each with bound_share = bound_ms
+ 12. the last modules (last_modules): 12a `train.main --model_size
+     gemma-2b --lora_enable` in process at full depth (18 layers; K3 and
+     K4/K5 at head dim 256), GEMMA_STEPS micro-steps with exact launches
+     per micro-step, its checkpoint writes skipped, then the loss within
+     GEMMA_LOSS_ATOL and the LoRA-gradient cosine >= 0.99 against
+     attn_impl="chunked" on a fresh micro-batch; 12b an NCCL group of
+     world size 1 from torchrun's variables (set here, through the
+     command's init_distributed), two streamvln_7b LoRA steps through the
+     mesh route (1, 1, 1), params as DTensors, against the same steps with
+     no group (phase 4b's tolerances; bit-equality reported), and
+     make_ring_attention against chunked_attention at S=4096, 28/4 heads;
+     12c DPO (the policy's own base as the reference), the reward model
+     and PPO on streamvln_7b with LoRA, PREF_STEPS steps each on
+     ByteTokenizer pairs that share PREF_FRAMES 480x640 frames: finite
+     metrics, DPO accuracy, ms per step, peak memory, K1-K5 launches by
+     trainer; 12d DDPO with a small convolutional denoiser at SD's latent
+     shape (B=8, 4x64x64): a 50-step rollout with log-probs and 3 steps;
+     12e SDPA again at the two shapes whose library time PR 14's table
+     marks not valid, five device-time captures and one event time each;
+ 13. print the kernels JSON line (K1-K8; each with bound_share = bound_ms
      / ms and vs_library = ms / library_ms; K1, K2 with their phase-8
      launches, K3-K5 and K7 with the QLoRA step's, K1 and K3-K5 with phase
      9's and K3-K5 at S=32768 under "long_context", every kernel with
      phase 10's launches by family and K3 at head dim 256, K1 and K2 with
-     phase 11's by sub-phase and their shapes), the card line, and the
-     result line.
+     phase 11's by sub-phase and their shapes, K3-K5 with phase 12's by
+     trainer and K4/K5's head-dim-256 instance as records of their own),
+     the card line, and the result line.
 """
 from __future__ import annotations
 
@@ -4017,8 +4038,8 @@ def step_probe(torch, va, fa, box, metrics_path, profile_at=None):
     make = train_lib.make_train_step
     box["micro"] = []
 
-    def make_train_step(cfg, tcfg, device="cuda"):
-        step = make(cfg, tcfg, device)
+    def make_train_step(cfg, tcfg, device="cuda", mesh=None):
+        step = make(cfg, tcfg, device, mesh=mesh)
 
         def probed(state, batch):
             m = {"t_start": time.time(), "before": kernel_counts(va, fa),
@@ -5948,6 +5969,538 @@ def families_summary(rec, card) -> str:
             + f"; {rec['seconds']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the last modules (the mesh, ring attention, DPO, reward/PPO,
+# DDPO) and Gemma's training backward (K4/K5 at head dim 256)
+# ---------------------------------------------------------------------------
+
+# 12a: micro-steps of the training command on gemma-2b
+GEMMA_STEPS = 3
+# 12a: the loss through the kernels against attn_impl="chunked", absolute
+GEMMA_LOSS_ATOL = 1e-2
+# 12a: at random weights Gemma's LoRA gradients part between two f32
+# attention paths already (chunked and dense agree to cosine ~0.994 on an
+# H100, where streamvln_7b's through the kernels agree with dense to
+# ~0.99999, phase 4b); the kernels' bf16 P and dS may add at most this
+# many times that disagreement:
+# 1 - cos(auto, chunked) <= 4 (1 - cos(dense, chunked))
+GEMMA_GRAD_FLOOR_FACTOR = 4.0
+# 12c: preference pairs per batch, the frames each pair shares, steps
+PREF_PAIRS, PREF_FRAMES, PREF_STEPS = 2, 4, 3
+# 12d: Stable Diffusion's latent shape at batch 8, DDIM steps, train steps
+DDPO_SHAPE, DDPO_SAMPLE_STEPS, DDPO_TRAIN_STEPS = (8, 4, 64, 64), 50, 3
+TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                 "MASTER_PORT")
+
+
+def gemma_training(torch, np, va, fa, reset, tmp):
+    """12a: `train.main --model_size gemma-2b --lora_enable` in process at
+    full depth (18 layers; head dim 256, 8/1 heads: K3 in the forward,
+    K4/K5 in the backward at D = 256), GEMMA_STEPS micro-steps of 2
+    windows. Its checkpoint writes are recorded and skipped (a chip run
+    may write 45 GiB in all; phase 9 checks the saves). Then, on the final
+    params and a fresh micro-batch, the loss and LoRA grads through the
+    kernels against attn_impl="chunked" (plain PyTorch attention), with
+    "dense" against "chunked" as the floor of what two f32 paths
+    agree to (GEMMA_GRAD_FLOOR_FACTOR)."""
+    import argparse
+    from streamvln_tpu_torch import train
+    from streamvln_tpu_torch.configs import build_config
+    from streamvln_tpu_torch.data.tokenizer import ByteTokenizer
+    from streamvln_tpu_torch.models import streamvln
+    from streamvln_tpu_torch.utils import checkpoint
+
+    traj, out = os.path.join(tmp, "traj"), os.path.join(tmp, "run")
+    os.makedirs(traj)
+    write_trajectories(np, traj, 3, seed=12)
+    argv = ["--video_folders", traj, "--output_dir", out,
+            "--model_size", "gemma-2b", "--lora_enable", "--batch_size", "2",
+            "--num_steps", str(GEMMA_STEPS), "--save_steps", "1000",
+            "--log_steps", "1", "--prefetch_depth", "2"]
+    saves = []
+    real_save = checkpoint.save_checkpoint
+    checkpoint.save_checkpoint = \
+        lambda d, st, step, **kw: saves.append(step) is None
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    box = {}
+    t0 = time.perf_counter()
+    try:
+        with step_probe(torch, va, fa, box, os.path.join(out,
+                                                         "metrics.jsonl")):
+            state = train.main(argv)
+    finally:
+        checkpoint.save_checkpoint = real_save
+    rec = {"seconds": time.perf_counter() - t0,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "saves_skipped": saves}
+    steps = step_lines(read_log(os.path.join(out, "metrics.jsonl")))
+    micro = box["micro"]
+    for m, r in zip(micro, steps):
+        m["valid_tokens"] = int(m.pop("valid").item())
+        m["launches"] = count_diff(m.pop("after"), m.pop("before"))
+        m["vit_by_batch"] = count_diff(m.pop("vit_after"),
+                                       m.pop("vit_before"))
+        m["ms"] = (r["ts"] - m["t_start"]) * 1e3
+        m["loss"] = r["loss"]
+    cfg = build_config(argparse.Namespace(
+        model_size="gemma-2b", spatial_pool_mode="bilinear", num_frames=32,
+        num_future_steps=4, num_history=8))
+    L, Lv = cfg.llm.num_layers, cfg.vision.num_layers
+    per_micro = {"vit_attention": Lv, "flash_attention_lse": 2 * L,
+                 "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    rec.update(micro_steps=micro, layers=L, head_dim=cfg.llm.head_dim,
+               heads=(cfg.llm.num_heads, cfg.llm.num_kv_heads),
+               launches={k: sum(m["launches"].get(k, 0) for m in micro)
+                         for k in per_micro},
+               median_step_ms=float(np.median([m["ms"] for m in micro[1:]])))
+    log(f"12a gemma-2b LoRA command: {len(steps)} micro-steps in "
+        f"{rec['seconds']:.1f} s, ms {['%.1f' % m['ms'] for m in micro]}, "
+        f"losses {[m['loss'] for m in micro]}, launches per micro-step "
+        f"{[m['launches'] for m in micro]} (want {per_micro}), peak "
+        f"{rec['peak_memory_bytes'] / 2**30:.2f} GiB, saves skipped "
+        f"{saves}")
+
+    batch = vln_batches(torch, np, cfg, ByteTokenizer(), 1, 2, seed=12)[0]
+    ref = {impl: lora_loss_and_grads(torch, streamvln, state.params, cfg,
+                                     batch, impl)
+           for impl in ("auto", "chunked", "dense")}
+    (la, ga), (lc, gc_), (ld, gd) = ref["auto"], ref["chunked"], \
+        ref["dense"]
+    cos = torch.nn.functional.cosine_similarity(ga, gc_, dim=0).item()
+    floor = torch.nn.functional.cosine_similarity(gd, gc_, dim=0).item()
+    rec["reference"] = {"loss_auto": la, "loss_chunked": lc,
+                        "loss_dense": ld, "loss_abs_diff": abs(la - lc),
+                        "lora_grad_cosine": cos,
+                        "lora_grad_cosine_dense_vs_chunked": floor,
+                        "bucket": int(batch["valid"].shape[1])}
+    log(f"12a kernels vs chunked attention on one micro-batch (bucket "
+        f"{rec['reference']['bucket']}): loss {la:.6f} vs {lc:.6f} (dense "
+        f"{ld:.6f}), LoRA grad cosine {cos:.6f} (dense vs chunked "
+        f"{floor:.6f})")
+    del state, ref, ga, gc_, gd, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    require("12a: gemma-2b through the training command",
+            step_lines=[r["step"] for r in steps] ==
+            list(range(1, GEMMA_STEPS + 1)),
+            finite=all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                       for r in steps),
+            launches_per_micro_step=all(m["launches"] == per_micro
+                                        for m in micro),
+            loss_close=rec["reference"]["loss_abs_diff"] <= GEMMA_LOSS_ATOL,
+            grads_within_the_f32_floor=1 - cos <=
+            GEMMA_GRAD_FLOOR_FACTOR * (1 - floor))
+    return rec
+
+
+def preference_batch(torch, np, cfg, tok, seed=0):
+    """PREF_PAIRS ByteTokenizer pairs, each a chosen and a rejected answer
+    to one prompt over PREF_FRAMES 480x640 frames (made and preprocessed
+    on the card), collated by make_dpo_batch."""
+    from streamvln_tpu_torch.data import chatml
+    from streamvln_tpu_torch.ops.preprocess import preprocess_frames
+    from streamvln_tpu_torch.parallel.dpo import make_dpo_batch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    prompt = ("you can see " + "<image>" * PREF_FRAMES +
+              ". walk past the sofa and stop at the kitchen door.")
+    samples = []
+    for chosen, rejected in (("↑↑→↑", "←←↓"), ("↑↑↑ STOP", "→→→→")):
+        frames = torch.randint(0, 256, (PREF_FRAMES, 480, 640, 3),
+                               generator=g, device="cuda", dtype=torch.uint8)
+        s = {"images": preprocess_frames(frames, cfg.vision.image_size)
+             .float().cpu().numpy()}
+        for side, ans in (("chosen", chosen), ("rejected", rejected)):
+            ids, labels = chatml.tokenize_dialogue(
+                tok, [("user", prompt), ("assistant", ans)])
+            s[f"{side}_input_ids"], s[f"{side}_labels"] = ids, labels
+        samples.append(s)
+    return make_dpo_batch(samples[:PREF_PAIRS], cfg)
+
+
+def mesh_world_one(torch, np, va, fa, reset):
+    """12b: an NCCL process group of world size 1 made from torchrun's
+    variables (set here) by the training command's init_distributed, a
+    (1, 1, 1) mesh, and two LoRA steps of streamvln_7b through the mesh
+    route (params as DTensors) against the same steps without a group on
+    the same batches (the base weights shared, the adapters copied);
+    then make_ring_attention on the mesh against chunked_attention at
+    S = 4096, 28/4 heads. Returns the record and the one-device state
+    (12c trains on it)."""
+    import socket
+    import torch.distributed as dist
+    from streamvln_tpu_torch import train as train_cli
+    from streamvln_tpu_torch.configs import streamvln_7b
+    from streamvln_tpu_torch.data.tokenizer import ByteTokenizer
+    from streamvln_tpu_torch.models import lora as lora_lib
+    from streamvln_tpu_torch.ops import ring_attention as ra
+    from streamvln_tpu_torch.ops.attention import chunked_attention
+    from streamvln_tpu_torch.parallel import mesh as mesh_lib
+    from streamvln_tpu_torch.parallel.train import (
+        TrainConfig, create_train_state, make_train_step)
+    from streamvln_tpu_torch.weights import init
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    rec = {}
+    try:
+        rank, world, own = train_cli.init_distributed(torch.device("cuda"))
+        rec["group"] = {"backend": dist.get_backend(), "rank": rank,
+                        "world": world, "made_by_the_command": own}
+        mesh = mesh_lib.make_mesh(1, 1, 1)
+        cfg = streamvln_7b()
+        tcfg = TrainConfig(lora_only=True, remat=True, loss_chunk_size=512,
+                           total_steps=3)
+        params = lora_lib.add_lora(
+            init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                 device="cuda", dtype=torch.bfloat16),
+            torch.Generator(device="cuda").manual_seed(1), rank=16)
+        twin = mesh_lib.map_tree(
+            lambda p, t: t.clone() if lora_lib.is_lora_path(p) else t,
+            params)
+        states = {"one_device": create_train_state(params, tcfg),
+                  "mesh": create_train_state(
+                      mesh_lib.shard_params(twin, mesh), tcfg)}
+        del params, twin
+        steps = {"one_device": make_train_step(cfg, tcfg, "cuda"),
+                 "mesh": make_train_step(cfg, tcfg, "cuda", mesh=mesh)}
+        batches = vln_batches(torch, np, cfg, ByteTokenizer(), 2, 2, seed=5)
+        lora0 = {p: t.detach().clone() for p, t in
+                 tree_leaves(states["one_device"].params)
+                 if lora_lib.is_lora_path(p)}
+        runs = {}
+        for name in ("one_device", "mesh"):
+            reset()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms, metrics = [], []
+            for b in batches:
+                t0 = time.perf_counter()
+                states[name], m = steps[name](states[name], b)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                metrics.append({k: v.item() for k, v in m.items()})
+            runs[name] = {"ms": ms, "metrics": metrics,
+                          "launches": kernel_counts(va, fa),
+                          "peak_memory_bytes":
+                          torch.cuda.max_memory_allocated()}
+        leaves = {n: {p: mesh_lib.full(t) for p, t in
+                      tree_leaves(states[n].params)
+                      if lora_lib.is_lora_path(p)} for n in states}
+        delta = {n: torch.cat([(leaves[n][p].float() - lora0[p].float())
+                               .flatten() for p in lora0]) for n in leaves}
+        cos = torch.nn.functional.cosine_similarity(
+            delta["one_device"], delta["mesh"], dim=0).item()
+        m1, m2 = runs["one_device"]["metrics"], runs["mesh"]["metrics"]
+        loss_rel = max(abs(a["loss"] - b["loss"]) / abs(a["loss"])
+                       for a, b in zip(m1, m2))
+        gn_rel = max(abs(a["grad_norm"] - b["grad_norm"]) / a["grad_norm"]
+                     for a, b in zip(m1, m2))
+        bit_equal = m1 == m2 and all(
+            torch.equal(leaves["mesh"][p], leaves["one_device"][p])
+            for p in lora0)
+        dtensors = all(mesh_lib.is_dtensor(t)
+                       for _, t in tree_leaves(states["mesh"].params))
+        rec["step"] = {"runs": runs, "loss_rel_diff": loss_rel,
+                       "grad_norm_rel_diff": gn_rel,
+                       "lora_update_cosine": cos, "bit_equal": bit_equal,
+                       "params_are_dtensors": dtensors}
+        log(f"12b streamvln_7b LoRA steps, mesh (1,1,1) over NCCL vs no "
+            f"group: ms {runs['mesh']['ms']} vs {runs['one_device']['ms']}; "
+            f"loss rel diff {loss_rel:.3e}, grad_norm rel diff "
+            f"{gn_rel:.3e}, LoRA update cosine {cos:.6f}, bit-equal "
+            f"{bit_equal}; launches {runs['mesh']['launches']}")
+        require("12b: the mesh route at world size 1",
+                dtensors=dtensors, loss=loss_rel <= TRAIN_LOSS_RTOL,
+                grad_norm=gn_rel <= TRAIN_LOSS_RTOL,
+                update=cos >= TRAIN_GRAD_MIN_COSINE,
+                same_launches=runs["mesh"]["launches"] ==
+                runs["one_device"]["launches"])
+        state = states["one_device"]
+        del states, steps, leaves, delta, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        g = torch.Generator(device="cuda").manual_seed(7)
+        S, Hq, Hkv, D = 4096, 28, 4, 128
+        q = torch.randn((1, S, Hq, D), generator=g, device="cuda") \
+            .to(torch.bfloat16)
+        k, v = (torch.randn((1, S, Hkv, D), generator=g, device="cuda")
+                .to(torch.bfloat16) for _ in range(2))
+        pos = torch.arange(S, device="cuda", dtype=torch.int32)[None]
+        ring = ra.make_ring_attention(mesh, "fsdp")
+        with torch.no_grad():
+            out = ring(q, k, v, pos, pos)
+            ref = chunked_attention(q, k, v, pos, pos)
+            c = compare(out, ref)
+            c["ms"] = time_ms(torch, lambda: ring(q, k, v, pos, pos),
+                              iters=3, warmup=1)
+            c["chunked_ms"] = time_ms(
+                torch, lambda: chunked_attention(q, k, v, pos, pos),
+                iters=3, warmup=1)
+        c["shape"] = f"B=1 S={S} Hq={Hq} Hkv={Hkv} D={D} bf16, causal"
+        rec["ring"] = c
+        log(f"12b ring attention at world size 1 vs chunked_attention "
+            f"({c['shape']}): {tol_text(c)}; {c['ms']:.2f} ms vs "
+            f"{c['chunked_ms']:.2f} ms")
+        require("12b: ring attention", within_tolerance=c["tol_share"] <= 1)
+        del q, k, v, out, ref
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k_ in TORCHRUN_VARS:
+            os.environ.pop(k_, None)
+    return rec, cfg, state
+
+
+def preference_trainers(torch, np, cfg, state, va, fa, reset):
+    """12c: DPO (the reference being the policy's own base tensors), the
+    reward model and PPO on streamvln_7b with LoRA, PREF_STEPS steps each,
+    on preference_batch's pairs; ms per step, peak memory and K1-K5
+    launches by trainer."""
+    from streamvln_tpu_torch.data.tokenizer import ByteTokenizer
+    from streamvln_tpu_torch.models import lora as lora_lib
+    from streamvln_tpu_torch.parallel import dpo, ppo
+    from streamvln_tpu_torch.parallel.train import (TrainConfig,
+                                                    create_train_state)
+    from streamvln_tpu_torch.utils.constants import IGNORE_INDEX
+    tcfg = TrainConfig(lora_only=True, remat=True, total_steps=PREF_STEPS,
+                       warmup_ratio=0.0, learning_rate=1e-4)
+    batch = preference_batch(torch, np, cfg, ByteTokenizer(), seed=21)
+    T = batch["chosen_token_ids"].shape[1]
+    layout = {k: batch[f"chosen_{k}"] for k in ppo.LAYOUT}
+    g = torch.Generator(device="cuda").manual_seed(3)
+    head = ppo.init_value_head(g, cfg)
+
+    def dpo_steps():
+        st = create_train_state(state.params, tcfg)
+        ref = lora_lib.split_lora(st.params)[0]
+        step = dpo.make_dpo_step(cfg, tcfg, "cuda", beta=0.1)
+        for _ in range(PREF_STEPS):
+            st, m = step(st, ref, batch)
+            yield m
+
+    def reward_steps():
+        st = create_train_state(state.params, tcfg)
+        step, init_opt = ppo.make_reward_step(cfg, tcfg, "cuda")
+        h = {k: v.clone() for k, v in head.items()}
+        ho = init_opt(h)
+        for _ in range(PREF_STEPS):
+            st, h, ho, m = step(st, h, ho, batch)
+            yield m
+
+    def ppo_steps():
+        st = create_train_state(state.params, tcfg)
+        with torch.no_grad():
+            old = ppo.token_logprobs(
+                st.params, cfg, torch.as_tensor(batch["images"]).cuda()
+                .to(torch.bfloat16),
+                {k: torch.as_tensor(v).cuda() for k, v in layout.items()})
+        old = old.float().cpu().numpy()
+        mask = (batch["chosen_labels"][:, 1:] != IGNORE_INDEX) \
+            .astype(np.float32)
+        rng = np.random.default_rng(4)
+        rewards = (rng.standard_normal(mask.shape) * mask).astype(np.float32)
+        pb = ppo.rollout_batch(layout, batch["images"], mask,
+                               old + (rng.standard_normal(old.shape) * 0.1)
+                               .astype(np.float32),
+                               np.zeros_like(old), rewards)
+        step, init_opt = ppo.make_ppo_step(cfg, tcfg, "cuda", ent_coef=0.01)
+        h = {k: v.clone() for k, v in head.items()}
+        ho = init_opt(h)
+        for _ in range(PREF_STEPS):
+            st, h, ho, m = step(st, h, ho, pb)
+            yield m
+
+    rec = {"bucket": T, "pairs": PREF_PAIRS, "frames": PREF_FRAMES}
+    for name, steps in (("dpo", dpo_steps), ("reward", reward_steps),
+                        ("ppo", ppo_steps)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        ms, metrics = [], []
+        t0 = time.perf_counter()
+        for m in steps():
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: v.item() for k, v in m.items()})
+            t0 = time.perf_counter()
+        rec[name] = {"ms": ms, "metrics": metrics,
+                     "launches": kernel_counts(va, fa),
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        log(f"12c {name}: ms {['%.1f' % x for x in ms]}, peak "
+            f"{rec[name]['peak_memory_bytes'] / 2**30:.2f} GiB, launches "
+            f"{rec[name]['launches']}, last metrics {metrics[-1]}")
+    rec["dpo_accuracy"] = [m["dpo_accuracy"] for m in rec["dpo"]["metrics"]]
+    finite = all(np.isfinite(v) for name in ("dpo", "reward", "ppo")
+                 for m in rec[name]["metrics"] for v in m.values())
+    kernels = ("vit_attention", "flash_attention", "flash_attention_lse",
+               "flash_bwd_dq", "flash_bwd_dkv")
+    require("12c: DPO, reward and PPO on streamvln_7b", finite=finite,
+            dpo_all_five_kernels=all(rec["dpo"]["launches"][k] > 0
+                                     for k in kernels),
+            reward_and_ppo_k1_k3_k4_k5=all(
+                rec[n]["launches"][k] > 0 for n in ("reward", "ppo")
+                for k in kernels if k != "flash_attention"))
+    return rec
+
+
+def ddpo_on_card(torch, F):
+    """12d: DDPO with a small convolutional denoiser (caller-supplied, as
+    the module takes it) at Stable Diffusion's latent shape: a
+    DDPO_SAMPLE_STEPS-step rollout with log-probs, per-prompt advantages,
+    then DDPO_TRAIN_STEPS optimizer steps on its timesteps."""
+    from streamvln_tpu_torch.parallel import ddpo
+    B, C, H, W = DDPO_SHAPE
+    hid, E = 64, 768
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+    params = {"c1": rnd(hid, C, 3, 3, scale=(9 * C) ** -0.5),
+              "b1": torch.zeros(hid, device="cuda"),
+              "wt": rnd(1, hid), "we": rnd(E, hid, scale=E ** -0.5),
+              "c2": rnd(C, hid, 3, 3, scale=(9 * hid) ** -0.5),
+              "b2": torch.zeros(C, device="cuda")}
+
+    def apply(p, x, t, emb):
+        h = F.conv2d(x, p["c1"], p["b1"], padding=1)
+        h = h + ((t[:, None].float() / 1000.0) @ p["wt"]
+                 + emb @ p["we"])[:, :, None, None]
+        return F.conv2d(F.silu(h), p["c2"], p["b2"], padding=1)
+    alphas = ddpo.make_alphas_cumprod(device="cuda")
+    x, emb = rnd(*DDPO_SHAPE), rnd(B, E)
+    steps = torch.linspace(999, 0, DDPO_SAMPLE_STEPS).round().long()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lat, nxt, lps = ddpo.sample_with_logprob(apply, params, g, x, steps,
+                                             emb, alphas)
+    torch.cuda.synchronize()
+    rollout_ms = (time.perf_counter() - t0) * 1e3
+    rewards = -(nxt[-1].float() ** 2).mean(dim=(1, 2, 3))
+    prompts = ["a cat", "a dog"] * (B // 2)
+    adv = ddpo.PerPromptStatTracker(32, 16).update(prompts,
+                                                   rewards.cpu().numpy())
+    init_opt, step = ddpo.make_ddpo_step(apply, alphas)
+    opt = init_opt(params)
+    ms, metrics = [], []
+    for i in range(DDPO_TRAIN_STEPS):
+        j = i * (DDPO_SAMPLE_STEPS // DDPO_TRAIN_STEPS)
+        b = {"latents": lat[j], "next_latents": nxt[j],
+             "timesteps": steps[j].repeat(B).cuda(),
+             "prev_timesteps": steps[j + 1].repeat(B).cuda(),
+             "old_logps": lps[j],
+             "advantages": torch.as_tensor(adv, dtype=torch.float32,
+                                           device="cuda"),
+             "embeds": emb}
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: v.item() for k, v in m.items()})
+    rec = {"shape": list(DDPO_SHAPE), "sample_steps": DDPO_SAMPLE_STEPS,
+           "rollout_ms": rollout_ms, "step_ms": ms, "metrics": metrics,
+           "logp_range": [lps.min().item(), lps.max().item()]}
+    log(f"12d DDPO at {DDPO_SHAPE}: {DDPO_SAMPLE_STEPS}-step rollout "
+        f"{rollout_ms:.1f} ms, log-probs in {rec['logp_range']}; steps "
+        f"{['%.2f' % x for x in ms]} ms, metrics {metrics}")
+    require("12d: DDPO", finite_logps=bool(torch.isfinite(lps).all()),
+            finite_metrics=all(math.isfinite(v) for m in metrics
+                               for v in m.values()),
+            first_ratio_one=metrics[0]["approx_kl"] < 1e-6)
+    return rec
+
+
+def library_recheck(torch, F, repeats=5, L=28):
+    """12e: the two library times PR 14's kernel table marks not valid
+    (below or at their bound): SDPA at K1's EVA02-B-16 shape (B=1, S=197,
+    12 heads, D=64) and on K8's live prefix at G = 1 (32/32 heads, D=128,
+    length 4096 of 4096). Each is taken `repeats` times by device time
+    (torch.profiler over L copies in turn, so each call misses L2, as
+    phases 10a and 11a time them) and once by CUDA events over the same
+    rotation; a time below the bound cannot be the kernel's and is kept
+    apart."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda") \
+            .to(torch.bfloat16)
+    cases = {}
+    q, k, v = (rnd(L, 1, 12, 197, 64) for _ in range(3))
+    cases["K1 EVA02-B-16 B=1 S=197 H=12 D=64"] = (
+        [(lambda i=i: F.scaled_dot_product_attention(q[i], k[i], v[i]))
+         for i in range(L)],
+        bound(4.0 * 12 * 197 * 197 * 64, 4 * 12 * 197 * 64 * 2))
+    qd = rnd(L, 1, 32, 1, 128)
+    kd, vd = (rnd(L, 1, 32, 4096, 128) for _ in range(2))
+    cases["K8 G=1 32/32 heads D=128 length 4096"] = (
+        [(lambda i=i: F.scaled_dot_product_attention(
+            qd[i], kd[i], vd[i], enable_gqa=True)) for i in range(L)],
+        bound(4.0 * 32 * 4096 * 128,
+              2 * 32 * 4096 * 128 * 2 + 2 * 32 * 128 * 2))
+    rec = {}
+    for name, (fns, (b_ms, b_by)) in cases.items():
+        runs = [device_ms(torch, fns, 2 * L) for _ in range(repeats)]
+        valid = [x for x in runs if x >= b_ms]
+        rec[name] = {"device_ms_runs": runs, "bound_ms": b_ms,
+                     "bound_by": b_by,
+                     "event_ms": time_cold_ms(torch, fns, iters=2 * L),
+                     "library_ms": statistics.median(valid) if valid
+                     else None}
+        log(f"12e SDPA at {name}: device ms {['%.4f' % x for x in runs]}, "
+            f"events {rec[name]['event_ms']:.4f}, bound {b_ms:.4f} "
+            f"({b_by}): library_ms {rec[name]['library_ms']}")
+    del q, k, v, qd, kd, vd
+    return rec
+
+
+def last_modules(torch, np, F, va, fa, reset, card):
+    """Phase 12: 12a-12d in turn; everything written goes under a
+    temporary directory, removed in every case."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_12_")
+    try:
+        rec = {"gemma": gemma_training(torch, np, va, fa, reset, tmp)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["mesh"], cfg, state = mesh_world_one(torch, np, va, fa, reset)
+    rec["preference"] = preference_trainers(torch, np, cfg, state, va, fa,
+                                            reset)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["ddpo"] = ddpo_on_card(torch, F)
+    rec["library_recheck"] = library_recheck(torch, F)
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"phase 12 passed in {rec['seconds']:.1f} s ({card})")
+    return rec
+
+
+def last_modules_summary(rec, card) -> str:
+    g, m, p = rec["gemma"], rec["mesh"], rec["preference"]
+    per_step = {n: round(statistics.median(p[n]["ms"][1:]), 1)
+                for n in ("dpo", "reward", "ppo")}
+    return (f"phase 12 ({card}): gemma-2b LoRA command median micro-step "
+            f"{g['median_step_ms']:.1f} ms, peak "
+            f"{g['peak_memory_bytes'] / 2**30:.2f} GiB, K3/K4/K5 "
+            f"{g['launches']}; loss vs chunked "
+            f"{g['reference']['loss_abs_diff']:.2e}, LoRA grad cosine "
+            f"{g['reference']['lora_grad_cosine']:.5f}; mesh (1,1,1) step "
+            f"bit-equal {m['step']['bit_equal']}, ring vs chunked "
+            f"{m['ring']['max_abs_err']:.2e}; median ms per step after the "
+            f"first {per_step}, DPO accuracy {p['dpo_accuracy']}; DDPO "
+            f"rollout {rec['ddpo']['rollout_ms']:.1f} ms")
+
+
 def device_ms(torch, fns, calls=None) -> float:
     """Device time per call of a rotation of `fns`: the summed durations
     of the CUDA kernels they launch (torch.profiler), so that a host
@@ -6321,6 +6874,9 @@ def main() -> int:
 
     # 4. training: the kernels at the train step's shape, then LoRA SFT
     train_k = check_training_kernels(torch, F, fa)
+    # ... and at Gemma-2B's (head dim 256, 8/1 heads), where K4/K5 split
+    # the output columns between their two warpgroups
+    train_k256 = check_training_kernels(torch, F, fa, Hq=8, Hkv=1, D=256)
     train, train_batches = train_full_width(torch, np, params, cfg, tok, fa,
                                             va)
     del params
@@ -6421,7 +6977,14 @@ def main() -> int:
                              f"check")
     log(f"K7 launches by shape over the whole run: {k7_shapes}")
 
-    # 12. summary
+    # 12. the last modules: Gemma-2B LoRA through the training command
+    # (K4/K5 at head dim 256), the mesh route and ring attention on an
+    # NCCL group of one, DPO, reward and PPO at full width, DDPO
+    n_captures = len(captures)
+    last = last_modules(torch, np, F, va, fa, reset_training, card)
+    log_captures("phase 12", captures[n_captures:])
+
+    # 13. summary
     flash += fam["kernels"]["flash"] + tail["flash"]
     decode_recs += fam["kernels"]["decode"]
     kernels = [
@@ -6481,8 +7044,30 @@ def main() -> int:
             "launches_qlora": qtail["qlora"]["launches"][name],
             "launches_train_cli": cli_launches(cli, name),
             "long_context": long_entry(cli, name),
+            "launches_gemma_train_cli": last["gemma"]["launches"][name],
+            "launches_preference": {
+                n: last["preference"][n]["launches"][name]
+                for n in ("dpo", "reward", "ppo")},
+            "training_head_dim_256": {
+                k: train_k256[name][k] for k in (
+                    "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms")},
             **({"head_dim_256": fam["kernels"]["flash_lse"]}
                if name == "flash_attention_lse" else {})})
+    # K4/K5's head-dim-256 instance (Split): its own records, with the
+    # launches of phase 12a's gemma-2b command
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        r = train_k256[name]
+        kernels.append({
+            "name": f"{name}_d256", "route": "cuda",
+            "source": "streamvln_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": r["replaces"],
+            "launches": last["gemma"]["launches"][name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **shares(r), "shape": r["shape"], "library": r["library"],
+            "bit_equal": r["bit_equal"]})
     kernels += [
         kernel_entry("int4_matmul",
                      "streamvln_tpu_torch/csrc/int4_matmul.cu",
@@ -6516,6 +7101,7 @@ def main() -> int:
     log(train_cli_summary(cli, card))
     log(families_summary(fam, card))
     log(vision_tail_summary(tail, card))
+    log(last_modules_summary(last, card))
     log(f"chip_smoke: all phases passed in {seconds:.1f} s")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -6529,7 +7115,9 @@ def main() -> int:
                    "evaluation": evaluation, "serving_stack": serving,
                    "turnkey": turnkey, "quantized_tail": qtail,
                    "train_cli": cli, "families": fam,
-                   "vision_tail": tail, "seconds": seconds},
+                   "vision_tail": tail,
+                   "training_kernels_head_dim_256": train_k256,
+                   "last_modules": last, "seconds": seconds},
                   f, indent=1,
                   default=str)
     print(json.dumps({"kernels": kernels}))

@@ -31,7 +31,8 @@
 // shared memory and lists the tiles it visits, so the skip rule costs no
 // global loads on the way.
 //
-// K4: one block per (128-row query tile, batch x q head), the tiles that
+// K4: one block per (128-row query tile, batch x q head; 64 rows at D =
+// 256), the tiles that
 // see the most keys first (plan_tile). The ring holds the Q and dO tiles
 // (loaded once) and streams 64-key K and V tiles with their key
 // positions; a stage with k0 = -1 ends the walk. Each consumer computes
@@ -46,8 +47,8 @@
 // read once by the threads that own them (a TMA box of them would need Sq
 // to be a multiple of 4).
 //
-// K5: one block per (128-key tile, batch x KV head), the key tiles that
-// the most queries see first (plan_key_tile). The K and V tile is loaded
+// K5: one block per (128-key tile, batch x KV head; 64 keys at D = 256),
+// the key tiles that the most queries see first (plan_key_tile). The K and V tile is loaded
 // once; the ring streams, for each q head of the group and each 64-row
 // query tile, the Q and dO tiles with the tile's query positions, LSE (in
 // log2 units) and Dsum. A query tile whose largest position is below the
@@ -66,7 +67,8 @@
 //
 // C interface (ctypes): q/dO/dQ [B, Sq, Hq, D], k/v/dK/dV [B, Sk, Hkv, D]
 // or KV-head-major, all described by (batch, seq, head) strides in
-// elements (multiples of 8) with a contiguous head dim, D 64 or 128;
+// elements (multiples of 8) with a contiguous head dim, D 64, 128 or 256
+// (256 through Split below: 64-row tiles, each warpgroup half the width);
 // lse/dsum [B, Hq, Sq] f32 contiguous; q_pos [B, Sq], k_pos [B, Sk] int32.
 #include "attention_fwd.cuh"
 
@@ -114,13 +116,38 @@ struct BwdMaps {
 constexpr int kBwdThreads = 128 * kConsumers;
 constexpr int kLeaderWarp = 4;
 
-// K4's shared memory: the Q and dO tiles (128 rows), ST stages of K and V
+// Head dim 256 (Gemma): a 64 x 256 f32 accumulator is 128 registers a
+// thread, and K5 keeps two (dK and dV), so one warpgroup cannot own a
+// tile's full width. There (SPLIT) both warpgroups take the same 64 rows
+// (K4: query rows, K5: keys) and warpgroup w owns output columns
+// [128 w, 128 w + 128): each recomputes the tile's scores over all 256
+// columns (the score products run twice, 5 products of depth D per
+// (query, key) pair and head in K4, 6 in K5, against 3 and 4), and its
+// accumulators are those of D = 128. Tiles of 64 rows and two stages keep
+// shared memory at 192 KB.
+template <int DP>
+struct Split {
+  static constexpr bool ON = DP > 128;
+  static constexpr int ROWS = ON ? 64 : 64 * kConsumers;   // per block
+  static constexpr int ST = ON ? 2 : 4;
+  static constexpr int NH = (ON ? DP / 2 : DP) / 64;  // output chunks a wg
+  // warpgroup w's first row in the block's tile and first output chunk
+  static __device__ __forceinline__ int row(int w) {
+    return ON ? 0 : 64 * w;
+  }
+  static __device__ __forceinline__ int chunk(int w) {
+    return ON ? NH * w : 0;
+  }
+};
+
+// K4's shared memory: the Q and dO tiles (BM rows), ST stages of K and V
 // (64 keys) and of their key positions, the stages' (k0, full) words, the
 // barriers, then for each 64-key tile its smallest and largest position
 // and the list of the tiles the block visits.
 template <int DP>
 struct DqShape {
-  static constexpr int BM = 64 * kConsumers, BN = 64, NW = DP / 64, ST = 4;
+  static constexpr int BM = Split<DP>::ROWS, BN = 64, NW = DP / 64;
+  static constexpr int ST = Split<DP>::ST;
   static constexpr int Q_BYTES = BM * DP * 2, KV_BYTES = BN * DP * 2;
   static constexpr int Q_OFF = 0, DO_OFF = Q_BYTES;
   static constexpr int K_OFF = 2 * Q_BYTES;
@@ -131,14 +158,15 @@ struct DqShape {
   static constexpr int TILE_OFF = BAR_OFF + (1 + 2 * ST) * 8;
 };
 
-// K5's shared memory: the K and V tiles (128 keys), ST stages of Q and dO
+// K5's shared memory: the K and V tiles (BK keys), ST stages of Q and dO
 // (64 rows) and of their rows' position, LSE (log2 units) and Dsum, the
 // stages' (q0, full) words, the barriers, then for each 64-row query tile
 // its smallest and largest position and the list of the tiles the block
 // visits.
 template <int DP>
 struct DkvShape {
-  static constexpr int BK = 64 * kConsumers, BQ = 64, NW = DP / 64, ST = 4;
+  static constexpr int BK = Split<DP>::ROWS, BQ = 64, NW = DP / 64;
+  static constexpr int ST = Split<DP>::ST;
   static constexpr int KV_BYTES = BK * DP * 2, QS_BYTES = BQ * DP * 2;
   static constexpr int K_OFF = 0, V_OFF = KV_BYTES;
   static constexpr int Q_OFF = 2 * KV_BYTES;
@@ -148,6 +176,9 @@ struct DkvShape {
   static constexpr int BAR_OFF = META_OFF + 2 * ST * 4;
   static constexpr int TILE_OFF = BAR_OFF + (1 + 2 * ST) * 8;
 };
+static_assert(DqShape<256>::TILE_OFF < 200 * 1024 &&
+                  DkvShape<256>::TILE_OFF < 200 * 1024,
+              "head dim 256 tiles must leave room for the tile lists");
 
 // Dynamic shared memory of a kernel whose streamed dimension has n_tiles
 // 64-entry tiles (three ints each), with room to align the base.
@@ -401,7 +432,8 @@ flash_bwd_dq_kernel(__grid_constant__ const BwdMaps maps, const BwdArgs a) {
     }
   }
 
-  const int row0 = 64 * cw + 16 * (t >> 5) + (lane >> 2);   // in the tile
+  using SP = Split<DP>;
+  const int row0 = SP::row(cw) + 16 * (t >> 5) + (lane >> 2);   // in tile
   const int r0 = q0 + row0, r1 = r0 + 8;
   const bool ok0 = r0 < a.Sq, ok1 = r1 < a.Sq;
   const int qp0 = ok0 ? qpb[r0] : INT_MIN, qp1 = ok1 ? qpb[r1] : INT_MIN;
@@ -413,15 +445,18 @@ flash_bwd_dq_kernel(__grid_constant__ const BwdMaps maps, const BwdArgs a) {
   const float sl2 = a.scale * kLog2e;
   // this warpgroup's Q and dO rows; the K and V stage 0, K-major for the
   // scores, and K read MN-major (transposed) for dS K
-  const uint64_t dqa = gmma_desc(base + S::Q_OFF + cw * 64 * 128, 16, 1024,
-                                 kSw128);
-  const uint64_t doa = gmma_desc(base + S::DO_OFF + cw * 64 * 128, 16, 1024,
-                                 kSw128);
+  const uint64_t dqa = gmma_desc(base + S::Q_OFF + SP::row(cw) * 128, 16,
+                                 1024, kSw128);
+  const uint64_t doa = gmma_desc(base + S::DO_OFF + SP::row(cw) * 128, 16,
+                                 1024, kSw128);
   const uint64_t dkb = gmma_desc(base + S::K_OFF, 16, 1024, kSw128);
   const uint64_t dvb = gmma_desc(base + S::V_OFF, 16, 1024, kSw128);
-  const uint64_t dkt = gmma_desc(base + S::K_OFF, BN * 128, 1024, kSw128);
+  // this warpgroup's output columns of K, read MN-major
+  const uint64_t dkt = gmma_desc(base + S::K_OFF + SP::chunk(cw) * BN * 128,
+                                 BN * 128, 1024, kSw128);
+  constexpr int NH = SP::NH;
   constexpr int NS = BN / 2;          // score registers per thread
-  constexpr int NO = DP / 2;          // dQ registers per thread
+  constexpr int NO = NH * 32;         // dQ registers per thread
   float s[NS], dp[NS], acc[NO];
   uint32_t f[BN / 16][4];
 #pragma unroll
@@ -464,7 +499,7 @@ flash_bwd_dq_kernel(__grid_constant__ const BwdMaps maps, const BwdArgs a) {
       issue_ss<NW, BN>(dp, doa, BM * 128, desc_add(dvb, stage * S::KV_BYTES),
                        BN * 128);
       wgmma_commit();
-      issue_rs<NW, BN / 16>(acc, f, desc_add(dkt, prev * S::KV_BYTES),
+      issue_rs<NH, BN / 16>(acc, f, desc_add(dkt, prev * S::KV_BYTES),
                             BN * 128);
       wgmma_commit();
       named_arrive(2 - cw, 256);
@@ -485,14 +520,15 @@ flash_bwd_dq_kernel(__grid_constant__ const BwdMaps maps, const BwdArgs a) {
   }
   if (prev >= 0) {
     wgmma_fence();
-    issue_rs<NW, BN / 16>(acc, f, desc_add(dkt, prev * S::KV_BYTES),
+    issue_rs<NH, BN / 16>(acc, f, desc_add(dkt, prev * S::KV_BYTES),
                           BN * 128);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs<NO>(acc);
   }
   // every stage has been issued: no slot needs releasing
-  bf16* ob = a.dq + b * a.dq_sb + h * a.dq_sh + (long long)q0 * a.dq_ss;
+  bf16* ob = a.dq + b * a.dq_sb + h * a.dq_sh + (long long)q0 * a.dq_ss +
+             64 * SP::chunk(cw);
   store_rows<NO>(ob, a.dq_ss, row0, a.Sq - q0, quad, acc, a.scale);
 }
 
@@ -624,22 +660,28 @@ flash_bwd_dkv_kernel(__grid_constant__ const BwdMaps maps, const BwdArgs a) {
     }
   }
 
-  const int row0 = 64 * cw + 16 * (t >> 5) + (lane >> 2);   // in the tile
+  using SP = Split<DP>;
+  const int row0 = SP::row(cw) + 16 * (t >> 5) + (lane >> 2);   // in tile
   const int kp0 = k0 + row0 < a.Sk ? kpb[k0 + row0] : kInvalidPos;
   const int kp1 = k0 + row0 + 8 < a.Sk ? kpb[k0 + row0 + 8] : kInvalidPos;
   const float sl2 = a.scale * kLog2e;
   // this warpgroup's 64 keys of K and V (A operands); the Q and dO stage 0
   // K-major for the scores, and read MN-major for the dK/dV products
-  const uint64_t dka = gmma_desc(base + S::K_OFF + cw * 64 * 128, 16, 1024,
-                                 kSw128);
-  const uint64_t dva = gmma_desc(base + S::V_OFF + cw * 64 * 128, 16, 1024,
-                                 kSw128);
+  const uint64_t dka = gmma_desc(base + S::K_OFF + SP::row(cw) * 128, 16,
+                                 1024, kSw128);
+  const uint64_t dva = gmma_desc(base + S::V_OFF + SP::row(cw) * 128, 16,
+                                 1024, kSw128);
   const uint64_t dqb = gmma_desc(base + S::Q_OFF, 16, 1024, kSw128);
   const uint64_t dob = gmma_desc(base + S::DO_OFF, 16, 1024, kSw128);
-  const uint64_t dqt = gmma_desc(base + S::Q_OFF, BQ * 128, 1024, kSw128);
-  const uint64_t dot = gmma_desc(base + S::DO_OFF, BQ * 128, 1024, kSw128);
+  // this warpgroup's output columns of Q and dO, read MN-major
+  const uint32_t co = SP::chunk(cw) * BQ * 128;
+  const uint64_t dqt = gmma_desc(base + S::Q_OFF + co, BQ * 128, 1024,
+                                 kSw128);
+  const uint64_t dot = gmma_desc(base + S::DO_OFF + co, BQ * 128, 1024,
+                                 kSw128);
+  constexpr int NH = SP::NH;
   constexpr int NS = BQ / 2;          // S^T registers per thread
-  constexpr int NO = DP / 2;          // dK (and dV) registers per thread
+  constexpr int NO = NH * 32;         // dK (and dV) registers per thread
   float s[NS], dp[NS], dk[NO], dv[NO];
   uint32_t pf[BQ / 16][4], sf[BQ / 16][4];
 #pragma unroll
@@ -680,8 +722,8 @@ flash_bwd_dkv_kernel(__grid_constant__ const BwdMaps maps, const BwdArgs a) {
     pack_p<BQ / 16>(dp, sf);
     named_sync(1 + cw, 256);
     wgmma_fence();
-    issue_rs<NW, BQ / 16>(dv, pf, desc_add(dot, so), BQ * 128);
-    issue_rs<NW, BQ / 16>(dk, sf, desc_add(dqt, so), BQ * 128);
+    issue_rs<NH, BQ / 16>(dv, pf, desc_add(dot, so), BQ * 128);
+    issue_rs<NH, BQ / 16>(dk, sf, desc_add(dqt, so), BQ * 128);
     wgmma_commit();
     named_arrive(2 - cw, 256);
     wgmma_wait<0>();
@@ -692,8 +734,9 @@ flash_bwd_dkv_kernel(__grid_constant__ const BwdMaps maps, const BwdArgs a) {
     if (++stage == ST) { stage = 0; phase ^= 1; }
   }
   const int n = a.Sk - k0;
-  bf16* kb = a.dk + b * a.dk_sb + hk * a.dk_sh + (long long)k0 * a.dk_ss;
-  bf16* vb = a.dv + b * a.dv_sb + hk * a.dv_sh + (long long)k0 * a.dv_ss;
+  const int c0 = 64 * SP::chunk(cw);
+  bf16* kb = a.dk + b * a.dk_sb + hk * a.dk_sh + (long long)k0 * a.dk_ss + c0;
+  bf16* vb = a.dv + b * a.dv_sb + hk * a.dv_sh + (long long)k0 * a.dv_ss + c0;
   store_rows<NO>(kb, a.dk_ss, row0, n, quad, dk, a.scale);
   store_rows<NO>(vb, a.dv_ss, row0, n, quad, dv, 1.f);
 }
@@ -721,8 +764,9 @@ cudaError_t launch_bwd_kernel(Kernel kernel, int smem, long long items,
 
 template <int DP>
 cudaError_t launch_bwd(const BwdArgs& a, bool dkv, cudaStream_t stream) {
-  // the per-block tiles have 128-row boxes, the streamed ones 64
-  const int q_rows = dkv ? 64 : 128, kv_rows = dkv ? 128 : 64;
+  // the per-block tiles have Split's rows, the streamed ones 64
+  const int q_rows = dkv ? 64 : Split<DP>::ROWS;
+  const int kv_rows = dkv ? Split<DP>::ROWS : 64;
   BwdMaps m;
   if (!encode_view(&m.q, a.q, a.B, a.Sq, a.Hq, a.D, a.q_sb, a.q_ss, a.q_sh,
                    64, q_rows) ||
@@ -787,6 +831,7 @@ static int flash_backward(bool dkv, const void* q, const void* k,
   switch (D) {
     case 64: return svt::launch_bwd<64>(a, dkv, s);
     case 128: return svt::launch_bwd<128>(a, dkv, s);
+    case 256: return svt::launch_bwd<256>(a, dkv, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -34,10 +34,8 @@ from streamvln_tpu_torch.kernels import build
 
 NEG_INF = -1e30
 INVALID_POS = 1 << 30
-# head dims of the forward kernels K2/K3 (256: Gemma) and of the backward
-# K4/K5
+# head dims of the kernels K2-K5 (256: Gemma)
 KERNEL_HEAD_DIMS = (64, 128, 256)
-BWD_HEAD_DIMS = (64, 128)
 
 launches = 0
 lse_launches = 0
@@ -194,8 +192,7 @@ def _positions(q, k, q_positions, k_positions, kv_major):
     return q_positions, k_positions
 
 
-def _prepare(what, q, k, v, q_positions, k_positions, kv_major,
-             head_dims=KERNEL_HEAD_DIMS):
+def _prepare(what, q, k, v, q_positions, k_positions, kv_major):
     """Checks shared by the kernel wrappers on CUDA tensors. Returns
     (B, Sq, Sk, Hq, Hkv, D, int32 positions)."""
     if q.device.type != "cuda":
@@ -208,11 +205,9 @@ def _prepare(what, q, k, v, q_positions, k_positions, kv_major,
     if v.shape != k.shape or Dk != D or Hq % Hkv:
         raise ValueError(f"{what}: bad shapes q={tuple(q.shape)} "
                          f"k={tuple(k.shape)} v={tuple(v.shape)}")
-    if q.dtype != torch.bfloat16 or D not in head_dims:
-        later = " (head dim 256 in the backward: ROADMAP §2c)" \
-            if D in KERNEL_HEAD_DIMS else ""
+    if q.dtype != torch.bfloat16 or D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{what} kernel takes bf16 with a head dim in "
-                         f"{head_dims}, got {q.dtype} and {D}{later}; use "
+                         f"{KERNEL_HEAD_DIMS}, got {q.dtype} and {D}; use "
                          f"attn_impl='dense' for other CUDA inputs")
     q_positions, k_positions = _positions(q, k, q_positions, k_positions,
                                           kv_major)
@@ -327,7 +322,7 @@ def flash_attention_lse(q, k, v, q_positions=None, k_positions=None,
 def _bwd_launch(what, q, k, v, dout, lse, dsum, q_positions, k_positions,
                 scale, kv_major, dq=None, dk=None, dv=None):
     B, Sq, Sk, Hq, Hkv, D, q_positions, k_positions = _prepare(
-        what, q, k, v, q_positions, k_positions, kv_major, BWD_HEAD_DIMS)
+        what, q, k, v, q_positions, k_positions, kv_major)
     if dout.shape != q.shape or dout.dtype != q.dtype \
             or dout.device != q.device:
         raise ValueError(f"{what}: dO must match q in shape, dtype, device")

@@ -1,8 +1,9 @@
 """Training entry point of the PyTorch port: stage-1 VLN SFT / stage-2
-co-training on one device.
+co-training, on one device or on a ("dp", "fsdp", "tp") mesh of ranks.
 
     python -m streamvln_tpu_torch.train --video_folders data/traj1,data/traj2 \
         --output_dir runs/stage1 --num_steps 1000 --batch_size 8
+    torchrun --nproc_per_node 4 -m streamvln_tpu_torch.train ... --fsdp 4
 
 A twin of `streamvln_tpu/train.py`, flag for flag, plus `--device` (default
 cuda; cpu runs the plain versions of the kernels): model config overrides,
@@ -12,8 +13,17 @@ LoRA and k-bit (--bits 8|4) training, checkpoints with resume, the
 mid-training evaluation and the HF export. Weights are bf16 on the card,
 f32 on the CPU, as the reference picks bf16 on its accelerator. Batches
 are loaded, collated and uploaded by a worker thread
-(data/prefetch.py). The mesh flags are accepted; a mesh of more than one
-device is ROADMAP item 8 of the port.
+(data/prefetch.py).
+
+Where JAX calls `jax.distributed.initialize()`, this command calls
+`init_process_group` when torchrun's variables (RANK, WORLD_SIZE,
+MASTER_ADDR, MASTER_PORT) are set: NCCL on the card, gloo with --device
+cpu. It then builds the mesh (parallel/mesh.py), shards the params after
+they are built, and every rank runs the same sampler with the same seed
+and takes its rows of each global batch. Rank 0 alone writes the logs,
+checkpoints and exports (checkpoints hold full tensors, so a mesh run
+resumes on one device and the other way round); the eval hook is skipped
+across processes, as in JAX. A mesh larger than the world raises.
 """
 from __future__ import annotations
 
@@ -97,7 +107,7 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="int8 x int8 matmuls with per-token activation "
                         "quant (requires --bits 8; straight-through "
                         "gradients)")
-    # mesh (one device: a mesh of more than one is ROADMAP item 8)
+    # mesh over the ranks of torchrun's process group
     p.add_argument("--dp", type=int, default=1)
     p.add_argument("--fsdp", type=int, default=None)
     p.add_argument("--tp", type=int, default=1)
@@ -152,12 +162,33 @@ def build_transform(enabled: bool, seed: int = 0):
     return transform
 
 
+def init_distributed(device: torch.device):
+    """(rank, world size, whether this call made the process group): the
+    group torchrun's variables describe (NCCL on cuda, gloo on cpu), one
+    that is already up, or none (rank 0 of 1)."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size(), False
+    if not all(k in os.environ for k in ("RANK", "WORLD_SIZE",
+                                         "MASTER_ADDR", "MASTER_PORT")):
+        return 0, 1, False
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    return dist.get_rank(), dist.get_world_size(), True
+
+
 def main(argv: Optional[List[str]] = None):
     args = build_argparser().parse_args(argv)
     device = configs.resolve_device(args.device)
+    rank, world, own_group = init_distributed(device)
+    if device.type == "cuda" and world > 1:
+        device = torch.device("cuda", torch.cuda.current_device())
+    proc0 = rank == 0
 
     from streamvln_tpu_torch import weights
     from streamvln_tpu_torch.models import convert_hf
+    from streamvln_tpu_torch.parallel import mesh as mesh_lib
     from streamvln_tpu_torch.parallel import train as train_lib
     from streamvln_tpu_torch.utils import checkpoint as ckpt
 
@@ -196,13 +227,12 @@ def main(argv: Optional[List[str]] = None):
     sampler = TaskGroupedBatchSampler(dataset.task_ids, args.batch_size,
                                       seed=args.seed)
 
-    # the reference's --fsdp None takes every device: one here
-    mesh = args.dp * (args.fsdp or 1) * args.tp
-    if mesh > 1:
-        raise NotImplementedError(
-            f"--dp {args.dp} --fsdp {args.fsdp} --tp {args.tp}: a mesh of "
-            f"{mesh} devices (FSDP/TP) is ROADMAP queue 1 item 8 of the "
-            f"PyTorch port; it trains on one device")
+    # --fsdp None takes the rest of the world; without a process group a
+    # mesh of more than one rank is refused by make_mesh
+    import torch.distributed as dist
+    mesh = None
+    if dist.is_initialized() or args.dp * (args.fsdp or 1) * args.tp > 1:
+        mesh = mesh_lib.make_mesh(dp=args.dp, fsdp=args.fsdp, tp=args.tp)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     if args.bits in (4, 8) and not args.lora_enable:
         # integer leaves take no gradient: only LoRA training trains with
@@ -230,26 +260,33 @@ def main(argv: Optional[List[str]] = None):
         params = lora_lib.add_lora(
             params, torch.Generator(device=device).manual_seed(args.seed + 1),
             rank=args.lora_r, alpha=args.lora_alpha)
+    if mesh is not None:
+        params = mesh_lib.shard_params(params, mesh)
     state = train_lib.create_train_state(params, tcfg)
     del params
     state, start_step = ckpt.resume_latest(
         os.path.join(args.output_dir, "ckpt"), state)
-    step_fn = train_lib.make_train_step(cfg, tcfg, device=device)
+    step_fn = train_lib.make_train_step(cfg, tcfg, device=device, mesh=mesh)
 
     os.makedirs(args.output_dir, exist_ok=True)
     log_path = os.path.join(args.output_dir, "train_log.jsonl")
     # wandb mirror of the JSONL log when --report_to wandb; a missing or
     # failing wandb degrades to the JSONL mirror alone
     from streamvln_tpu_torch.utils.observability import MetricsLogger
-    mlog = MetricsLogger(args.output_dir, rank=0,
+    mlog = MetricsLogger(args.output_dir, rank=rank,
                          use_wandb=(args.report_to == "wandb"),
                          run_name=args.run_name)
     evaluator = None
     if args.eval_steps > 0:
-        from streamvln_tpu_torch.eval.hook import MidTrainingEvaluator
-        evaluator = MidTrainingEvaluator(cfg, tok,
-                                         n_episodes=args.eval_episodes,
-                                         seed=args.seed)
+        if world > 1:
+            # the params are sharded over the ranks; as in JAX, the eval
+            # is skipped rather than gathered across processes
+            if proc0:
+                print("eval_steps: skipped on multi-host runs")
+        else:
+            from streamvln_tpu_torch.eval.hook import MidTrainingEvaluator
+            evaluator = MidTrainingEvaluator(
+                cfg, tok, n_episodes=args.eval_episodes, seed=args.seed)
     from streamvln_tpu_torch.data.prefetch import BatchPrefetcher
 
     def make_batch(batch_idx):
@@ -269,7 +306,7 @@ def main(argv: Optional[List[str]] = None):
             batch = prefetcher.get()
             state, metrics = step_fn(state, batch)
             step += 1
-            if step % args.log_steps == 0:
+            if proc0 and step % args.log_steps == 0:
                 dt = time.perf_counter() - t_last
                 t_last = time.perf_counter()
                 rec = {"step": step,
@@ -281,8 +318,8 @@ def main(argv: Optional[List[str]] = None):
                     f.write(json.dumps(rec) + "\n")
                 mlog.log(rec, step=step)
             if evaluator is not None and step % args.eval_steps == 0:
-                rec = {"step": step,
-                       **evaluator.evaluate(state.params, step)}
+                rec = {"step": step, **evaluator.evaluate(
+                    mesh_lib.gather_tree(state.params), step)}
                 print(json.dumps(rec), flush=True)
                 with open(log_path, "a") as f:
                     f.write(json.dumps(rec) + "\n")
@@ -298,8 +335,14 @@ def main(argv: Optional[List[str]] = None):
                          step, wait=True)
     if args.export_hf:
         with torch.no_grad():
-            export_hf(state.params, cfg, args)
-    print(json.dumps({"final_step": step, "done": True}))
+            params = mesh_lib.gather_tree(state.params)
+            if proc0:
+                export_hf(params, cfg, args)
+            del params
+    if proc0:
+        print(json.dumps({"final_step": step, "done": True}))
+    if own_group:
+        dist.destroy_process_group()
     return state
 
 

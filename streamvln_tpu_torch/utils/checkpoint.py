@@ -13,7 +13,10 @@ Counterpart of `streamvln_tpu/utils/checkpoint.py`:
   takes for a step) and renames it, so a cut save leaves no step behind.
   As orbax's CheckpointManager does, a save of a step at or below the
   newest one on disk is skipped (False), and the newest `max_to_keep`
-  steps are kept.
+  steps are kept. A state on a mesh (DTensor leaves) is saved as full
+  tensors, gathered on every rank and written by rank 0 alone, and is
+  restored into any placement, so a mesh run resumes on one device and
+  the other way round; every rank calls both.
 - `export_hf` / `save_hf`: the reference stack's StreamVLNForCausalLM
   names, matrices back to torch's [out, in], one tensor per layer, f32
   values by default. Quantized leaves are dequantized first
@@ -31,6 +34,7 @@ from typing import Dict, List, Optional
 import torch
 
 from streamvln_tpu_torch.models.quant import dequantize_llm, is_packed_int4
+from streamvln_tpu_torch.parallel import mesh as mesh_lib
 from streamvln_tpu_torch.utils import safetensors_io
 
 STATE_FILE = "state.pt"
@@ -82,6 +86,10 @@ def save_checkpoint(directory: str, state, step: int,
     if steps and steps[-1] >= step:
         return False
     tensors, scalars = _flatten(_state_tree(state))
+    tensors = {k: mesh_lib.full(t) for k, t in tensors.items()}
+    if _rank() != 0:
+        _barrier()
+        return True
     # leftovers of cut saves are never steps; clear them before writing
     for name in os.listdir(directory):
         if name.startswith(".tmp-"):
@@ -93,7 +101,20 @@ def save_checkpoint(directory: str, state, step: int,
     os.replace(tmp, os.path.join(directory, str(step)))
     for old in (steps + [step])[:-max_to_keep]:
         shutil.rmtree(os.path.join(directory, str(old)))
+    _barrier()
     return True
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    """Ranks wait for rank 0's write (no-op without a process group)."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.barrier()
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -131,7 +152,7 @@ def restore_checkpoint(directory: str, target, step: Optional[int] = None):
             raise ValueError(f"{path}: checkpoint holds {src.dtype} "
                              f"{tuple(src.shape)}, target {t.dtype} "
                              f"{tuple(t.shape)}")
-        t.copy_(src)
+        mesh_lib.scatter_into(t, src.to(t.device))
 
     tree = _map_leaves(lambda path, leaf: leaf if isinstance(
         leaf, torch.Tensor) else saved["scalars"][path], _state_tree(target))

@@ -23,7 +23,7 @@ _FUSED = {"qkv_w": ("q_w", "k_w", "v_w"), "gu_w": ("gate_w", "up_w")}
 
 
 def from_jax_params(tree, cfg: StreamVLNConfig, device="cuda",
-                    dtype: Optional[torch.dtype] = None) -> dict:
+                    dtype: Optional[torch.dtype] = None, mesh=None) -> dict:
     """Convert the pytree of `streamvln_tpu.models.streamvln.init` (leaves
     as numpy arrays, e.g. after `jax.tree.map(np.asarray, params)`) into
     torch tensors on `device`, float leaves cast to `dtype` when given.
@@ -33,8 +33,8 @@ def from_jax_params(tree, cfg: StreamVLNConfig, device="cuda",
     (int8, packed-int4 uint8) keep their dtype, and so do every `*_scale`
     (f32 from models/quant.py), the LoRA adapter stacks
     (`*_lora_a/_lora_b`) and `lora_scale` (f32 adapters stay f32 over
-    bf16 base weights)."""
-    device = resolve_device(device)
+    bf16 base weights). With a mesh the tree comes back sharded
+    (mesh.shard_params)."""
     layers = tree["llm"]["layers"]
     for fused, members in _FUSED.items():
         both = [m for m in members if m in layers]
@@ -43,9 +43,29 @@ def from_jax_params(tree, cfg: StreamVLNConfig, device="cuda",
                 f"fused stack {fused!r} beside its unfused members {both}; "
                 f"pass a tree from before or after fuse_projections")
 
-    def conv(x, keep_dtype):
+    for part, want in (("llm", cfg.llm.num_layers),
+                       ("vision", cfg.vision.num_layers)):
+        stack = tree[part]["layers"]
+        got = np.shape(stack["ln1" if part == "llm" else "ln1_s"])[0]
+        if got != want:
+            raise ValueError(f"{part} stack has {got} layers, config "
+                             f"says {want}")
+    return tree_from_numpy(
+        tree, device, dtype, mesh,
+        keep=lambda key: is_lora_path(key) or key.endswith("_scale"))
+
+
+def tree_from_numpy(tree, device="cuda", dtype: Optional[torch.dtype] = None,
+                    mesh=None, keep=lambda key: False):
+    """A nested dict/list tree of numpy arrays (a JAX pytree after
+    `jax.tree.map(np.asarray, ...)`: params, a value head, a DDPO
+    denoiser) as torch tensors on `device`, float leaves cast to `dtype`
+    unless keep(leaf key); on a mesh, sharded by mesh.shard_params."""
+    device = resolve_device(device)
+
+    def conv(x, key):
         t = torch.from_numpy(np.array(x, copy=True))
-        if dtype is not None and t.is_floating_point() and not keep_dtype:
+        if dtype is not None and t.is_floating_point() and not keep(key):
             t = t.to(dtype)
         return t.to(device)
 
@@ -54,15 +74,12 @@ def from_jax_params(tree, cfg: StreamVLNConfig, device="cuda",
             return {k: walk(v, k) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [walk(v) for v in node]
-        return conv(node, is_lora_path(key) or key.endswith("_scale"))
-    for part, want in (("llm", cfg.llm.num_layers),
-                       ("vision", cfg.vision.num_layers)):
-        stack = tree[part]["layers"]
-        got = np.shape(stack["ln1" if part == "llm" else "ln1_s"])[0]
-        if got != want:
-            raise ValueError(f"{part} stack has {got} layers, config "
-                             f"says {want}")
-    return walk(tree)
+        return conv(node, key)
+    out = walk(tree)
+    if mesh is not None:
+        from streamvln_tpu_torch.parallel import mesh as mesh_lib
+        out = mesh_lib.shard_params(out, mesh)
+    return out
 
 
 def _at(tree, path: str):

@@ -60,11 +60,13 @@ def _jax_lse(q, k, v, q_pos, k_pos, kv_major):
     return np.asarray(lse[:, :, 0, :S])
 
 
-@pytest.mark.parametrize("Hq,Hkv,kv_major", [(4, 4, False), (4, 2, False),
-                                             (7, 1, False), (4, 2, True)])
+# D = 256 is Gemma's head dim (8/1 heads), which K4/K5 also take
+@pytest.mark.parametrize("Hq,Hkv,kv_major,D", [
+    (4, 4, False, 128), (4, 2, False, 128), (7, 1, False, 128),
+    (4, 2, True, 128), (8, 1, False, 256)])
 def test_flash_function_matches_jax_forward_lse_and_grads(Hq, Hkv,
-                                                          kv_major):
-    B, S, D = 2, 100, 128
+                                                          kv_major, D):
+    B, S = 2, 100
     q, k, v, g, q_pos, k_pos = _inputs(0, B, S, Hq, Hkv, D, kv_major)
 
     def f_jax(q, k, v):

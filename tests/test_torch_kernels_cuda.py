@@ -322,9 +322,10 @@ def _train_positions(B, Sq, Sk, n_valid, dev, blind=None):
 
 
 # The backward's tiling edges: K4 takes 128-row query tiles against 64-key
-# stages, K5 128-key tiles against 64-row query stages. S not a multiple
-# of 128 (130, 200) or of 64 (130, 200, 300); G = 1, 2, 4 and 7; both k/v
-# layouts; D = 64 and 128; whole key tiles of padding (300 keys, 150
+# stages, K5 128-key tiles against 64-row query stages (64-row and 64-key
+# tiles at D = 256, where rows 64..127 of batch 0 are a whole blind tile).
+# S not a multiple of 128 (130, 200) or of 64 (130, 200, 300); G = 1, 2, 4,
+# 7 and 8; both k/v layouts; D = 64, 128 and 256; whole key tiles of padding (300 keys, 150
 # valid: K5's third 128-key tile and K4's last two 64-key tiles hold none);
 # a whole 128-row query tile that sees no key (rows 128..255 of batch 0:
 # no key stage reaches K4's block, K5 skips both 64-row tiles).
@@ -336,6 +337,9 @@ def _train_positions(B, Sq, Sk, n_valid, dev, blind=None):
     (200, 190, 8, 1, False, 64, None),
     (300, 150, 8, 2, False, 128, None),
     (384, 384, 4, 1, True, 128, slice(128, 256)),
+    (200, 170, 8, 1, False, 256, None),
+    (130, 100, 4, 2, True, 256, None),
+    (384, 384, 8, 1, False, 256, slice(64, 128)),
 ])
 def test_flash_training_kernels_match_plain(dev, S, n_valid, Hq, Hkv,
                                             kv_major, D, blind):
@@ -860,8 +864,8 @@ def test_flash_kernel_at_the_family_shapes(dev, Sq, off, Hq, Hkv, D):
 @pytest.mark.parametrize("S,n_valid,kv_major", [(200, 170, False),
                                                 (384, 384, True)])
 def test_flash_lse_kernel_at_head_dim_256(dev, S, n_valid, kv_major):
-    """K3 at D = 256 (the same instance as K2) against its plain version;
-    K4/K5 are not built for 256 and raise (ROADMAP §2c)."""
+    """K3 at D = 256 (the same instance as K2) against its plain version,
+    and K4 on its output (Gemma's training backward)."""
     rng = np.random.default_rng(14)
     B, Hq, Hkv, D = 2, 8, 1, 256
     q = _rand(rng, (B, S, Hq, D), dev)
@@ -881,10 +885,13 @@ def test_flash_lse_kernel_at_head_dim_256(dev, S, n_valid, kv_major):
     assert torch.equal(lse == fa.NEG_INF, unseen)
     err = (lse - ref_lse).abs()[~unseen]
     assert bool((err <= 1e-4 + 1e-5 * ref_lse.abs()[~unseen]).all())
-    dsum = fa._dsum(out, out)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        fa.flash_bwd_dq(q, k, v, out, lse, dsum, q_pos, k_pos,
-                        kv_major=kv_major)
+    dout = _rand(rng, (B, S, Hq, D), dev)
+    args = (q, k, v, dout, lse, fa._dsum(dout, out), q_pos, k_pos)
+    dq = fa.flash_bwd_dq(*args, kv_major=kv_major)
+    torch.cuda.synchronize()
+    t_dq = _rounding_terms(*args, kv_major)[0]
+    _assert_grad_close(dq, fa.flash_bwd_dq_plain(*args, kv_major=kv_major),
+                       t_dq, "dq")
 
 
 # K8 at the families' shapes: Gemma's head dim 256 with G = 8 (ragged

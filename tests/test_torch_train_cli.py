@@ -361,15 +361,16 @@ def test_lora_int4_port_alone(traj_root, tmp_path, shared):
     (["--bits", "4"], SystemExit, "--bits 4 requires --lora_enable"),
     (["--lora_enable", "--act_int8"], SystemExit,
      "--act_int8 requires --bits 8"),
-    (["--fsdp", "2"], NotImplementedError, "item 8"),
-    (["--dp", "2"], NotImplementedError, "item 8"),
-    (["--tp", "2"], NotImplementedError, "item 8"),
+    (["--fsdp", "2"], RuntimeError, "needs more than the world size 1"),
+    (["--dp", "2"], RuntimeError, "needs more than the world size 1"),
+    (["--tp", "2"], RuntimeError, "needs more than the world size 1"),
     (["--model_size", "gpt-j"], ValueError, "unknown LLM 'gpt-j'"),
 ])
 def test_refusals(traj_root, tmp_path, argv, exc, match):
     """The reference's SystemExits and its ValueError for a name outside
     the LLM registry word for word (JAX's own are checked on the same
-    arguments); a mesh of more than one device names ROADMAP item 8."""
+    arguments); a mesh of more ranks than the world (one, without
+    torchrun's variables) is refused, as JAX's make_mesh asserts."""
     common = ["--video_folders", traj_root, "--output_dir",
               str(tmp_path)] + TINY
     with pytest.raises(exc, match=match) as got:
