@@ -39,8 +39,11 @@ ARGTYPES = {
     "svt_flash_attention_lse": [_P] * 7 + [_L] * 12 + [_I] * 6 + [_F, _P],
     # q, k, v, dO, lse, dsum, dQ | q_pos, k_pos, 21 strides (an array)
     "svt_flash_bwd_dq": [_P] * 10 + [_I] * 6 + [_F, _P],
-    # q, k, v, dO, lse, dsum, dK, dV | q_pos, k_pos, 21 strides
-    "svt_flash_bwd_dkv": [_P] * 11 + [_I] * 6 + [_F, _P],
+    # q, k, v, dO, lse, dsum, dK, dV | q_pos, k_pos, 21 strides, scratch
+    # partials, arrival counters | B, Sq, Sk, Hq, Hkv, D, splits
+    "svt_flash_bwd_dkv": [_P] * 13 + [_I] * 7 + [_F, _P],
+    # B, Sk, Hq, Hkv, D -> K5's head split
+    "svt_flash_bwd_dkv_splits": [_I] * 5,
     # x, w, scales, out | M, din, dout, is_bf16
     "svt_int4_matmul": [_P] * 4 + [_I] * 4 + [_P],
     # w, scales, out | half, dout, is_bf16

@@ -340,13 +340,38 @@ def _bwd_launch(what, q, k, v, dout, lse, dsum, q_positions, k_positions,
         *(_kvst(dv, kv_major) if dv is not None else zero))
     lib = build.load("flash_attention_bwd")
     ptrs = [x.data_ptr() for x in (q, k, v, dout, lse, dsum)]
-    outs = [dq.data_ptr()] if dq is not None else \
-        [dk.data_ptr(), dv.data_ptr()]
-    fn = lib.svt_flash_bwd_dq if dq is not None else lib.svt_flash_bwd_dkv
-    rc = fn(*ptrs, *outs, q_positions.data_ptr(), k_positions.data_ptr(),
-            strides, B, Sq, Sk, Hq, Hkv, D,
-            float(D ** -0.5 if scale is None else scale), _stream(q))
+    pos = (q_positions.data_ptr(), k_positions.data_ptr(), strides)
+    sc = float(D ** -0.5 if scale is None else scale)
+    if dq is not None:
+        rc = lib.svt_flash_bwd_dq(*ptrs, dq.data_ptr(), *pos, B, Sq, Sk, Hq,
+                                  Hkv, D, sc, _stream(q))
+    else:
+        # K5 at head dim 256 under one wave: blocks share a key tile's
+        # heads and sum f32 partials (attention_plan.cuh::plan_head_split)
+        splits = dkv_splits(B, Sk, Hq, Hkv, D)
+        part = counts = None
+        if splits > 1:
+            pairs = B * Hkv * -(-Sk // 64)
+            part = torch.empty(pairs * splits * 2 * 64 * D,
+                               dtype=torch.float32, device=q.device)
+            counts = torch.zeros(pairs, dtype=torch.int32, device=q.device)
+        rc = lib.svt_flash_bwd_dkv(
+            *ptrs, dk.data_ptr(), dv.data_ptr(), *pos,
+            part.data_ptr() if part is not None else None,
+            counts.data_ptr() if counts is not None else None,
+            B, Sq, Sk, Hq, Hkv, D, splits, sc, _stream(q))
     build.check(rc, what)
+
+
+def dkv_splits(B: int, Sk: int, Hq: int, Hkv: int, D: int) -> int:
+    """How many blocks K5 gives each (64-key tile, batch x KV head) pair
+    on this card: the plan's head split at head dim 256, else 1."""
+    n = build.load("flash_attention_bwd").svt_flash_bwd_dkv_splits(
+        B, Sk, Hq, Hkv, D)
+    if n < 1:
+        raise ValueError(f"flash_bwd_dkv: no launch plan for B={B} Sk={Sk} "
+                         f"Hq={Hq} Hkv={Hkv} D={D}")
+    return n
 
 
 def flash_bwd_dq(q, k, v, dout, lse, dsum, q_positions=None,

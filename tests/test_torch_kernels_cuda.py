@@ -323,7 +323,10 @@ def _train_positions(B, Sq, Sk, n_valid, dev, blind=None):
 
 # The backward's tiling edges: K4 takes 128-row query tiles against 64-key
 # stages, K5 128-key tiles against 64-row query stages (64-row and 64-key
-# tiles at D = 256, where rows 64..127 of batch 0 are a whole blind tile).
+# tiles at D = 256, where rows 64..127 of batch 0 are a whole blind tile;
+# there K5 splits the 8 q heads of a KV head over 8, 4 (S = 2560: 80
+# pairs, 160 padding keys) or 2 (G = 2) blocks and sums their partials, and
+# takes one block per pair at 144 pairs (S = 1100, 4 KV heads)).
 # S not a multiple of 128 (130, 200) or of 64 (130, 200, 300); G = 1, 2, 4,
 # 7 and 8; both k/v layouts; D = 64, 128 and 256; whole key tiles of padding (300 keys, 150
 # valid: K5's third 128-key tile and K4's last two 64-key tiles hold none);
@@ -340,6 +343,8 @@ def _train_positions(B, Sq, Sk, n_valid, dev, blind=None):
     (200, 170, 8, 1, False, 256, None),
     (130, 100, 4, 2, True, 256, None),
     (384, 384, 8, 1, False, 256, slice(64, 128)),
+    (2560, 2400, 8, 1, False, 256, slice(64, 128)),
+    (1100, 1000, 8, 4, True, 256, None),
 ])
 def test_flash_training_kernels_match_plain(dev, S, n_valid, Hq, Hkv,
                                             kv_major, D, blind):
@@ -385,6 +390,18 @@ def test_flash_training_kernels_match_plain(dev, S, n_valid, Hq, Hkv,
     dk2, dv2 = fa.flash_bwd_dkv(*args, kv_major=kv_major)
     assert torch.equal(fa.flash_bwd_dq(*args, kv_major=kv_major), dq)
     assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,want", [
+    (2, 4096, 8, 1, 256, 4),    # Gemma's training shape: 128 pairs
+    (2, 2560, 8, 1, 256, 4),
+    (2, 200, 8, 1, 256, 8),
+    (2, 130, 4, 2, 256, 2),
+    (2, 1100, 8, 4, 256, 1),    # 144 pairs: a wave or more
+    (2, 4096, 28, 4, 128, 1),   # streamvln_7b keeps one block per pair
+])
+def test_dkv_head_split_on_the_card(dev, B, S, Hq, Hkv, D, want):
+    assert fa.dkv_splits(B, S, Hq, Hkv, D) == want
 
 
 def test_cuda_grads_flow_through_both_wrappers(dev):

@@ -9,7 +9,8 @@ wrappers at the main path's shapes by device time (torch.profiler), beside
 the kernels as they are ("base", every library). The attention forward
 (`attention_fwd.cuh`: K1 vit_attention, K2/K3 flash_attention) is timed at
 the SigLIP and prefill shapes and the train step's, the backward
-(`flash_attention_bwd.cu`: K4 dQ, K5 dK/dV) at the train step's shape; K6
+(`flash_attention_bwd.cu`: K4 dQ, K5 dK/dV) at the train step's shape at
+head dims 128 and 256; K6
 (int4 dequant-matmul,
 `int4_matmul.cu`) and K8 (decode attention, `decode_attention.cu`) at the
 decode path's shapes over a rotation of operand copies that misses the L2
@@ -41,6 +42,62 @@ BWD_CU = f"{BWD}.cu"
 _SKIP = ("      if (n > 0) {{ __syncwarp(); if (lane == 0) "
          "mbar_arrive(empty0 + 8 * st); continue; }}\n{}")
 _PACK = "    d[b] = pack_bf16x2(q[2 * b] * sc[b], q[2 * b + 1] * sc[b]);"
+# P or dS as a hi + lo pair of bf16 fragments: hi = bf16(x), lo = bf16(x -
+# hi), so hi + lo carries ~16 bits of x
+_HILO = """template <int NK>
+__device__ __forceinline__ void {}(const float* s, uint32_t (*hi)[4],
+                                   uint32_t (*lo)[4]) {{
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {{
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {{
+      const float x0 = s[8 * kk + 2 * r], x1 = s[8 * kk + 2 * r + 1];
+      const uint32_t h = pack_bf16(x0, x1);
+      hi[kk][r] = h;
+      lo[kk][r] = pack_bf16(x0 - __uint_as_float(h << 16),
+                            x1 - __uint_as_float(h & 0xFFFF0000u));
+    }}
+  }}
+}}
+
+"""
+_FWD_HILO = [
+    (FWD, "// One arrival per warp on a stage's empty barrier",
+     _HILO.format("pack_p_hilo")
+     + "// One arrival per warp on a stage's empty barrier"),
+    (FWD, "    uint32_t p[BN / 16][4];",
+     "    uint32_t p[BN / 16][4], pl[BN / 16][4];"),
+    (FWD, "pack_p<BN / 16>(s, p);", "pack_p_hilo<BN / 16>(s, p, pl);"),
+    (FWD, "issue_pv<DP>(o, p, desc_add(dv, po), desc_add(dvt, po));",
+     "issue_pv<DP>(o, p, desc_add(dv, po), desc_add(dvt, po));\n"
+     "          issue_pv<DP>(o, pl, desc_add(dv, po), desc_add(dvt, po));")]
+_BWD_HILO = [
+    (BWD_CU, "// ---- K4: dQ ----", _HILO.format("pack_ds_hilo")
+     + "// ---- K4: dQ ----"),
+    # K4: dS and its lo part through the exchange tile, twice its size
+    (BWD_CU, "XD_OFF + (WIDE ? BM * BN * 2 : 0)",
+     "XD_OFF + (WIDE ? BM * BN * 4 : 0)"),
+    (BWD_CU, "    uint32_t f[BN / 16][4];",
+     "    uint32_t f[BN / 16][4], fl[BN / 16][4];"),
+    (BWD_CU, "        get_frags<BN / 16>(xd, f, t);",
+     "        get_frags<BN / 16>(xd, f, t);\n"
+     "        get_frags<BN / 16>(xd + 4 * 128, fl, t);"),
+    (BWD_CU, "        pack_p<BN / 16>(s, f);\n",
+     "        pack_ds_hilo<BN / 16>(s, f, fl);\n"),
+    (BWD_CU, "        put_frags<BN / 16>(xd, f, t);",
+     "        put_frags<BN / 16>(xd, f, t);\n"
+     "        put_frags<BN / 16>(xd + 4 * 128, fl, t);"),
+    (BWD_CU, "      issue_rs<2, BN / 16>(acc, f, desc_add(dkt, so), BN * 128);",
+     "      issue_rs<2, BN / 16>(acc, f, desc_add(dkt, so), BN * 128);\n"
+     "      issue_rs<2, BN / 16>(acc, fl, desc_add(dkt, so), BN * 128);"),
+    # K5: P^T (warpgroup 0) and dS^T (1)
+    (BWD_CU, "    uint32_t f[BQ / 16][4];",
+     "    uint32_t f[BQ / 16][4], fl[BQ / 16][4];"),
+    (BWD_CU, "      pack_p<BQ / 16>(s, f);",
+     "      pack_ds_hilo<BQ / 16>(s, f, fl);"),
+    (BWD_CU, "      issue_rs<NW, BQ / 16>(acc, f, desc_add(dt, so), BQ * 128);",
+     "      issue_rs<NW, BQ / 16>(acc, f, desc_add(dt, so), BQ * 128);\n"
+     "      issue_rs<NW, BQ / 16>(acc, fl, desc_add(dt, so), BQ * 128);")]
 # name: (libraries it changes, edits as (file in csrc/, old text, new text))
 VARIANTS = {
     "base": ((*ATTN, BWD, K6, K8), []),
@@ -66,9 +123,10 @@ VARIANTS = {
                       (FWD, "      wgmma_rs_n16(o + 32 * S::NW, p[kk], "
                        "desc_add(dvt, kk * 16 * 32));", "      ;")]),
     # attention forward: the two consumer warpgroups' turn-taking
-    "noping": (ATTN, [(FWD, "named_sync(1 + cw, 256);", ""),
-                      (FWD, "named_arrive(2 - cw, 256);", ""),
-                      (FWD, "if (cw == 1) named_arrive(1, 256);", "")]),
+    "noping": (ATTN, [(FWD, "named_sync(1 + cw, 256);", "(void)0;"),
+                      (FWD, "named_arrive(2 - cw, 256);", "(void)0;"),
+                      (FWD, "if (NC == 2 && cw == 1) named_arrive(1, 256);",
+                       "")]),
     # K4/K5: the exponentials (P = S * scale - LSE instead)
     "bwd_noexp": ((BWD,), [(BWD_CU, "ex2(fmaf(", "(fmaf(")]),
     # K4/K5: the products fed from registers (dS K; P^T dO and dS^T Q)
@@ -78,27 +136,44 @@ VARIANTS = {
         (BWD_CU, "issue_rs<NW, BQ / 16>(dv, pf,",
          "if (0) issue_rs<NW, BQ / 16>(dv, pf,"),
         (BWD_CU, "issue_rs<NW, BQ / 16>(dk, sf,",
-         "if (0) issue_rs<NW, BQ / 16>(dk, sf,")]),
+         "if (0) issue_rs<NW, BQ / 16>(dk, sf,"),
+        (BWD_CU, "issue_rs<2, BN / 16>(acc, f,",
+         "if (0) issue_rs<2, BN / 16>(acc, f,"),
+        (BWD_CU, "issue_rs<NW, BQ / 16>(acc, f,",
+         "if (0) issue_rs<NW, BQ / 16>(acc, f,")]),
     # K4/K5: consumers release every stage unread (the ring alone)
     "bwd_noconsume": ((BWD,), [
-        (BWD_CU, "  int prev = -1;\n  if (meta_k0[stage] >= 0) {",
-         "  int prev = -1;\n  while (meta_k0[stage] >= 0) {\n"
-         "    release(empty0 + 8 * stage, lane);\n"
-         "    if (leader) { prefetch(); commit(); }\n"
-         "    if (++stage == ST) { stage = 0; phase ^= 1; }\n"
-         "    mbar_wait(full0 + 8 * stage, phase);\n  }\n  if (0) {"),
+        (BWD_CU, "    int prev = -1;\n    if (meta_k0[stage] >= 0) {",
+         "    int prev = -1;\n    while (meta_k0[stage] >= 0) {\n"
+         "      release(empty0 + 8 * stage, lane);\n"
+         "      if (leader) { prefetch(); commit(); }\n"
+         "      if (++stage == ST) { stage = 0; phase ^= 1; }\n"
+         "      mbar_wait(full0 + 8 * stage, phase);\n    }\n    if (0) {"),
         (BWD_CU, "    if (meta_q0[stage] < 0) break;\n",
          "    if (meta_q0[stage] < 0) break;\n"
          "    release(empty0 + 8 * stage, lane);\n"
          "    if (leader) commit();\n"
          "    if (++stage == ST) { stage = 0; phase ^= 1; }\n"
-         "    continue;\n")]),
+         "    continue;\n"),
+        (BWD_CU, "      if (meta_k0[stage] < 0) break;\n",
+         "      if (meta_k0[stage] < 0) break;\n"
+         "      release(empty0 + 8 * stage, lane);\n"
+         "      if (leader) commit();\n"
+         "      if (++stage == ST) { stage = 0; phase ^= 1; }\n"
+         "      continue;\n")]),
     # K4/K5: the launch alone (same grid and shared memory)
     "bwd_empty": ((BWD,), [
         (BWD_CU, "  using S = DqShape<DP>;\n  constexpr",
          "  if (a.B > 0) return;\n  using S = DqShape<DP>;\n  constexpr"),
         (BWD_CU, "  using S = DkvShape<DP>;\n  constexpr",
          "  if (a.B > 0) return;\n  using S = DkvShape<DP>;\n  constexpr")]),
+    # K4/K5 at head dim 256: P and dS into their products as hi + lo bf16
+    # pairs (each product fed from registers issued twice), as K8 splits P
+    "bwd_pds_hilo": ((BWD,), _BWD_HILO),
+    # attention forward (K1-K3): P into P V as a hi + lo bf16 pair
+    "fwd_p_hilo": (ATTN, _FWD_HILO),
+    # both of the above (K3's and K4/K5's P, and dS, as pairs)
+    "pds_hilo_all": ((ATTN[1], BWD), _FWD_HILO + _BWD_HILO),
     # K6: the nibble -> bf16 arithmetic (the raw word goes to the products)
     "k6_nodequant": ((K6,), [(f"{K6}.cu", _PACK, "    d[b] = w >> b;")]),
     # K6: the scale multiplies only
@@ -142,9 +217,9 @@ VARIANTS = {
     "k6_empty": ((K6,), [(f"{K6}.cu", "  using S = I4Shape<NT>;\n  constexpr",
                           "  if (M > 0) return;\n  using S = I4Shape<NT>;\n"
                           "  constexpr")]),
-    "k8_empty": ((K8,), [(f"{K8}.cu", "  using S = DecShape<T>;\n  extern",
-                          "  if (Hq > 0) return;\n  using S = DecShape<T>;\n"
-                          "  extern")]),
+    "k8_empty": ((K8,), [(f"{K8}.cu", "  using S = DecShape<T, D>;\n  extern",
+                          "  if (Hq > 0) return;\n"
+                          "  using S = DecShape<T, D>;\n  extern")]),
 }
 
 
@@ -198,7 +273,8 @@ def use_variant(procs: dict) -> None:
 def cases(torch) -> dict:
     """{case: (library, [calls], calls timed)}: K1 at batch 1 and 9
     (SigLIP), K2 at the prefill buckets 768 and 2560 over a 4096-slot cache
-    from position 300, K3, K4 and K5 at the train step's shape; K6 at every int4
+    from position 300, K3, K4 and K5 at the train step's shape (K4/K5 also
+    at Gemma's head dim 256); K6 at every int4
     projection's decode shape and gate/up at 128 rows, K8 at 300 and 4096
     live keys of a 4096-slot cache, each over operand copies past 2.5x the
     50 MB L2 cache."""
@@ -238,6 +314,13 @@ def cases(torch) -> dict:
     bwd = (q, k, v, do, lse, fa._dsum(do, o), qp, kp3)
     out["K4"] = (BWD, [lambda: fa.flash_bwd_dq(*bwd)], 10)
     out["K5"] = (BWD, [lambda: fa.flash_bwd_dkv(*bwd)], 10)
+    # ... and at Gemma's (head dim 256, 8/1 heads)
+    q, k, v = rnd(2, S, 8, 256), rnd(2, S, 1, 256), rnd(2, S, 1, 256)
+    o, lse = fa.flash_attention_lse(q, k, v, qp, kp3)
+    do = rnd(2, S, 8, 256)
+    bwd256 = (q, k, v, do, lse, fa._dsum(do, o), qp, kp3)
+    out["K4 D=256"] = (BWD, [lambda: fa.flash_bwd_dq(*bwd256)], 10)
+    out["K5 D=256"] = (BWD, [lambda: fa.flash_bwd_dkv(*bwd256)], 10)
     for name, din, dout, M in (("qkv", 3584, 4608, 1), ("o", 3584, 3584, 1),
                                ("gu", 3584, 37888, 1),
                                ("down", 18944, 3584, 1),
