@@ -33,7 +33,11 @@ Phases (any failure exits non-zero before the result line):
      and K8 timed over enough operand copies to miss the L2 cache, as the
      decode path does, with their host cost per call; every K6 and K8
      shape also checks that a second call is bit-equal to the first and
-     that a call launches one kernel;
+     that a call launches one kernel; K8 and SDPA also on the settled
+     yardstick (graph_ms: the L-layer rotation captured into one CUDA
+     graph, replayed GRAPH_REPLAYS times between CUDA events, the median
+     of GRAPH_RUNS readings with min and max; a reading below the bound is
+     refused, logged and not recorded), with K8's launch plan;
   3. drive the main path at full width: streamvln_7b (SigLIP-so400m +
      Qwen2-7B) with random bf16 weights made on the card (q/k/v and
      gate/up fused, as the engine does), a ByteTokenizer and a 4096-slot
@@ -225,7 +229,8 @@ Phases (any failure exits non-zero before the result line):
      by device time beside SDPA and their bounds: K2 and K3 at head dim
      256 (Gemma: 8 query heads on 1 KV head) at Sq 768 and 2560 on the
      4096-slot KV-major cache, K8 there at lengths 300, 1900, 2049 and
-     4096, K2 and K8 at group sizes 1 (32/32 heads) and 5 (40/8); phase
+     4096, K2 and K8 at group sizes 1 (32/32 heads) and 5 (40/8), K8 and
+     K2 at Sq 768 also on phase 2's settled yardstick beside SDPA; phase
      1 requires the head-dim-256 instances to spill no register, and
      phase 2 checks K6 and K7 at Qwen2-14B's int4 shapes; 10b each
      registry family at full width through eval_cli.build_agent (random
@@ -238,9 +243,10 @@ Phases (any failure exits non-zero before the result line):
      under "dense" (int4: dequantized), exact K2 counts (none for MPT's
      alibi, which takes dense attention as in the reference), K1 at every
      tower pass, K6/K7 under --bits 4; vision, prefill and decode ms, ms
-     per decoded token, weight GiB and peak memory; Gemma also one call
-     under decode_kernel (K8 at head dim 256 once per layer per fed token,
-     a decode step against dense); each family's agents freed and the
+     per decoded token, weight GiB and peak memory; gemma-2b (D = 256),
+     llama2-7b (G = 1) and qwen2-14b (G = 5) also one call under
+     decode_kernel (K8 once per layer per fed token, a decode step against
+     dense); each family's agents freed and the
      card's memory back within FAMILY_MEMORY_SLACK; 10c every decode and
      verify replay bit-equal to the eager step (3g) on qwen2-moe-a2.7b and
      mpt-7b, and Qwen2-MoE's capacity dispatch at factor E/K against the
@@ -370,6 +376,10 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_MIN_COSINE = 1e-2, 0.99
 K6_SUM_RTOL, K6_ATOL = 1e-5, 1e-6
 # K8 vs its plain version in f32: half a bf16 ulp of the output + f32 order
 K8_RTOL, K8_ATOL = 2.0 ** -8, 1e-5
+# the settled kernel yardstick (graph_ms): replays of one captured rotation
+# between two CUDA events, readings of which the median ranks, and the
+# calls captured where a rotation has one operand set (K2)
+GRAPH_REPLAYS, GRAPH_RUNS, GRAPH_CALLS = 20, 5, 10
 # speculative vs greedy decode in bf16 (spec_vs_greedy): where a call
 # differs, the greedy gap between its token and the speculative one must lie
 # within 2 x the two paths' largest logit difference measured at the
@@ -591,6 +601,55 @@ def time_ms(torch, fn, iters=10, warmup=2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(torch, fns, bound_ms, what, replays=GRAPH_REPLAYS,
+             runs=GRAPH_RUNS, attempts=3) -> dict:
+    """Per-call device time of a rotation of `fns` on the settled
+    yardstick: the rotation (each call once, in order) captured into one
+    CUDA graph, replayed `replays` times between two CUDA events, `runs`
+    such readings; the median with min and max. Nothing is dropped as a
+    profiler window can drop kernels, and the host's launch cost is out.
+    A reading below `bound_ms` cannot be a measurement of the work: the
+    set is logged as refused and taken again, up to `attempts` times, and
+    after that not recorded (ms None)."""
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for f in fns:
+            f()
+    refused = []
+    try:
+        for _ in range(attempts):
+            graph.replay()
+            torch.cuda.synchronize()
+            vals = []
+            for _ in range(runs):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(replays):
+                    graph.replay()
+                end.record()
+                end.synchronize()
+                vals.append(start.elapsed_time(end) / (replays * len(fns)))
+            if min(vals) >= bound_ms:
+                return {"ms": statistics.median(vals), "min": min(vals),
+                        "max": max(vals), "refused": refused}
+            refused.append(vals)
+            log(f"  {what}: graph-timed readings {vals} below the bound "
+                f"{bound_ms:.4f} ms: refused")
+    finally:
+        graph.reset()
+    return {"ms": None, "min": None, "max": None, "refused": refused}
+
+
+def graph_text(g: dict) -> str:
+    if g["ms"] is None:
+        return f"refused ({len(g['refused'])} sets below the bound)"
+    return f"{g['ms']:.4f} ms ({g['min']:.4f}-{g['max']:.4f})"
+
+
 def bound(flops: float, nbytes: float):
     t_ops = flops / H100_BF16_FLOPS * 1e3
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
@@ -668,7 +727,7 @@ def check_vit(torch, F, va, B, rng_seed=0, S=729, H=16, D=72):
 
 
 def check_flash(torch, F, fa, Sq, offsets=(300,), cap=4096, seed=1,
-                Hq=28, Hkv=4, D=128, lse=False):
+                Hq=28, Hkv=4, D=128, lse=False, graph=False):
     """K2 against its plain version: a prefill of Sq queries into a
     cap-slot KV-head-major cache, one batch row per entry of `offsets`
     (row b's queries at positions offsets[b] .. offsets[b] + Sq - 1); query
@@ -677,7 +736,9 @@ def check_flash(torch, F, fa, Sq, offsets=(300,), cap=4096, seed=1,
     key (the last) and a row whose keys from slot 1000 on are INVALID_POS
     (the one before it). Heads and head dim default to Qwen2-7B's; with
     `lse` it is K3 (the same forward with the row logsumexp), its output
-    held as K2's and its LSE within LSE_ATOL + LSE_RTOL * |ref|."""
+    held as K2's and its LSE within LSE_ATOL + LSE_RTOL * |ref|. With
+    `graph`, the kernel and SDPA also on the settled yardstick (graph_ms
+    over GRAPH_CALLS calls)."""
     B = len(offsets)
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((B, Sq, Hq, D), generator=g, device="cuda") \
@@ -767,11 +828,23 @@ def check_flash(torch, F, fa, Sq, offsets=(300,), cap=4096, seed=1,
            "plain_ms": plain, "library_ms": lib,
            "library_event_ms": lib_event, "bound_ms": b_ms, "bound_by": b_by}
     what = "K3 flash_attention_lse" if lse else "K2 flash_attention"
+    graph_line = ""
+    if graph:
+        kg = graph_ms(torch, [kernel] * GRAPH_CALLS, b_ms,
+                      f"{what} {rec['shape']}")
+        lg = graph_ms(torch, [sdpa] * GRAPH_CALLS, b_ms,
+                      f"SDPA at {rec['shape']}")
+        rec.update(graph_ms=kg["ms"], graph_min=kg["min"],
+                   graph_max=kg["max"], graph_refused=kg["refused"],
+                   library_graph_ms=lg["ms"], library_graph_min=lg["min"],
+                   library_graph_max=lg["max"],
+                   library_graph_refused=lg["refused"])
+        graph_line = f" graph-timed {graph_text(kg)}, sdpa {graph_text(lg)};"
     lse_text = f", LSE {c['lse_tol_share']:.3f} of {LSE_ATOL} + " \
         f"{LSE_RTOL}*|ref|" if lse else ""
-    log(f"{what} {rec['shape']}: {tol_text(c)}{lse_text} kernel {ms:.4f} "
-        f"ms device ({event_ms:.4f} event-timed, {h_us:.1f} us host per "
-        f"call) plain {plain:.4f} ms sdpa {lib:.4f} ms device "
+    log(f"{what} {rec['shape']}: {tol_text(c)}{lse_text}{graph_line} kernel "
+        f"{ms:.4f} ms device ({event_ms:.4f} event-timed, {h_us:.1f} us "
+        f"host per call) plain {plain:.4f} ms sdpa {lib:.4f} ms device "
         f"({lib_event:.4f} event-timed) bound {b_ms:.4f} ms ({b_by})")
     if not (c["tol_share"] <= 1.0 and c.get("lse_tol_share", 0.0) <= 1.0):
         raise AssertionError(f"{what} disagrees: {c}")
@@ -977,14 +1050,19 @@ def check_decode(torch, F, da, lengths=(300, 1900, 4096, 2049), L=28,
     at an L-layer bf16 cache's shapes (heads and head dim Qwen2-7B's by
     default): |err| <= 2^-8 |ref| + 1e-5 (the kernel's one bf16 output
     rounding, half an ulp, plus f32 summation order); a second call
-    bit-equal; one kernel per call. Timed over the L layers in turn,
-    beside SDPA on the live prefix (enable_gqa)."""
+    bit-equal; one kernel per call. Timed over the L layers in turn by
+    device time (torch.profiler) beside SDPA on the live prefix
+    (enable_gqa), and both on the settled yardstick (graph_ms, which ranks
+    them); with the launch plan (the blocks of the cluster of each KV head,
+    the instance's blocks per SM and the resident clusters of that size, as
+    the card reports them)."""
     B = 1
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((L, B, 1, Hq, D), generator=g, device="cuda") \
         .to(torch.bfloat16)
     k, v = (torch.randn((L, B, Hkv, cap, D), generator=g, device="cuda")
             .to(torch.bfloat16) for _ in range(2))
+    plan = da.plan(B, Hq, Hkv, cap, D)
     recs = []
     for n in lengths:
         lens = torch.full((B,), n, dtype=torch.int32, device="cuda")
@@ -996,6 +1074,8 @@ def check_decode(torch, F, da, lengths=(300, 1900, 4096, 2049), L=28,
                                         v[0].float(), lens)
         err = (out.float() - ref).abs()
         share = (err / (K8_RTOL * ref.abs() + K8_ATOL)).max().item()
+        nbytes = 2 * B * Hkv * n * D * 2 + 2 * B * Hq * D * 2 + 4 * B
+        b_ms, b_by = bound(4.0 * B * Hq * n * D, nbytes)
         kfns = [(lambda i=i: da.decode_attention(q[i], k[i], v[i], lens))
                 for i in range(L)]
         ms, event_ms = device_ms(torch, kfns, 2 * L), \
@@ -1005,25 +1085,32 @@ def check_decode(torch, F, da, lengths=(300, 1900, 4096, 2049), L=28,
         plain = time_ms(torch, lambda: da.decode_attention_plain(
             q[0], k[0], v[0], lens), iters=3, warmup=1)
         qt = [q[i].transpose(1, 2) for i in range(L)]
-        lib = device_ms(torch, [
-            (lambda i=i: F.scaled_dot_product_attention(
-                qt[i], k[i][:, :, :n], v[i][:, :, :n], enable_gqa=True))
-            for i in range(L)], 2 * L)
-        nbytes = 2 * B * Hkv * n * D * 2 + 2 * B * Hq * D * 2 + 4 * B
-        b_ms, b_by = bound(4.0 * B * Hq * n * D, nbytes)
+        lfns = [(lambda i=i: F.scaled_dot_product_attention(
+            qt[i], k[i][:, :, :n], v[i][:, :, :n], enable_gqa=True))
+            for i in range(L)]
+        lib = device_ms(torch, lfns, 2 * L)
+        what = f"K8 Hq={Hq} Hkv={Hkv} D={D} length={n}"
+        kg = graph_ms(torch, kfns, b_ms, what)
+        lg = graph_ms(torch, lfns, b_ms, f"SDPA at {what}")
         rec = {"shape": f"B={B} Hq={Hq} Hkv={Hkv} D={D} length={n} "
                         f"cache={cap} bf16", "max_abs_err": err.max().item(),
                "tol_share": share, "bit_equal": bit_equal, "ms": ms,
                "event_ms": event_ms, "host_us": h_us,
                "kernels_per_call": len(per_call), "enqueued": per_call,
                "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
-               "bound_by": b_by, "bytes": nbytes}
+               "bound_by": b_by, "bytes": nbytes, "plan": plan,
+               "graph_ms": kg["ms"], "graph_min": kg["min"],
+               "graph_max": kg["max"], "graph_refused": kg["refused"],
+               "library_graph_ms": lg["ms"], "library_graph_min": lg["min"],
+               "library_graph_max": lg["max"],
+               "library_graph_refused": lg["refused"]}
         log(f"K8 decode_attention {rec['shape']}: max_abs_err "
             f"{rec['max_abs_err']:.3e} ({share:.3f} of 2^-8|ref| + 1e-5) "
-            f"bit-equal {bit_equal}, enqueues {per_call} per call; kernel "
-            f"{ms:.4f} ms device ({event_ms:.4f} ms event-timed, {h_us:.1f} "
-            f"us host per call) "
-            f"plain {plain:.4f} ms sdpa {lib:.4f} ms bound {b_ms:.4f} ms "
+            f"bit-equal {bit_equal}, enqueues {per_call} per call; plan "
+            f"{plan}; kernel graph-timed {graph_text(kg)}, sdpa "
+            f"{graph_text(lg)}; kernel {ms:.4f} ms device ({event_ms:.4f} "
+            f"ms event-timed, {h_us:.1f} us host per call) plain "
+            f"{plain:.4f} ms sdpa {lib:.4f} ms device; bound {b_ms:.4f} ms "
             f"({b_by})")
         recs.append(rec)
         require(f"decode_attention at length {n}", agrees=share <= 1.0,
@@ -4825,6 +4912,9 @@ def train_cli(torch, np, F, va, fa, reset, train4b, card, model_size="7b",
 FAMILY_SIZES = ("qwen2-moe-a2.7b", "gemma-2b", "mpt-7b", "llama3-8b",
                 "llama2-7b", "mistral-7b", "qwen2-14b", "mixtral-8x7b")
 FAMILY_DEPTH = {"mixtral-8x7b": 8}
+# 10b: the families also served under decode_kernel, one for each K8 shape
+# the port's own model does not take: head dim 256 (G = 8), G = 1, G = 5
+DECODE_KERNEL_FAMILIES = ("gemma-2b", "llama2-7b", "qwen2-14b")
 # the three agent calls of each family: step 0, a mid-window step, and the
 # first call after the 32-step window reset (<memory>, history backfill)
 FAMILY_STEPS = (0, 16, 32)
@@ -4857,16 +4947,17 @@ def family_kernels(torch, F, fa, da):
     layers' caches in turn: Gemma's depth), and K2 and K8 at group sizes 1
     (32/32 heads: Llama-2, Qwen2-MoE's 16/16 in kind) and 5 (40/8:
     Qwen2-14B). Each timed by device time beside its plain version and
-    SDPA, with its bound."""
+    SDPA, with its bound; K8 and K2 at Sq 768 also on the settled
+    yardstick."""
     recs = {"flash": [], "flash_lse": [], "decode": []}
     for Sq in (768, 2560):
         recs["flash"].append(check_flash(torch, F, fa, Sq, Hq=8, Hkv=1,
-                                         D=256, seed=21))
+                                         D=256, seed=21, graph=Sq == 768))
         recs["flash_lse"].append(check_flash(torch, F, fa, Sq, Hq=8, Hkv=1,
                                              D=256, seed=22, lse=True))
     for Hq, Hkv in ((32, 32), (40, 8)):
         recs["flash"].append(check_flash(torch, F, fa, 768, Hq=Hq, Hkv=Hkv,
-                                         seed=23))
+                                         seed=23, graph=True))
     recs["decode"] += check_decode(torch, F, da, (300, 1900, 2049, 4096),
                                    L=18, Hq=8, Hkv=1, D=256, seed=24)
     for Hq, Hkv, L in ((32, 32, 12), (40, 8, 28)):
@@ -5009,12 +5100,13 @@ def serve_family(torch, np, va, name, frames, instruction, counts, reset,
     return rec, agent, ref
 
 
-def gemma_decode_kernel(torch, agent, frames, instruction, counts, reset):
-    """Phase 10b, Gemma under attn_impl="decode_kernel": after a warm-up
-    call (graph capture), one agent call (greedy, so that every decode
-    forward has one query) with K8 at head dim 256 exactly once per layer
-    per fed token; then one more decode step
-    from its cache through K8 and through the dense path (cosine >
+def family_decode_kernel(torch, name, agent, frames, instruction, counts,
+                         reset):
+    """Phase 10b, a family under attn_impl="decode_kernel": after a
+    warm-up call (graph capture), one agent call (greedy, so that every
+    decode forward has one query) with K8 at the family's shape exactly
+    once per layer per fed token; then one more decode step from its
+    cache through K8 and through the dense path (cosine >
     REF_MIN_COSINE)."""
     from streamvln_tpu_torch.agent import VLNAgent
     from streamvln_tpu_torch.streaming.engine import StreamingEngine
@@ -5044,13 +5136,13 @@ def gemma_decode_kernel(torch, agent, frames, instruction, counts, reset):
     rec = {"tokens": made[0]["tokens"], "fed_tokens": fed, "launches": got,
            "vision_ms": vis, "prefill_ms": pre, "decode_ms": dec,
            "decode_ms_per_token": dec / max(fed, 1), "reference": agree}
-    log(f"10b gemma-2b decode_kernel: {fed} fed tokens, launches {got}; "
+    log(f"10b {name} decode_kernel: {fed} fed tokens, launches {got}; "
         f"decode {dec:.2f} ms ({rec['decode_ms_per_token']:.2f} ms/token); "
         f"a decode step through K8 vs dense: cosine {agree['cosine']:.6f}")
-    require("10b gemma-2b decode_kernel",
+    require(f"10b {name} decode_kernel",
             k8_once_per_layer_per_fed_token=got["decode_attention"] == L * fed
             and fed > 0, agrees_with_dense=agree["cosine"] > REF_MIN_COSINE)
-    del eng
+    del eng, dk_agent
     return rec
 
 
@@ -5283,8 +5375,9 @@ def families(torch, np, F, fa, da, va, frames, instruction, counts, reset,
              card, sizes=FAMILY_SIZES):
     """Phase 10: 10a the kernels at the families' shapes; 10b each family
     through the entry points' build_agent (qwen2-14b also with --bits 4,
-    Gemma also under decode_kernel); 10c the MoE (qwen2-moe-a2.7b) and
-    alibi (mpt-7b) graph replays against eager, and the capacity dispatch;
+    DECODE_KERNEL_FAMILIES also under decode_kernel); 10c the MoE
+    (qwen2-moe-a2.7b) and alibi (mpt-7b) graph replays against eager, and
+    the capacity dispatch;
     10d the strided pool modes and the native loader. Each family's agents
     are freed before the next is built, and the card's memory must return.
     Returns the phase's record."""
@@ -5300,9 +5393,9 @@ def families(torch, np, F, fa, da, va, frames, instruction, counts, reset,
             r, agent, ref = serve_family(torch, np, va, name, frames,
                                          instruction, counts, reset, bits)
             del ref
-            if name == "gemma-2b":
-                r["decode_kernel"] = gemma_decode_kernel(
-                    torch, agent, frames, instruction, counts, reset)
+            if name in DECODE_KERNEL_FAMILIES and bits == 16:
+                r["decode_kernel"] = family_decode_kernel(
+                    torch, name, agent, frames, instruction, counts, reset)
             if name == "qwen2-moe-a2.7b":
                 rec["graphs"][name] = moe_graphs_and_dispatch(
                     torch, agent, frames, instruction)
@@ -5964,11 +6057,14 @@ def families_summary(rec, card) -> str:
     parts = []
     for r in rec["families"]:
         c = r["calls"]
+        dk = r.get("decode_kernel")
+        dk = f" (decode_kernel {dk['decode_ms_per_token']:.2f})" if dk \
+            else ""
         parts.append(
             f"{r['model_size']}{' int4' if r['bits'] == 4 else ''} prefill "
             f"{statistics.median(x['prefill_ms'] for x in c):.1f} ms, "
             f"{statistics.median(x['decode_ms_per_token'] for x in c):.2f} "
-            f"ms/token, {r['weights_gib']:.1f} GiB, min cosine "
+            f"ms/token{dk}, {r['weights_gib']:.1f} GiB, min cosine "
             f"{min(x['cosine'] for x in c):.4f}")
     return (f"phase 10 families ({card}): " + "; ".join(parts)
             + f"; {rec['seconds']:.1f} s")
@@ -6652,7 +6748,7 @@ def train_cli_summary(cli, card) -> str:
 
 
 def family_launches(fam, name) -> dict:
-    """A kernel's launches in phase 10b, by family (the Gemma call under
+    """A kernel's launches in phase 10b, by family (the calls under
     decode_kernel apart)."""
     out = {}
     for r in fam["families"]:

@@ -59,6 +59,7 @@
 #include "attention_plan.cuh"
 #include "attention_tile.cuh"
 #include "pipeline.cuh"   // smem_u32, the mbarrier wrappers, ex2
+#include "tma.cuh"        // tma_load_4d, encode_view
 
 namespace svt {
 // Internal linkage: the K1 and K2/K3 libraries both instantiate this code,
@@ -97,17 +98,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // ---- PTX wrappers --------------------------------------------------------
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3) : "memory");
-}
 
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
@@ -699,54 +689,6 @@ attention_fwd_kernel(__grid_constant__ const FwdMaps maps, const FwdArgs a) {
 }
 
 // ---- host side -----------------------------------------------------------
-
-typedef CUresult (*EncodeTiledFn)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in libcuda; take it through cudart's
-// entry-point query once, so the library links cudart alone.
-inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// A [B, S, H, D] bf16 view (element strides sb, ss, sh; D contiguous) as a
-// 4-D tensor map {D, S, H, B} with a (width x rows) box; columns past D and
-// rows past S read as zeros.
-inline bool encode_view(CUtensorMap* map, const void* ptr, int B, int S,
-                        int H, int D, long long sb, long long ss,
-                        long long sh, int width, int rows) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)width, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            width == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                        : CU_TENSOR_MAP_SWIZZLE_32B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 inline int sm_count() {
   static int n = 0;

@@ -1,8 +1,11 @@
 // Launch plans of K6 (int4_matmul.cu) and K8 (decode_attention.cu): how
-// many blocks a launch takes and which share of the work each block owns.
-// Plain C++ with no CUDA types, so the host compiler can build it too
+// many blocks a launch takes and which share of the work each block owns;
+// K8's shared-memory layout and the order of its merge. Plain
+// C++ with no CUDA types, so the host compiler can build it too
 // (tests/test_torch_kernel_plan.py).
 #pragma once
+
+#include <math.h>
 
 #ifndef SVT_HD
 #ifdef __CUDACC__
@@ -50,44 +53,198 @@ SVT_HD Range int4_groups(int groups, int splits, int z) {
 }
 
 // ---- K8: decode attention over keys 0..length-1 of the cache ------------
+//
+// The P blocks of one (batch row, KV head) form one thread-block cluster
+// and split its live prefix into 16-aligned shares of at least
+// kDecMinShare keys (so a short prefix keeps fewer blocks busy); the busy
+// blocks merge their partials in distributed shared memory. The grid
+// depends on the shapes alone (the length stays on the device), sized so
+// that one wave holds every cluster: from the clusters of each size the
+// card keeps resident at once (queried once, at one block per SM: the
+// block's shared memory below).
 
 constexpr int kDecTile = 64;         // keys per pipeline stage
 constexpr int kDecAlign = 16;        // a share starts on a 16-key boundary
-constexpr int kDecMinShare = 64;     // no block takes fewer keys than this
-// most splits of a (row, KV head): a non-portable cluster size, which the
-// H100 schedules (at B = 1 the 4 KV heads then put 64 SMs on the prefix)
+constexpr int kDecMinShare = 32;     // no block takes fewer keys than this
+// most blocks of a cluster: a non-portable size, which the H100 schedules
 constexpr int kDecCluster = 16;
+constexpr int kSmemPerSm = 233472;   // shared memory an SM gives its blocks
+constexpr int kSmemPerBlock = 1024;  // of which the system keeps per block
 
-// Blocks (one cluster) that split the live prefix of one (batch row, KV
-// head): enough for the blocks an SM holds at once (two at head dim 128;
-// one at 256, whose key rows are twice the bytes and whose ring takes
-// ~185 KB of shared memory), at most kDecCluster, and no more than the
-// capacity has minimum shares. It depends on the shapes alone: the length
-// stays on the device.
-SVT_HD int decode_splits(int smax, int batch, int kv_heads,
-                         int head_dim = 128) {
-  const int rows = batch * kv_heads;
-  const int per_sm = head_dim > 128 ? 1 : 2;
-  int p = (per_sm * kSms + rows - 1) / rows;
-  const int most = (smax + kDecMinShare - 1) / kDecMinShare;
-  if (p > most) p = most;
-  if (p > kDecCluster) p = kDecCluster;
-  return p < 1 ? 1 : p;
+// Receive-area slots of a block: an owner of ceil(G / nb) head rows holds
+// nb partials of each (nb busy blocks in its cluster); the most over nb.
+SVT_HD constexpr int decode_slots(int G) {
+  int most = 0;
+  for (int nb = 1; nb <= kDecCluster; ++nb) {
+    const int s = (G + nb - 1) / nb * nb;
+    if (s > most) most = s;
+  }
+  return most;
 }
 
-// Keys of split p of `splits` for a row of `length` live keys: equal
-// 16-aligned shares of at least kDecMinShare keys, cut at the length, so
-// that a short prefix takes fewer blocks and no block reads at or past
-// the length. A split past the prefix gets an empty range.
-SVT_HD Range decode_keys(int length, int splits, int p) {
+// Shared-memory layout of a block, E bytes an element, head dim D, at most
+// GM query heads per KV head (offsets from the block's base, rounded up to
+// 1024 bytes): the ring of K/V stages of 64 key rows each, q in f32 (f32
+// inputs only), the receive area (slot (g / nb) nb + p holds block p's
+// partial of head row g; (max, sum) pairs apart) and the barriers (full
+// and empty per stage, then the receive barrier). The four warps' partials
+// lie over the drained ring. bf16 tiles are loaded with TMA, in boxes of
+// kDecBoxRows key rows x 128 bytes (64 depths), 128-byte swizzled so that
+// ldmatrix falls on 32 banks: a tile is D / 64 columns of such boxes, 8 KB
+// each, four stages at D = 128 (128 KB), three at 256 (192 KB). f32 rows
+// are copied with cp.async into rows padded by 16 bytes, two stages. One
+// block per SM either way.
+constexpr int kDecBoxRows = 16;      // key rows of a TMA box
+template <int E, int D, int GM>
+struct DecLayout {
+  static constexpr int G = GM;
+  static constexpr bool TMA = E == 2;              // bf16: TMA boxes
+  static constexpr int RB = D * E;                 // bytes of a key row
+  static constexpr int ROW = TMA ? RB : RB + 16;   // f32: padded row
+  static constexpr int TILE = kDecTile * ROW;      // one K or V tile
+  static constexpr int STAGE = 2 * TILE;           // K, then V
+  static constexpr int ST = !TMA ? 2 : D == 128 ? 4 : 3;
+  static constexpr int SLOTS = decode_slots(G);
+  static constexpr int Q_OFF = ST * STAGE;
+  static constexpr int R_ACC = Q_OFF + (E == 4 ? G * D * 4 : 0);
+  static constexpr int R_ML = R_ACC + SLOTS * D * 4;
+  static constexpr int BAR_OFF = R_ML + SLOTS * 8;
+  static constexpr int SMEM = BAR_OFF + 16 * ST + 8 + 1024;   // + the base
+  static constexpr int W_ACC = 0;                  // [4][G][D]
+  static constexpr int W_M = W_ACC + 4 * G * D * 4;   // [4][G]
+  static constexpr int W_L = W_M + 4 * G * 4;
+  static_assert(W_L + 4 * G * 4 <= Q_OFF, "the partials fit the ring");
+  static_assert(!TMA || (D % 64 == 0 && kDecBoxRows % 8 == 0 &&
+                         kDecTile % kDecBoxRows == 0),
+                "TMA boxes start on 1024-byte boundaries");
+  static_assert(SMEM + kSmemPerBlock <= kSmemPerSm, "a block fits the SM");
+};
+
+// P, the blocks of the one cluster of each (row, KV head): the largest
+// power of two, at most kDecCluster, of which one cluster per (row, KV
+// head) is resident in one wave (rows <= resident[P - 1], the clusters of
+// P blocks the card keeps resident at once), and no more blocks than the
+// capacity has minimum shares; one block where even single blocks take
+// more than one wave. Powers of two pack the H100's 16-18-SM GPCs: at
+// Qwen2-14B's 8 KV heads clusters of 8 were 7% faster than of 9, at
+// Llama-2's 32 clusters of 2 5% faster than of 3 (PERF.md).
+SVT_HD int decode_cluster(int smax, int batch, int kv_heads,
+                          const int* resident) {
+  const int rows = batch * kv_heads;
+  const int most = (smax + kDecMinShare - 1) / kDecMinShare;
+  for (int p = kDecCluster; p > 1; p /= 2)
+    if (p <= most && resident[p - 1] >= rows) return p;
+  return 1;
+}
+
+// The 16-aligned share of each of `splits` parts of `length` live keys,
+// at least kDecMinShare.
+SVT_HD int decode_share(int length, int splits) {
   int share = (length + splits - 1) / splits;
   share = (share + kDecAlign - 1) / kDecAlign * kDecAlign;
-  if (share < kDecMinShare) share = kDecMinShare;
+  return share < kDecMinShare ? kDecMinShare : share;
+}
+
+// Keys of block p of `splits` for `length` live keys: consecutive shares
+// cut at the length, so that no block reads at or past it. A block past
+// the prefix gets an empty range; the busy blocks are the first ones.
+SVT_HD Range decode_keys(int length, int splits, int p) {
+  const int share = decode_share(length, splits);
   const long long b = static_cast<long long>(share) * p;
   Range r;
   r.begin = b < length ? static_cast<int>(b) : length;
-  r.end = length - r.begin < share ? length : r.begin + share;
+  r.end = b + share < length ? static_cast<int>(b + share) : length;
   return r;
+}
+
+// Blocks with keys: blocks 0..busy-1 (none for a row of length 0).
+SVT_HD int decode_busy(int length, int splits) {
+  if (length <= 0) return 0;
+  const int share = decode_share(length, splits);
+  return (length + share - 1) / share;
+}
+
+// TMA boxes of a block's share of n keys (bf16): tile t (64 keys) is
+// loaded in decode_boxes(n, t) boxes of kDecBoxRows key rows; box j holds
+// rows j kDecBoxRows.. of the tile in shared memory. A box starts at its
+// own first key, or earlier where that would take it past the share's
+// end: the last box of the share ends at key n, starting `first` rows
+// early (keys of the rows before it, or nothing before key 0), and its
+// first `first` rows are masked. So every key of the share is taken
+// exactly once and none at or past n is read.
+struct DecBox {
+  int row;                           // the share's key of its first row
+  int first;                         // its rows before its own first key
+};
+SVT_HD int decode_boxes(int n, int t) {
+  const int left = n - t * kDecTile;
+  const int boxes = (left + kDecBoxRows - 1) / kDecBoxRows;
+  return boxes < kDecTile / kDecBoxRows ? boxes : kDecTile / kDecBoxRows;
+}
+SVT_HD DecBox decode_box(int n, int t, int j) {
+  const int start = t * kDecTile + j * kDecBoxRows;
+  const int row = start < n - kDecBoxRows ? start : n - kDecBoxRows;
+  DecBox box;
+  box.row = row;
+  box.first = start - row;
+  return box;
+}
+
+// The merge, among the nb busy blocks of a cluster: block g % nb owns head
+// row g, and block p's partial of it lands in the owner's slot (g / nb) nb
+// + p.
+SVT_HD int decode_owner(int g, int nb) { return g % nb; }
+SVT_HD int decode_slot(int g, int nb, int p) { return g / nb * nb + p; }
+// head rows that block p owns of G
+SVT_HD int decode_owned(int p, int G, int nb) {
+  return p < G ? (G - 1 - p) / nb + 1 : 0;
+}
+
+SVT_HD float dec_ex2(float x) {
+#ifdef __CUDA_ARCH__
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+#else
+  return exp2f(x);
+#endif
+}
+
+// The merge of n <= N (max, sum, output) partials (log2 units), in order:
+// the largest max m of those with keys first, then each partial's weight
+// c[i] = 2^(m_i - m) (decode_weight: 0 for one that saw no key, sum 0)
+// and l = sum_i l_i c[i] in index order. Both levels (the four warps of a
+// block, the busy blocks of a cluster) merge so, in a fixed order, so two
+// calls give bit-equal results.
+SVT_HD float decode_weight(float mi, float li, float m) {
+  return li > 0.f ? dec_ex2(mi - m) : 0.f;
+}
+
+template <int N>
+SVT_HD void decode_weights(const float* pm, const float* pl, int n,
+                           float* c, float& m, float& l) {
+  m = -1e30f;
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    if (i < n && pl[i] > 0.f && pm[i] > m) m = pm[i];
+  l = 0.f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    c[i] = i < n ? decode_weight(pm[i], pl[i], m) : 0.f;
+    if (i < n) l += pl[i] * c[i];
+  }
+}
+
+// ... and the outputs: o = sum_i o_i c[i] over the partials with keys.
+template <int N>
+SVT_HD void decode_merge(const float* pm, const float* pl, const float* po,
+                         int n, float& m, float& l, float& o) {
+  float c[N];
+  decode_weights<N>(pm, pl, n, c, m, l);
+  o = 0.f;
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    if (i < n && pl[i] > 0.f) o += po[i] * c[i];
 }
 
 }  // namespace svt

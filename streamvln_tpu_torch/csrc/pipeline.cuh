@@ -1,12 +1,11 @@
 // PTX wrappers of the port's Hopper kernels (sm_90a): mbarriers and ex2
 // (also the attention forward's, attention_fwd.cuh); for the streaming
-// kernels K6
-// (int4_matmul.cu) and K8 (decode_attention.cu) asynchronous 16-byte copies
-// from global to shared memory that arrive on an mbarrier (cp.async: no
-// tensor map, so nothing is encoded on the host per call, and any
-// shared-memory layout), thread-block clusters and their distributed
-// shared memory, ldmatrix and mma.sync, and the launch of a clustered
-// grid.
+// kernels K6 (int4_matmul.cu) and K8 (decode_attention.cu: its f32
+// instance) asynchronous 16-byte copies from global to shared memory that
+// arrive on an mbarrier (cp.async: no tensor map, so nothing is encoded on
+// the host per call, and any shared-memory layout), thread-block clusters
+// and their distributed shared memory, ldmatrix and mma.sync, and the
+// launch of a clustered grid. (TMA's wrappers are in tma.cuh.)
 #pragma once
 
 #include <cuda_bf16.h>
@@ -93,6 +92,12 @@ __device__ __forceinline__ uint32_t cluster_addr(uint32_t addr,
 // every thread of the cluster has arrived.
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+// An arrival that publishes nothing but mbarrier inits, which their own
+// fence (mbar_init_fence) releases.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void cluster_wait() {

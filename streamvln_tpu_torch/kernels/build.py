@@ -51,6 +51,8 @@ ARGTYPES = {
     # q, k, v, lengths, out, 8 strides (an array) | B, Hq, Hkv, Smax, D,
     # scale, is_bf16
     "svt_decode_attention": [_P] * 6 + [_I] * 5 + [_F, _I, _P],
+    # B, Hq, Hkv, Smax, D, is_bf16 -> {P, blocks per SM, resident}
+    "svt_decode_attention_plan": [_I] * 6 + [_P],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

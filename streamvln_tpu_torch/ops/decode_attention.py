@@ -2,11 +2,12 @@
 
 Replaces `streamvln_tpu/ops/decode_attention.py::_decode_kernel` with
 `csrc/decode_attention.cu::svt_decode_attention` (its notes give the
-bound on the H100 and the design: a cluster of blocks per (row, KV head)
-splits the live prefix, read on the device, streams K and V through a
-ring of asynchronous copies, computes on the tensor cores for bf16 and merges its
-splits in a fixed order inside the one launch, at head dim 128 or 256;
-`csrc/kernel_plan.cuh` sizes the grid and the shares). q [B, 1, Hq, D] attends over keys
+bound on the H100 and the design: the blocks of one (row, KV head) split
+the live prefix, read on the device, stream K and V through a ring of
+asynchronous copies, compute on the tensor cores for bf16, and merge their
+splits in a fixed order inside the one launch, in distributed shared
+memory, at head dim 128 or 256; `csrc/kernel_plan.cuh` sizes the clusters
+so that one wave holds them, and the shares). q [B, 1, Hq, D] attends over keys
 0..length[b]-1 of k/v [B, Hkv, Smax, D], GQA kv head = q head // G, f32
 math, output in q's dtype; a row of length 0 gives zeros. Keys are
 masked by index (< length), not by position: the two agree because the
@@ -15,7 +16,9 @@ cache keeps slot == position.
 Opt-in, as in the JAX package: `models/qwen2.py::_attend` takes it for
 S == 1 on the cache under attn_impl="decode_kernel". The wrapper runs the
 plain PyTorch version on CPU tensors and launches the kernel or raises on
-CUDA tensors; `launches` counts the launches.
+CUDA tensors; `launches` counts the launches. It allocates the output
+only: a launch keeps nothing in device memory, so launches on any streams,
+eager or replayed from CUDA graphs, may run at once.
 """
 from __future__ import annotations
 
@@ -88,6 +91,20 @@ def _check(q, k, v, lengths):
     for x in (k, v, lengths):
         if x.device != q.device:
             raise ValueError("decode_attention: tensors on different devices")
+
+
+def plan(B: int, Hq: int, Hkv: int, Smax: int, D: int,
+         dtype=torch.bfloat16) -> dict:
+    """The kernel's launch plan for these shapes on this card: the blocks
+    of the cluster of each (row, KV head), the instance's blocks per SM and
+    the resident clusters of that size (kernel_plan.cuh), as the card
+    reports them."""
+    out = (ctypes.c_int * 3)()
+    rc = build.load("decode_attention").svt_decode_attention_plan(
+        B, Hq, Hkv, Smax, D, int(dtype == torch.bfloat16), out)
+    build.check(rc, "decode_attention plan")
+    return {"cluster": out[0], "blocks_per_sm": out[1],
+            "resident_clusters": out[2]}
 
 
 def decode_attention(q, k, v, lengths,

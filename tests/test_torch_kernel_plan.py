@@ -1,21 +1,33 @@
 """The launch plans of the port's K6 (int4 dequant-matmul) and K8 (decode
 attention) kernels (`streamvln_tpu_torch/csrc/kernel_plan.cuh`): the
-contraction split and block count of K6 and the live-prefix shares of K8.
-The header is plain C++; the host compiler builds it here behind a small C
-shim, so these tests run the very functions the kernels' launchers and
-blocks call.
+contraction split and block count of K6; K8's shared-memory layout and the
+blocks per SM it allows, its grid (clusters sized so that one wave holds
+them), its live-prefix shares and its merge (the warps of a block, then the
+blocks of a cluster). The header is plain
+C++; the host compiler builds it here behind a small C shim, so these tests
+run the very functions the kernels' launchers and blocks call.
 """
 import ctypes
 import os
 import shutil
 import subprocess
 
+import numpy as np
 import pytest
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "streamvln_tpu_torch", "csrc")
 SHIM = r"""
 #include "kernel_plan.cuh"
+#include <string.h>
+using namespace svt;
+template <class L> void layout(int* out) {
+  out[0] = L::SMEM;
+  out[1] = L::W_L + 4 * L::G * 4;
+  out[2] = L::Q_OFF;
+  out[3] = L::SLOTS;
+  out[4] = L::ST;
+}
 extern "C" {
 int i4_splits(int M, int din, int dout) {
   return svt::int4_splits(M, din, dout);
@@ -25,20 +37,89 @@ void i4_groups(int groups, int splits, int z, int* out) {
   out[0] = r.begin;
   out[1] = r.end;
 }
-int dec_splits(int smax, int batch, int kv_heads) {
-  return svt::decode_splits(smax, batch, kv_heads);
-}
-int dec_splits_d(int smax, int batch, int kv_heads, int head_dim) {
-  return svt::decode_splits(smax, batch, kv_heads, head_dim);
+int dec_cluster(int smax, int batch, int kv_heads, const int* resident) {
+  return decode_cluster(smax, batch, kv_heads, resident);
 }
 void dec_keys(int length, int splits, int p, int* out) {
   const svt::Range r = svt::decode_keys(length, splits, p);
   out[0] = r.begin;
   out[1] = r.end;
 }
-int sms() { return svt::kSms; }
+int dec_busy(int length, int splits) { return decode_busy(length, splits); }
+int dec_boxes(int n, int t) { return decode_boxes(n, t); }
+void dec_box(int n, int t, int j, int* out) {
+  const DecBox b = decode_box(n, t, j);
+  out[0] = b.row;
+  out[1] = b.first;
+}
+// the instances: bf16 D 128 G <= 8, bf16 D 128 G <= 16, f32 D 128 G <= 16,
+// bf16 D 256 G <= 8 -> {SMEM, end of the warps' partials, Q_OFF, SLOTS, ST}
+void dec_layout(int inst, int* out) {
+  if (inst == 0) layout<DecLayout<2, 128, 8>>(out);
+  if (inst == 1) layout<DecLayout<2, 128, 16>>(out);
+  if (inst == 2) layout<DecLayout<4, 128, 16>>(out);
+  if (inst == 3) layout<DecLayout<2, 256, 8>>(out);
+}
+float dec_merge(const float* m, const float* l, const float* o, int n,
+                float* ml) {
+  float mm, ll, oo;
+  decode_merge<kDecCluster>(m, l, o, n, mm, ll, oo);
+  ml[0] = mm;
+  ml[1] = ll;
+  return oo;
+}
+// One head row of K8 as its blocks merge it: scores s (log2 units) and
+// values v [length][D] of a row over a cluster of `cluster` blocks
+// (decode_keys); each block's four warps take 16 keys of every 64-key tile
+// (partial: max, sum, output, in f32), merged in the block (decode_merge),
+// then over the busy blocks of the cluster in split order, and normalised.
+// A row that no block takes (length 0) is zeros.
+void dec_row(const float* s, const float* v, int length, int D, int cluster,
+             float* out) {
+  memset(out, 0, sizeof(float) * D);
+  const int nb = decode_busy(length, cluster);
+  if (nb == 0) return;
+  float bm[kDecCluster], bl[kDecCluster];
+  static float bo[kDecCluster][512];
+  for (int r = 0; r < nb; ++r) {
+    const Range kr = decode_keys(length, cluster, r);
+    float wm[4], wl[4], wo[4][512];
+    for (int w = 0; w < 4; ++w) {
+      wm[w] = -1e30f;
+      wl[w] = 0.f;
+      for (int d = 0; d < D; ++d) wo[w][d] = 0.f;
+    }
+    for (int j = kr.begin; j < kr.end; ++j) {
+      const int w = (j - kr.begin) % kDecTile / 16;
+      if (s[j] > wm[w]) wm[w] = s[j];
+    }
+    for (int j = kr.begin; j < kr.end; ++j) {
+      const int w = (j - kr.begin) % kDecTile / 16;
+      const float e = exp2f(s[j] - wm[w]);
+      wl[w] += e;
+      for (int d = 0; d < D; ++d) wo[w][d] += e * v[j * D + d];
+    }
+    for (int d = 0; d < D; ++d) {
+      const float po[4] = {wo[0][d], wo[1][d], wo[2][d], wo[3][d]};
+      decode_merge<4>(wm, wl, po, 4, bm[r], bl[r], bo[r][d]);
+    }
+  }
+  for (int d = 0; d < D; ++d) {
+    float po[kDecCluster], mm, ll, oo;
+    for (int r = 0; r < nb; ++r) po[r] = bo[r][d];
+    decode_merge<kDecCluster>(bm, bl, po, nb, mm, ll, oo);
+    out[d] = ll > 0.f ? oo / ll : 0.f;
+  }
+}
+int dec_owner(int g, int nb) { return decode_owner(g, nb); }
+int dec_slot(int g, int nb, int p) { return decode_slot(g, nb, p); }
+int dec_owned(int p, int G, int nb) { return decode_owned(p, G, nb); }
+int dec_const(int i) {
+  const int c[] = {kSms, kDecCluster, kDecMinShare, kSmemPerSm,
+                   kSmemPerBlock, kDecTile, kDecBoxRows};
+  return c[i];
+}
 int i4_cluster() { return svt::kI4Cluster; }
-int dec_cluster() { return svt::kDecCluster; }
 int cols() { return svt::kI4Cols; }
 }
 """
@@ -62,7 +143,9 @@ def plan(tmp_path_factory):
     src.write_text(SHIM)
     subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", CSRC,
                     "-o", str(lib), str(src)], check=True)
-    return ctypes.CDLL(str(lib))
+    cdll = ctypes.CDLL(str(lib))
+    cdll.dec_merge.restype = ctypes.c_float
+    return cdll
 
 
 def _range(fn, *args):
@@ -71,9 +154,40 @@ def _range(fn, *args):
     return out[0], out[1]
 
 
+# K8's instances (kernel_plan.cuh::DecLayout) -> their index in the shim
+DEC_INSTANCES = {"bf16 D=128 G<=8": 0, "bf16 D=128 G<=16": 1,
+                 "f32 D=128 G<=16": 2, "bf16 D=256 G<=8": 3}
+# the blocks per SM every instance's shared memory allows, which the plan
+# assumes (the card's resident-cluster counts are taken at this occupancy,
+# and __launch_bounds__ states it)
+PER_SM = 1
+# a stated H100 SXM layout for the resident-cluster capacity: 132 SMs in 8
+# GPCs, a cluster inside one GPC (the card reports its own counts; phase 2
+# of chip_smoke.py records them)
+GPCS = (18, 18, 16, 16, 16, 16, 16, 16)
+# (smax, batch, KV heads, head dim) of every K8 launch on the card's paths:
+# the 7B (28/4), Gemma (8/1, D = 256), Qwen2-14B (40/8), Llama-2 (32/32), a
+# batched wave of 8, and the cache of the CUDA tests
+DEC_SHAPES = ((4096, 1, 4, 128), (4096, 1, 1, 256), (4096, 1, 8, 128),
+              (4096, 1, 32, 128), (4096, 8, 4, 128), (4096, 7, 1, 256),
+              (1024, 7, 8, 128), (4096, 2, 1, 256), (1024, 3, 32, 128))
+
+
+def _resident(model):
+    """resident[p - 1]: clusters of p blocks at once, per capacity model."""
+    if model == "ideal":
+        return [sum(GPCS) * PER_SM // p for p in range(1, 17)]
+    return [sum(g * PER_SM // p for g in GPCS) for p in range(1, 17)]
+
+
+def _plan(plan, smax, batch, kv_heads, model="gpc"):
+    return plan.dec_cluster(smax, batch, kv_heads,
+                            (ctypes.c_int * 16)(*_resident(model)))
+
+
 def test_cluster_sizes(plan):
     # K6: the portable 8; K8: the H100's non-portable 16
-    assert (plan.i4_cluster(), plan.dec_cluster()) == (8, 16)
+    assert (plan.i4_cluster(), plan.dec_const(1)) == (8, 16)
 
 
 @pytest.mark.parametrize("name", sorted(MAIN_PATH_INT4))
@@ -81,7 +195,7 @@ def test_int4_main_path_shapes_fill_the_card(plan, name):
     M, din, dout = MAIN_PATH_INT4[name]
     ks = plan.i4_splits(M, din, dout)
     assert 1 <= ks <= plan.i4_cluster()
-    assert dout // plan.cols() * ks >= plan.sms()    # blocks of the grid
+    assert dout // plan.cols() * ks >= plan.dec_const(0)   # grid's blocks
 
 
 @pytest.mark.parametrize("M,din,dout", [
@@ -101,40 +215,46 @@ def test_int4_splits_cover_every_group_once(plan, M, din, dout):
     assert seen == list(range(groups))
 
 
+# blocks of the cluster of each (row, KV head) on the stated GPC layout:
+# the largest power of two of which one cluster per (row, KV head) fits a
+# wave
 @pytest.mark.parametrize("smax,batch,kv_heads,want", [
-    (4096, 1, 4, 16),      # the main path: one row, Qwen2-7B's 4 KV heads
-    (1024, 1, 28, 10),
-    (4096, 8, 4, 9),
-    (4096, 64, 4, 2),      # a large batch needs fewer splits per row
-    (1024, 8, 8, 5),
-    (100, 1, 4, 2),        # no more splits than minimum shares
+    (4096, 1, 4, 16),      # the main path: a cluster of 16 per KV head
+    (1024, 1, 28, 4),
+    (4096, 8, 4, 4),
+    (4096, 64, 4, 1),      # a large batch: one block per row
+    (1024, 8, 8, 2),
+    (100, 1, 4, 4),        # no more splits than minimum shares
     (16, 1, 1, 1),
     (4096, 300, 4, 1)])
 def test_decode_splits(plan, smax, batch, kv_heads, want):
-    assert plan.dec_splits(smax, batch, kv_heads) == want
+    assert _plan(plan, smax, batch, kv_heads) == want
 
 
+# the same by head dim: one block per SM at both (the shared memory each
+# instance takes, DecLayout), so the same plan
 @pytest.mark.parametrize("smax,batch,kv_heads,head_dim,want", [
-    (4096, 1, 4, 128, 16),     # head dim 128 is the default
-    (4096, 1, 1, 256, 16),     # Gemma-2B: one KV head, capped by the cluster
-    (4096, 8, 8, 256, 3),      # one block per SM at head dim 256 ...
-    (4096, 8, 8, 128, 5),      # ... two at 128
+    (4096, 1, 4, 128, 16),     # the 7B
+    (4096, 1, 1, 256, 16),     # Gemma-2B: one KV head, one cluster of 16
+    (4096, 8, 8, 256, 2),      # one block per SM at head dim 256 ...
+    (4096, 8, 8, 128, 2),      # ... and at 128 (two would not be resident)
     (4096, 32, 8, 256, 1)])
 def test_decode_splits_by_head_dim(plan, smax, batch, kv_heads, head_dim,
                                    want):
-    assert plan.dec_splits_d(smax, batch, kv_heads, head_dim) == want
+    assert _plan(plan, smax, batch, kv_heads) == want
 
 
 @pytest.mark.parametrize("splits", [1, 2, 5, 8, 16])
 @pytest.mark.parametrize("length", LENGTHS)
 def test_decode_shares_cover_every_live_key_once(plan, length, splits):
+    least = plan.dec_const(2)
     keys = []
     for p in range(splits):
         b, e = _range(plan.dec_keys, length, splits, p)
         assert 0 <= b <= e <= length    # no block reads at or past length
         if e > b:
             assert b % 16 == 0          # shares start on 16-key boundaries
-            assert e - b >= min(64, length - b)
+            assert e - b >= min(least, length - b)
         keys += range(b, e)
     assert keys == list(range(length))
 
@@ -144,7 +264,174 @@ def test_decode_short_prefix_takes_fewer_blocks(plan, splits):
     busy = [p for p in range(splits)
             if _range(plan.dec_keys, 300, splits, p)[1]
             > _range(plan.dec_keys, 300, splits, p)[0]]
-    assert busy == [0, 1, 2, 3, 4]      # 64-key shares: 5 blocks
+    # 48-key shares over 8 splits, 32-key (the least) over 16
+    assert busy == list(range(7 if splits == 8 else 10))
+    assert plan.dec_busy(300, splits) == len(busy)
     share = 4096 // splits
     assert all(_range(plan.dec_keys, 4096, splits, p)
                == (share * p, share * (p + 1)) for p in range(splits))
+
+
+@pytest.mark.parametrize("name", sorted(DEC_INSTANCES))
+def test_decode_layout_fits_the_blocks_per_sm(plan, name):
+    """The shared memory the header computes gives exactly the blocks per
+    SM the plan assumes: 233,472 bytes an SM, 1 KB kept per block."""
+    out = (ctypes.c_int * 5)()
+    plan.dec_layout(DEC_INSTANCES[name], out)
+    smem, w_end, q_off, slots, stages = out
+    per_sm_bytes, reserved = plan.dec_const(3), plan.dec_const(4)
+    assert per_sm_bytes == 233472 and reserved == 1024
+    assert per_sm_bytes // (smem + reserved) == PER_SM
+    assert w_end <= q_off               # the warps' partials over the ring
+    assert stages >= 2 and slots <= 32
+
+
+@pytest.mark.parametrize("model", ["gpc", "ideal"])
+@pytest.mark.parametrize("smax,batch,kv_heads,head_dim", DEC_SHAPES)
+def test_decode_plan_is_one_wave(plan, smax, batch, kv_heads, head_dim,
+                                 model):
+    resident = _resident(model)
+    P = _plan(plan, smax, batch, kv_heads, model)
+    rows = batch * kv_heads
+    most = -(-smax // plan.dec_const(2))
+    assert 1 <= P <= plan.dec_const(1)
+    assert P <= most                    # whole minimum shares
+    assert P & (P - 1) == 0             # a power of two
+    if rows <= resident[0]:
+        assert rows <= resident[P - 1]  # every cluster in the first wave
+        # the largest such power of two
+        assert all(resident[p - 1] < rows or p > most
+                   for p in (2, 4, 8, 16) if p > P)
+    else:
+        assert P == 1
+
+
+@pytest.mark.parametrize("smax,batch,kv_heads,head_dim", DEC_SHAPES)
+@pytest.mark.parametrize("length", LENGTHS)
+def test_decode_plan_shares_cover_every_live_key_once(
+        plan, smax, batch, kv_heads, head_dim, length):
+    """Over the plan's cluster every live key goes to exactly one block,
+    never past the length, in shares that start on 16-key boundaries; the
+    busy blocks come first, as many as decode_busy counts."""
+    if length > smax:
+        return
+    P = _plan(plan, smax, batch, kv_heads)
+    keys, busy = [], 0
+    for p in range(P):
+        b, e = _range(plan.dec_keys, length, P, p)
+        assert 0 <= b <= e <= length
+        if e > b:
+            assert b % 16 == 0
+            assert p == busy            # the busy blocks come first
+            busy += 1
+        keys += range(b, e)
+    assert keys == list(range(length))
+    assert busy == plan.dec_busy(length, P)
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 80,
+                               127, 129, 144, 256, 455, 1366, 4096])
+def test_decode_boxes_take_every_key_of_a_share_once(plan, n):
+    """The TMA boxes of a share of n keys (kernel_plan.cuh::decode_box):
+    their unmasked rows hold every key exactly once, each in its own tile
+    and in the row the consumers read it from; no box reads at or past key
+    n, and rows before key 0 are only ever masked ones."""
+    tile, rows = plan.dec_const(5), plan.dec_const(6)
+    assert tile % rows == 0 and rows % 8 == 0
+    out = (ctypes.c_int * 2)()
+    keys = []
+    for t in range(-(-n // tile)):
+        boxes = plan.dec_boxes(n, t)
+        assert 1 <= boxes <= tile // rows
+        assert boxes * rows >= min(tile, n - t * tile)   # the tile's keys
+        for j in range(boxes):
+            plan.dec_box(n, t, j, out)
+            row, first = out
+            assert row + rows <= n                       # none past the end
+            assert 0 <= first < rows
+            assert row + first == t * tile + j * rows    # its own first key
+            live = list(range(row + first, row + rows))
+            assert all(t * tile <= key < (t + 1) * tile for key in live)
+            keys += live
+    assert keys == list(range(n))
+
+
+@pytest.mark.parametrize("G", [1, 5, 7, 8, 16])
+@pytest.mark.parametrize("nb", [1, 2, 3, 5, 8, 9, 15, 16])
+def test_decode_level_one_slots(plan, G, nb):
+    """Each (head row, sender) lands in its own slot of the owner's receive
+    area, inside the area, and the owners' rows cover every row once."""
+    out = (ctypes.c_int * 5)()
+    plan.dec_layout(0 if G <= 8 else 1, out)
+    slots = out[3]
+    owned = {}
+    for g in range(G):
+        owner = plan.dec_owner(g, nb)
+        assert owner < nb
+        owned.setdefault(owner, []).append(g)
+        got = {plan.dec_slot(g, nb, p) for p in range(nb)}
+        assert len(got) == nb and max(got) < slots
+    for p in range(nb):
+        assert plan.dec_owned(p, G, nb) == len(owned.get(p, []))
+    taken = [plan.dec_slot(g, nb, p) for g in owned.get(0, [])
+             for p in range(nb)]
+    assert len(set(taken)) == len(taken)
+
+
+def _softmax_f64(s, v):
+    p = np.exp2(s.astype(np.float64) - s.max())
+    return (p / p.sum()) @ v.astype(np.float64), (p / p.sum()) @ np.abs(
+        v.astype(np.float64))
+
+
+@pytest.mark.parametrize("length", [1, 15, 63, 64, 65, 300, 1900, 2049,
+                                    4096])
+@pytest.mark.parametrize("cluster", [1, 3, 9, 16])
+def test_decode_two_level_merge_is_the_softmax(plan, length, cluster):
+    """The plan's split partials merged in order (the warps of a block,
+    then the busy blocks of the cluster) equal a one-pass f64 softmax
+    within f32 rounding."""
+    rng = np.random.default_rng(length + cluster)
+    D = 64
+    s = (rng.standard_normal(length) * 3).astype(np.float32)
+    v = rng.standard_normal((length, D)).astype(np.float32)
+    out = np.zeros(D, np.float32)
+    plan.dec_row(s.ctypes.data_as(ctypes.c_void_p),
+                 v.ctypes.data_as(ctypes.c_void_p), length, D, cluster,
+                 out.ctypes.data_as(ctypes.c_void_p))
+    ref, ref_abs = _softmax_f64(s, v)
+    assert np.all(np.abs(out - ref) <= 1e-5 * ref_abs + 1e-7)
+
+
+def test_decode_merge_skips_an_empty_partial(plan):
+    """A partial that saw no key (sum 0, max -1e30) changes nothing, at any
+    place in the order, and its max does not count."""
+    m = np.array([1.5, 0.25, 3.0], np.float32)
+    l = np.array([2.0, 1.0, 4.0], np.float32)
+    o = np.array([0.5, -1.0, 2.0], np.float32)
+    ml = (ctypes.c_float * 2)()
+
+    def merge(m, l, o):
+        r = plan.dec_merge(*(x.ctypes.data_as(ctypes.c_void_p)
+                             for x in (m, l, o)), len(m), ml)
+        return r, ml[0], ml[1]
+    want = merge(m, l, o)
+    for at in range(4):
+        m2 = np.insert(m, at, np.float32(9.0 if at == 1 else -1e30))
+        l2, o2 = np.insert(l, at, 0.0), np.insert(o, at, 123.0)
+        assert merge(m2.astype(np.float32), l2.astype(np.float32),
+                     o2.astype(np.float32)) == want
+
+
+@pytest.mark.parametrize("cluster", [1, 16])
+def test_decode_zero_length_row_gives_zeros(plan, cluster):
+    out = np.full(64, 7.0, np.float32)
+    dummy = np.zeros(64, np.float32)
+    assert plan.dec_busy(0, cluster) == 0
+    for p in range(cluster):            # no block takes a key
+        b, e = _range(plan.dec_keys, 0, cluster, p)
+        assert b == e
+    plan.dec_row(dummy.ctypes.data_as(ctypes.c_void_p),
+                 dummy.ctypes.data_as(ctypes.c_void_p), 0, 64, cluster,
+                 out.ctypes.data_as(ctypes.c_void_p))
+    assert np.all(out == 0)

@@ -560,8 +560,9 @@ _LENGTHS = (0, 1, 31, 129, 511, 513, 1024, 2000)
 # K8 at ragged lengths of a small cache (16-key chunks, 64-key tiles,
 # shares, a row of length 0, a length past the capacity), and at B = 1 of
 # the main path's 4096-slot cache with 300, 4095 and 4096 live keys and a
-# batch whose length-0 row sits beside full rows; every case also checks
-# that a second call is bit-equal
+# batch whose length-0 row sits beside full rows, and f32 rows of Gemma's
+# single-KV-head shape at head dim 128; every case also checks that a
+# second call is bit-equal
 @pytest.mark.parametrize("Hq,Hkv,dtype,lengths,cap", [
     (28, 4, torch.bfloat16, _LENGTHS, 1024),
     (8, 8, torch.float32, _LENGTHS, 1024),
@@ -570,7 +571,8 @@ _LENGTHS = (0, 1, 31, 129, 511, 513, 1024, 2000)
     (28, 4, torch.bfloat16, (4095,), 4096),
     (28, 4, torch.bfloat16, (4096,), 4096),
     (28, 4, torch.bfloat16, (4096, 0, 4096), 4096),
-    (28, 4, torch.float32, (4096, 0, 300), 4096)])
+    (28, 4, torch.float32, (4096, 0, 300), 4096),
+    (8, 1, torch.float32, (4096, 3000), 4096)])
 def test_decode_kernel_matches_plain(dev, Hq, Hkv, dtype, lengths, cap):
     from streamvln_tpu_torch.ops import decode_attention as da
     lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
@@ -913,12 +915,26 @@ def test_flash_lse_kernel_at_head_dim_256(dev, S, n_valid, kv_major):
 
 # K8 at the families' shapes: Gemma's head dim 256 with G = 8 (ragged
 # lengths and the 4096-slot cache), G = 1 (32/32) and G = 5 (40/8) at 128;
-# a second call bit-equal; f32 and G > 8 at head dim 256 raise
+# batches whose rows are ragged (0, 1, 63, 64, 65, 2049, 4096 live keys,
+# past the capacity too) at G = 1, 5 and 8 on caches of 1024 and 4096
+# slots, and long shares (Gemma's past 3584 keys at B <= 3, a 16000-key row
+# at head dim 128); a second call bit-equal; f32 and G > 8 at head dim 256
+# raise
+_RAGGED = (0, 1, 63, 64, 65, 2049, 4096)
+
+
 @pytest.mark.parametrize("Hq,Hkv,D,lengths,cap", [
     (8, 1, 256, _LENGTHS, 1024),
     (8, 1, 256, (300, 1900, 2049, 4096), 4096),
     (32, 32, 128, (300, 4096), 4096),
-    (40, 8, 128, (1900, 2049), 4096)])
+    (40, 8, 128, (1900, 2049), 4096),
+    (8, 1, 256, _RAGGED, 1024), (8, 1, 256, _RAGGED, 4096),
+    (40, 8, 128, _RAGGED, 1024), (40, 8, 128, _RAGGED, 4096),
+    (32, 32, 128, _RAGGED, 1024), (32, 32, 128, _RAGGED, 4096),
+    (8, 1, 256, (4096, 65), 4096), (8, 1, 256, (0, 2049), 4096),
+    (8, 1, 256, (4096,), 4096), (8, 1, 256, (3585, 4096, 3600), 4096),
+    (16, 1, 128, (16000,), 16384),
+    (40, 8, 128, (63, 4096), 4096), (28, 4, 128, (2049, 64), 4096)])
 def test_decode_kernel_at_the_family_shapes(dev, Hq, Hkv, D, lengths, cap):
     from streamvln_tpu_torch.ops import decode_attention as da
     lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
@@ -941,3 +957,83 @@ def test_decode_kernel_at_the_family_shapes(dev, Hq, Hkv, D, lengths, cap):
         wide = _rand(rng, (B, 1, 16, D), dev)
         with pytest.raises(ValueError, match="head dim"):
             da.decode_attention(wide, k, v, lengths)
+
+
+# the launch plan on this card: every cluster of a launch resident in one
+# wave (the card's own count of resident clusters), one block per SM as the
+# card reports it, and clusters of a power of two blocks, 16 where one per
+# KV head fits a wave
+@pytest.mark.parametrize("B,Hq,Hkv,D,dtype,cluster", [
+    (1, 8, 1, 256, torch.bfloat16, 16),
+    (1, 40, 8, 128, torch.bfloat16, None),
+    (1, 28, 4, 128, torch.bfloat16, 16),
+    (1, 32, 32, 128, torch.bfloat16, None),
+    (2, 8, 1, 256, torch.bfloat16, 16),
+    (1, 16, 1, 128, torch.bfloat16, 16),
+    (1, 8, 8, 128, torch.float32, None),
+    (64, 28, 4, 128, torch.bfloat16, None)])
+def test_decode_plan_fits_one_wave(dev, B, Hq, Hkv, D, dtype, cluster):
+    from streamvln_tpu_torch.ops import decode_attention as da
+    plan = da.plan(B, Hq, Hkv, 4096, D, dtype)
+    rows = B * Hkv
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert 1 <= plan["cluster"] <= 16
+    assert plan["cluster"] & (plan["cluster"] - 1) == 0   # a power of two
+    if cluster is not None:
+        assert plan["cluster"] == cluster, plan
+    if rows > plan["resident_clusters"]:
+        # more rows than single blocks in a wave: one block each
+        assert plan["cluster"] == 1, plan
+        assert plan["resident_clusters"] == sms
+    assert plan["blocks_per_sm"] == 1
+
+
+# K8 captured into a CUDA graph (as the decode forwards are) and replayed
+# twice, each replay bit-equal to the eager call, and a replay reads the
+# length as it is then
+@pytest.mark.parametrize("Hq,Hkv,D,n", [(8, 1, 256, 4096), (40, 8, 128, 2049),
+                                        (28, 4, 128, 300)])
+def test_decode_kernel_graph_replays_equal_eager(dev, Hq, Hkv, D, n):
+    from streamvln_tpu_torch.ops import decode_attention as da
+    rng = np.random.default_rng(16)
+    q = _rand(rng, (1, 1, Hq, D), dev)
+    k, v = (_rand(rng, (1, Hkv, 4096, D), dev) for _ in range(2))
+    lengths = torch.full((1,), n, dtype=torch.int32, device=dev)
+    eager = da.decode_attention(q, k, v, lengths)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da.decode_attention(q, k, v, lengths)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    lengths.fill_(n // 2 + 1)          # the length is read on the device
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, da.decode_attention(q, k, v, lengths))
+
+
+# two streams launching K8 at once (a launch keeps no state in device
+# memory): every output bit-equal to the same call alone
+def test_decode_kernel_on_two_streams(dev):
+    from streamvln_tpu_torch.ops import decode_attention as da
+    rng = np.random.default_rng(17)
+    args = []
+    for n in (4096, 3000):
+        q = _rand(rng, (1, 1, 8, 256), dev)
+        k, v = (_rand(rng, (1, 1, 4096, 256), dev) for _ in range(2))
+        args.append((q, k, v, torch.full((1,), n, dtype=torch.int32,
+                                         device=dev)))
+    alone = [da.decode_attention(*a) for a in args]
+    streams = [torch.cuda.Stream(dev) for _ in args]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(dev))
+    outs = [[], []]
+    for _ in range(50):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(da.decode_attention(*args[i]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(o, alone[i]) for o in outs[i])

@@ -1,6 +1,6 @@
 """Ablations of the port's hand-written kernels on the card.
 
-    python3 tools/ablate.py [variant ...]
+    python3 tools/ablate.py [--tree DIR] [variant ...]
 
 Builds copies of `streamvln_tpu_torch/csrc/` with one part taken out or one
 setting changed under `streamvln_tpu_torch/_build/ablate/<variant>/` and
@@ -14,24 +14,38 @@ head dims 128 and 256; K6
 (int4 dequant-matmul,
 `int4_matmul.cu`) and K8 (decode attention, `decode_attention.cu`) at the
 decode path's shapes over a rotation of operand copies that misses the L2
-cache. An ablated kernel computes wrong results: the point is how much of
-the time each part holds. Prints the card and one JSON line per variant.
+cache; K8 also at the families' decode shapes (Gemma's head dim 256, G = 5,
+G = 1), on the settled yardstick (chip_smoke.graph_ms: one CUDA graph of
+the rotation, replayed between CUDA events, the median of its readings).
+An ablated kernel computes wrong results: the point is how much of the
+time each part holds. Prints the card and one JSON line per variant;
+"k8_stamps" also one per K8 case with K8's timeline: when its blocks reach
+each phase, from the first block's start.
 Needs a CUDA card and nvcc. Each edit names a file of `csrc/` and exact text
 of it: when the source changes, a variant that no longer matches stops with
-an error.
+an error. With `--tree DIR` the kernels and wrappers are another checkout's
+(its `streamvln_tpu_torch/`, e.g. the parent commit unpacked with `git
+archive`), timed by this script: "base" there against "base" here, in
+turns, compares two commits on one card.
 """
 from __future__ import annotations
 
 import ctypes
+import importlib.util
 import json
 import os
 import shutil
 import subprocess
 import sys
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))))
-from chip_smoke import device_ms  # noqa: E402
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TREE = sys.argv[2] if __name__ == "__main__" and sys.argv[1:2] == \
+    ["--tree"] else HERE
+sys.path.insert(0, os.path.abspath(TREE))
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 from streamvln_tpu_torch.kernels import build  # noqa: E402
 
 ATTN = ("vit_attention", "flash_attention")
@@ -98,9 +112,66 @@ _BWD_HILO = [
     (BWD_CU, "      issue_rs<NW, BQ / 16>(acc, f, desc_add(dt, so), BQ * 128);",
      "      issue_rs<NW, BQ / 16>(acc, f, desc_add(dt, so), BQ * 128);\n"
      "      issue_rs<NW, BQ / 16>(acc, fl, desc_add(dt, so), BQ * 128);")]
+# K8's rows: (case tag, Hq, Hkv, D, layers, live lengths of 4096 slots)
+K8_ROWS = (("", 28, 4, 128, 28, (300, 1900, 2049, 4096)),
+           (" D=256", 8, 1, 256, 18, (300, 1900, 2049, 4096)),
+           (" G=5", 40, 8, 128, 28, (300, 4096)),
+           (" G=1", 32, 32, 128, 12, (300, 4096)))
+# K8's phases, stamped by thread 0 of every block into a __device__ array
+# read back through svt_stamps: start, init (barriers up, the length read),
+# consumed (the share streamed and the warps' partials written), sent (the
+# block's rows sent to their owners), received (an owner's partials in)
+# and end (the block's last instruction, whichever return it takes)
+K8_PHASES = ("start", "init", "consumed", "sent", "received", "end")
+K8_STAMP_BLOCKS = 8192
+_K8_CU = f"{K8}.cu"
+_STAMP = """__device__ unsigned long long g_stamps[8192 * 6];
+__device__ __forceinline__ void stamp(int k) {
+  if (threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    g_stamps[((blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x
+              + blockIdx.x) * 6 + k] = t;
+  }
+}
+"""
+_STAMP_READ = """
+extern "C" int svt_stamps(void* dst, int n, int clear) {
+  if (clear) {
+    void* a;
+    cudaGetSymbolAddress(&a, svt::g_stamps);
+    return static_cast<int>(cudaMemset(a, 0, n));
+  }
+  return static_cast<int>(cudaMemcpyFromSymbol(dst, svt::g_stamps, n));
+}
+"""
+_EXIT = ("    cluster_arrive_relaxed();        // (the barrier's count, "
+         "exited or not)\n    return;")
+_LAST = "    merge_owned<kDecCluster, T, NG, D>(sm, ob, p, G, nb);\n}\n"
+_K8_STAMPS = [
+    (_K8_CU, "constexpr float kLog2e = 1.4426950408889634f;\n",
+     "constexpr float kLog2e = 1.4426950408889634f;\n" + _STAMP),
+    (_K8_CU, "  const int length = lengths[b];",
+     "  stamp(0);\n  const int length = lengths[b];"),
+    (_K8_CU, _EXIT, _EXIT.replace("    return;", "    stamp(5);\n    return;")),
+    (_K8_CU, "  cluster_arrive_relaxed();          // the receive barrier is "
+     "initialised\n", "  cluster_arrive_relaxed();          // the receive "
+     "barrier is initialised\n  stamp(1);\n"),
+    (_K8_CU, "  bar_sync(1, 128);                  // the warps' partials are "
+     "written\n", "  bar_sync(1, 128);                  // the warps' "
+     "partials are written\n  stamp(2);\n"),
+    (_K8_CU, "  const int owned = decode_owned(p, G, nb);\n  if (alone || "
+     "owned == 0) return;", "  stamp(3);\n  const int owned = "
+     "decode_owned(p, G, nb);\n  if (alone || owned == 0) {\n    stamp(5);\n"
+     "    return;\n  }"),
+    (_K8_CU, "  mbar_wait(recv, 0);\n", "  mbar_wait(recv, 0);\n  stamp(4);\n"),
+    (_K8_CU, _LAST, _LAST[:-2] + "\n  stamp(5);\n}\n"),
+    (_K8_CU, None, _STAMP_READ)]
 # name: (libraries it changes, edits as (file in csrc/, old text, new text))
 VARIANTS = {
     "base": ((*ATTN, BWD, K6, K8), []),
+    # K8 as it is, alone
+    "k8": ((K8,), []),
     # attention forward: ex2 -> a multiply (the MUFU pipe's share)
     "noexp": (ATTN, [(
         "pipeline.cuh",
@@ -201,14 +272,8 @@ VARIANTS = {
                             "const int per_sm = 2;")]),
     # K8: consumers release every stage unread
     "k8_noconsume": ((K8,), [(
-        f"{K8}.cu",
-        "    const int kc = t * kDecTile + 16 * warp;   // the chunk's first "
-        "key\n    if (kc < nkeys) {",
-        "    const int kc = t * kDecTile + 16 * warp;   // the chunk's first "
-        "key\n    if (kc < 0) {")]),
-    # K8: two producer warps instead of one
-    "k8_prod2": ((K8,), [(f"{K8}.cu", "constexpr int K8_PRODUCERS = 1;",
-                          "constexpr int K8_PRODUCERS = 2;")]),
+        f"{K8}.cu", "    if (jb < decode_boxes(nkeys, t) && first < 16) {",
+        "    if (false) {")]),
     # K8: clusters of at most the portable 8 blocks
     "k8_c8": ((K8,), [(PLAN, "constexpr int kDecCluster = 16;",
                        "constexpr int kDecCluster = 8;")]),
@@ -217,9 +282,28 @@ VARIANTS = {
     "k6_empty": ((K6,), [(f"{K6}.cu", "  using S = I4Shape<NT>;\n  constexpr",
                           "  if (M > 0) return;\n  using S = I4Shape<NT>;\n"
                           "  constexpr")]),
-    "k8_empty": ((K8,), [(f"{K8}.cu", "  using S = DecShape<T, D>;\n  extern",
-                          "  if (Hq > 0) return;\n"
-                          "  using S = DecShape<T, D>;\n  extern")]),
+    "k8_empty": ((K8,), [(f"{K8}.cu", "  using S = DecShape<T, NG, D>;\n"
+                          "  extern", "  if (Hq > 0) return;\n"
+                          "  using S = DecShape<T, NG, D>;\n  extern")]),
+    # K8: shares of at least 64 keys (a full tile) instead of 32, and the
+    # reverse (for a tree that takes 64)
+    "k8_share64": ((K8,), [(PLAN, "constexpr int kDecMinShare = 32;",
+                            "constexpr int kDecMinShare = 64;")]),
+    "k8_share32": ((K8,), [(PLAN, "constexpr int kDecMinShare = 64;",
+                            "constexpr int kDecMinShare = 32;")]),
+    # K8 (bf16): TMA boxes of 64 key rows (a whole tile; the last one
+    # ending at the share's end) instead of 16
+    "k8_box64": ((K8,), [(PLAN, "constexpr int kDecBoxRows = 16;",
+                          "constexpr int kDecBoxRows = 64;")]),
+    # K8: the cluster barrier's arrivals with release semantics
+    "k8_release": ((K8,), [(f"{K8}.cu", "cluster_arrive_relaxed();",
+                            "cluster_arrive();")]),
+    # K8: clusters of any size up to 16, not powers of two only
+    "k8_any_size": ((K8,), [(PLAN, "p > 1; p /= 2)", "p > 1; --p)")]),
+    # K8 with %globaltimer stamps per block at its phase boundaries (the
+    # kernel's timeline; ncu does not run on the card's machine): times as
+    # "k8", then the stamps of each K8 case's last rotation
+    "k8_stamps": ((K8,), _K8_STAMPS),
 }
 
 
@@ -233,6 +317,8 @@ def apply_edits(name: str) -> str:
         path = os.path.join(d, fn)
         with open(path) as f:
             src = f.read()
+        if old is None:                 # appended to the file
+            old, new = src, src + new
         if old not in src:
             raise RuntimeError(f"{name}: {fn} no longer contains {old!r}; "
                                f"update the variant")
@@ -262,11 +348,16 @@ def use_variant(procs: dict) -> None:
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {path}:\n{out}")
+        print(f"{lib}: {chip_smoke.ptxas_summary(out)}", file=sys.stderr)
         cdll = ctypes.CDLL(path)
         for sym, argtypes in build.ARGTYPES.items():
             if hasattr(cdll, sym):
                 getattr(cdll, sym).argtypes = argtypes
                 getattr(cdll, sym).restype = ctypes.c_int
+        if hasattr(cdll, "svt_stamps"):
+            cdll.svt_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                        ctypes.c_int]
+            cdll.svt_stamps.restype = ctypes.c_int
         build._libs[lib] = cdll
 
 
@@ -276,8 +367,9 @@ def cases(torch) -> dict:
     from position 300, K3, K4 and K5 at the train step's shape (K4/K5 also
     at Gemma's head dim 256); K6 at every int4
     projection's decode shape and gate/up at 128 rows, K8 at 300 and 4096
-    live keys of a 4096-slot cache, each over operand copies past 2.5x the
-    50 MB L2 cache."""
+    live keys of a 4096-slot cache (K8_ROWS: the main path's and the
+    families' shapes, over their layers' caches), each over operand copies
+    past 2.5x the 50 MB L2 cache."""
     from streamvln_tpu_torch.ops import decode_attention as da
     from streamvln_tpu_torch.ops import flash_attention as fa
     from streamvln_tpu_torch.ops import int4_matmul as i4
@@ -335,19 +427,62 @@ def cases(torch) -> dict:
         out[f"K6 {name}"] = (K6, [
             lambda w=w, s=s, x=x: i4.int4_matmul(x, w, s, 0)
             for w, s in ws], 24)
-    dq = rnd(28, 1, 1, 28, 128)
-    dk, dv = rnd(28, 1, 4, 4096, 128), rnd(28, 1, 4, 4096, 128)
-    for n in (300, 4096):
-        lens = torch.full((1,), n, dtype=torch.int32, device="cuda")
-        out[f"K8 {n}"] = (K8, [
-            lambda i=i, lens=lens: da.decode_attention(dq[i], dk[i], dv[i],
-                                                       lens)
-            for i in range(28)], 56)
+    # K8 at the main path's shape (28/4 heads over 28 layers) and the
+    # families' (Gemma 8/1 at D = 256 over 18 layers, Qwen2-14B 40/8 over
+    # 28, Llama-2 32/32 over 12), each over its layers' caches in turn
+    for tag, Hq, Hkv, D, L, lens in K8_ROWS:
+        dq = rnd(L, 1, 1, Hq, D)
+        dk, dv = rnd(L, 1, Hkv, 4096, D), rnd(L, 1, Hkv, 4096, D)
+        for n in lens:
+            lens_t = torch.full((1,), n, dtype=torch.int32, device="cuda")
+            out[f"K8{tag} {n}"] = (K8, [
+                lambda i=i, q=dq, k=dk, v=dv, ln=lens_t:
+                da.decode_attention(q[i], k[i], v[i], ln)
+                for i in range(L)], 2 * L)
+    return out
+
+
+def time_case(torch, case, fns, calls) -> float:
+    """K8 on the settled yardstick (no bound: an ablated kernel may beat
+    it), the others by device time."""
+    if case.startswith("K8"):
+        return chip_smoke.graph_ms(torch, fns, 0.0, case)["ms"]
+    return chip_smoke.device_ms(torch, fns, calls)
+
+
+def k8_timeline(torch, fns) -> dict:
+    """The stamped K8's last rotation of `fns`, after two unstamped ones:
+    per phase, the median and the latest time over the blocks from the
+    first block's start (us), and the blocks that reached it."""
+    lib = build._libs[K8]
+    n = K8_STAMP_BLOCKS * len(K8_PHASES)
+    host = (ctypes.c_ulonglong * n)()
+    for f in fns + fns:
+        f()
+    torch.cuda.synchronize()
+    lib.svt_stamps(None, n * 8, 1)
+    torch.cuda.synchronize()
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    lib.svt_stamps(ctypes.addressof(host), n * 8, 0)
+    k = len(K8_PHASES)
+    rows = [host[k * i:k * i + k] for i in range(K8_STAMP_BLOCKS)
+            if host[k * i]]
+    t0 = min(r[0] for r in rows)
+    out = {}
+    for j, name in enumerate(K8_PHASES):
+        us = sorted((r[j] - t0) / 1e3 for r in rows if r[j])
+        if us:
+            out[name] = {"median": round(us[len(us) // 2], 3),
+                         "latest": round(us[-1], 3), "blocks": len(us)}
     return out
 
 
 def main(argv) -> int:
     import torch
+    if argv[:1] == ["--tree"]:
+        argv = argv[2:]
     if not torch.cuda.is_available():
         print("ablate: needs a CUDA card", file=sys.stderr)
         return 2
@@ -364,10 +499,15 @@ def main(argv) -> int:
     for n in names:
         use_variant(builds[n])
         libs = VARIANTS[n][0]
-        print(json.dumps({"variant": n, "ms": {
-            c: round(device_ms(torch, fns, calls), 4)
+        print(json.dumps({"variant": n, "tree": TREE, "ms": {
+            c: round(time_case(torch, c, fns, calls), 5)
             for c, (lib, fns, calls) in work.items() if lib in libs}}),
             flush=True)
+        if n == "k8_stamps":
+            for c, (lib, fns, _) in work.items():
+                if lib == K8:
+                    print(json.dumps({"variant": n, "case": c, "phases_us":
+                                      k8_timeline(torch, fns)}), flush=True)
     return 0
 
 
