@@ -1,52 +1,69 @@
 // The attention forward shared by K1 (vit_attention.cu), K2 and K3
 // (flash_attention.cu), written for Hopper (sm_90a).
 //
-// A block owns a 128-row query tile of one (batch, query head): 64 rows
-// for each of its two consumer warpgroups. Its first warpgroup is the
-// producer: one warp loads the Q tile once with TMA, then walks the key
-// tiles (BN keys, FwdShape) and keeps K and V tiles in flight into a ring
-// of ST stages in shared memory, each stage signalled
-// by a "full" mbarrier (the TMA bytes and one producer arrival) and
-// released by an "empty" mbarrier (one arrival per consumer warp). The
-// producer also reads each tile's key positions: it skips a tile whose
-// smallest position exceeds the block's largest query position (the exact
-// skip rule; positions need not be sorted), and marks a tile "full" when
-// its largest position is <= the block's smallest query position and it
-// has no ragged tail, so that the consumers apply no per-element mask to
-// it. A stage with k0 = -1 ends the walk.
+// A block owns a query tile of one (batch, query head) and has two
+// consumer warpgroups. Its first warpgroup is the producer: one warp
+// loads the Q tile once with TMA, then walks the key tiles (BN keys,
+// FwdShape) and keeps K and V tiles in flight into a ring of ST stages in
+// shared memory, each stage signalled by a "full" mbarrier (the TMA bytes
+// and one producer arrival) and released by an "empty" mbarrier (one
+// arrival per consumer warp). The producer also reads each tile's key
+// positions: it skips a tile whose smallest position exceeds the block's
+// largest query position (the exact skip rule; positions need not be
+// sorted), and marks a tile "full" when its largest position is <= the
+// block's smallest query position and it has no ragged tail, so that the
+// consumers apply no per-element mask to it. A stage with k0 = -1 ends
+// the walk.
 //
-// Each consumer warpgroup computes S = Q K^T with wgmma (both operands in
+// A consumer warpgroup computes S = Q K^T with wgmma (both operands in
 // shared memory, K-major), runs the online softmax in registers in the
-// log2 domain (scale * log2(e) folded into the exponent's FMA), and
-// keeps P in registers as the bf16 A operand of O += P V (wgmma with A
-// from registers; V is the B operand read MN-major with the transpose
-// flag, so nothing is transposed by hand). The softmax of one tile runs
-// while the previous tile's P V is on the tensor cores, and two consumer
-// warpgroups take turns issuing their products (named barriers), so the
-// softmax of one overlaps the products of the other. setmaxnreg moves
-// registers from the producer warpgroup to the consumers.
+// log2 domain (scale * log2(e) folded into the exponent's FMA), and keeps
+// P in registers as the bf16 A operand of O += P V (wgmma with A from
+// registers; V is the B operand read MN-major with the transpose flag, so
+// nothing is transposed by hand). setmaxnreg moves registers from the
+// producer warpgroup to the consumers (ptxas still caps each thread of a
+// 384-thread block at 168). The two warpgroups share the work in one of
+// three ways:
+// - 128-row tiles (the rule): each warpgroup takes 64 rows and every key
+//   tile. The softmax of one tile runs while the previous tile's P V is on
+//   the tensor cores, and the warpgroups take turns issuing their products
+//   (named barriers), so the softmax of one overlaps the products of the
+//   other.
+// - K1's split (attention_plan.cuh::plan_split, where 128-row items would
+//   leave the card idle): both take the same 64 rows, each every other key
+//   tile (the other's it releases unread), and at the end the second
+//   leaves its O and (m, l) in shared memory and the first merges them by
+//   the running max, in that fixed order.
+// - WIDE, head dim 256 (K2/K3 for Gemma): a 64-row O accumulator would be
+//   128 f32 registers a thread, so both take the same 64 rows and
+//   warpgroup w holds O's columns [128 w, 128 w + 128). Each computes the
+//   whole S = Q K^T of a key tile and the same softmax (the same operands
+//   in the same order: the same P), and issues its half of P V. S is
+//   computed twice; in exchange the warpgroups stay independent and take
+//   turns as above, so the softmax of one overlaps the other's products.
+//   (S split by depth, its halves crossing through the K stage under a
+//   barrier, kept them in lockstep and was 12% slower; one warpgroup
+//   forming each key tile's S and P for both, in turn, put products in
+//   branches on the warpgroup, which ptxas serializes.) Three stages (Q
+//   32 KB, 3 x 64 KB of K and V) fit 227 KB.
 //
-// Head dims: the padded head dim DP is 64 (CLIP), 80 (SigLIP's 72), 128
-// (Qwen2 and most families; in K1 the encoder zoo's 88 and 104) or 256
-// (Gemma). At DP = 256 a 64-row O
-// accumulator is 128 f32 registers a thread before S and P, and ptxas caps
-// each thread of a 384-thread block at 168 registers whatever setmaxnreg
-// says, so that instance runs ONE consumer warpgroup (64-row query tiles,
-// 256-thread blocks, up to 255 registers a thread, no setmaxnreg and no
-// ping-pong) and a ring of 3 stages: Q 32 KB + 3 x (K 32 KB + V 32 KB)
-// fits the 227 KB of shared memory. Each tile is kept as 64-column chunks
-// with the 128-byte swizzle (a 128-byte row is one swizzle span; DP = 256
-// has four chunks per row), and DP = 80 adds a 16-column chunk
-// with the 32-byte swizzle; the TMA box of that chunk reads columns 64-71
-// and zero-fills 72-79, which add nothing to Q K^T and give output
-// columns that are never stored. Every chunk region starts on a 1024-byte
-// boundary, as the swizzle pattern and the wgmma descriptors assume.
+// Head dims: the padded head dim DP is 64 (CLIP, EVA02), 80 (SigLIP's
+// 72), 96 (EVA01-CLIP-g's 88), 112 (CLIP-bigG's and MLCD-bigG's 104), 128
+// (Qwen2 and most families) or 256 (Gemma). A tile is kept as 64-column
+// chunks with the 128-byte swizzle (a 128-byte row is one swizzle span),
+// then a 32-column chunk with the 64-byte swizzle and a 16-column chunk
+// with the 32-byte swizzle where DP needs them (FwdShape). The TMA boxes
+// of the last chunk read the columns up to D and zero-fill the rest,
+// which add nothing to Q K^T and give output columns that are never
+// stored. Every chunk region starts on a 1024-byte boundary, as the
+// swizzle patterns and the wgmma descriptors assume.
 //
 // Numerics: bf16 operands, f32 accumulation; P rounded to bf16 before PV;
 // one 1/rowsum at the end. A masked score is -inf; a row whose running
 // max never rose above its start of -1e30 (no visible key) is written as
-// exact zeros and, with `lse` set (K3), an LSE of -1e30. The LSE is in natural-log
-// units (m * ln 2 + ln l), as K4/K5 recompute P = exp(S - LSE) from it.
+// exact zeros and, with `lse` set (K3), an LSE of -1e30. The LSE is in
+// natural-log units (m * ln 2 + ln l), as K4/K5 recompute P = exp(S -
+// LSE) from it.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is looked
@@ -86,12 +103,19 @@ struct FwdArgs {
   float soft_cap;       // <= 0: none
 };
 
-// TMA descriptors of q, k, v: [0] the 64-column box (128-byte swizzle),
-// [1] the 16-column box of DP = 80 (32-byte swizzle; unused otherwise).
+// TMA descriptors of q, k, v at padded head dim DP: [0] the 64-column box
+// (128-byte swizzle), then the 32-column box (64-byte swizzle, index M32)
+// and the 16-column box (32-byte swizzle, index M16) where DP has those
+// chunks (FwdShape); a kernel parameter, so no larger than it must be.
+template <int DP>
 struct FwdMaps {
-  CUtensorMap q[2];
-  CUtensorMap k[2];
-  CUtensorMap v[2];
+  static constexpr int M32 = 1;
+  static constexpr int M16 = FwdShape<DP>::T32 ? 2 : 1;
+  static constexpr int N = 1 + (FwdShape<DP>::T32 != 0) +
+                           (FwdShape<DP>::T16 != 0);
+  CUtensorMap q[N];
+  CUtensorMap k[N];
+  CUtensorMap v[N];
 };
 
 constexpr float kLog2e = 1.4426950408889634f;
@@ -110,7 +134,8 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 }
 
 // wgmma shared-memory matrix descriptor: start address, leading and
-// stride byte offsets (16-byte units), swizzle (1 = 128 B, 3 = 32 B).
+// stride byte offsets (16-byte units), swizzle (1 = 128 B, 2 = 64 B, 3 =
+// 32 B).
 __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
                                               uint32_t sbo, uint32_t swizzle) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
@@ -119,7 +144,7 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
        | static_cast<uint64_t>(swizzle) << 62;
 }
 
-constexpr uint32_t kSw128 = 1, kSw32 = 3;
+constexpr uint32_t kSw128 = 1, kSw64 = 2, kSw32 = 3;
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -202,47 +227,21 @@ __device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[64 x 32] += A[64 x 16] (registers) B[16 x 32], B MN-major.
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : SVT_R4(d, 0), SVT_R4(d, 4), SVT_R4(d, 8), SVT_R4(d, 12)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 #undef SVT_R32
 #undef SVT_R4
 
-// ---- tile geometry -------------------------------------------------------
-
-constexpr int kConsumers = 2;          // consumer warpgroups per block
-
-template <int DP>
-struct FwdShape {
-  // consumer warpgroups: two, or one at DP = 256 (registers, above)
-  static constexpr int NC = DP == 256 ? 1 : kConsumers;
-  static constexpr int BM = 64 * NC;           // query rows per block
-  // keys per tile: 128 where the stages fit (fewer pipeline round trips
-  // per key, wider S products), else 64 (DP = 128)
-  static constexpr int BN = DP <= 80 ? 128 : 64;
-  static constexpr int NW = DP / 64;                 // 64-column chunks
-  static constexpr int TAIL = DP % 64;               // 0 or 16
-  static_assert(TAIL == 0 || TAIL == 16, "head dim 64, 80, 128 or 256");
-  // stages: a consumer holds two at a time; three where four do not fit
-  static constexpr int ST = DP == 256 ? 3 : 4;
-  static constexpr int THREADS = 128 * (NC + 1);
-  // bytes of a Q and of a K/V tile, and the offsets of their tail chunks
-  static constexpr int Q_BYTES = BM * DP * 2;
-  static constexpr int KV_BYTES = BN * DP * 2;
-  static constexpr int Q_TAIL = NW * BM * 128;
-  static constexpr int KV_TAIL = NW * BN * 128;
-  static constexpr int Q_OFF = 0;
-  // Q buffers: two where a block walks several items (the next item's Q
-  // loads during the current one); the prefill and training kernels
-  // (DP >= 128, positions) take one item per block and need one. K1 at
-  // DP = 128 (head dims 88 and 104) walks items with the one buffer: the
-  // next item's Q loads once the current item's last S product is done
-  static constexpr int QB = DP >= 128 ? 1 : 2;
-  static constexpr int K_OFF = Q_OFF + QB * Q_BYTES;
-  static constexpr int V_OFF = K_OFF + ST * KV_BYTES;
-  static constexpr int POS_OFF = V_OFF + ST * KV_BYTES;
-  static constexpr int META_OFF = POS_OFF + ST * BN * 4;
-  static constexpr int BAR_OFF = META_OFF + ST * 8;     // 8-byte aligned
-  static constexpr int SMEM = BAR_OFF + (4 + 2 * ST) * 8 + 1024;  // + align
-  static_assert(SMEM <= 232448, "the block's shared memory fits the SM");
-};
 
 // ---- consumer steps -------------------------------------------------------
 
@@ -264,38 +263,68 @@ __device__ __forceinline__ uint64_t desc_add(uint64_t d, uint32_t bytes) {
   return d + (bytes >> 4);
 }
 
-// Issue S = Q K^T for the 64 query rows of one consumer (DP / 16 steps).
-// dq: Q's first chunk at this consumer's rows; dqt: Q's tail chunk; dk,
-// dkt: the K stage's first and tail chunks.
+// The wgmma descriptors of a tile of `rows` rows at `addr` (FwdShape's
+// chunks), from row `row` on: d[0] its first 64-column chunk, d[1] the
+// 32-column chunk, d[2] the 16-column chunk. A K-major operand (Q, K)
+// steps 8 rows a stride (SBO, the swizzle span x 8); an MN-major one (V)
+// also names the bytes between two chunks (LBO).
 template <int DP>
-__device__ __forceinline__ void issue_qk(float* s, uint64_t dq, uint64_t dqt,
-                                         uint64_t dk, uint64_t dkt) {
+__device__ __forceinline__ void chunk_descs(uint64_t* d, uint32_t addr,
+                                            int rows, int row, bool mn) {
   using S = FwdShape<DP>;
+  d[0] = gmma_desc(addr + row * 128, mn ? rows * 128 : 16, 1024, kSw128);
+  d[1] = gmma_desc(addr + S::OFF32 * rows + row * 64, mn ? rows * 64 : 16,
+                   512, kSw64);
+  d[2] = gmma_desc(addr + S::OFF16 * rows + row * 32, mn ? rows * 32 : 16,
+                   256, kSw32);
+}
+
+// Issue S = Q K^T for 64 query rows over the 64-column chunks of the depth,
+// then the 32- and 16-column chunks (16-column steps): dq the Q tile's
+// descriptors at those rows, dk the K stage 0's, `so` the stage's byte
+// offset.
+template <int DP>
+__device__ __forceinline__ void issue_qk(float* s, const uint64_t* dq,
+                                         const uint64_t* dk, uint32_t so) {
+  using S = FwdShape<DP>;
+  const uint64_t k0 = desc_add(dk[0], so);
 #pragma unroll
   for (int c = 0; c < S::NW; ++c) {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss<S::BN>(s, desc_add(dq, c * S::BM * 128 + kk * 32),
-                      desc_add(dk, c * S::BN * 128 + kk * 32), c + kk > 0);
+      wgmma_ss<S::BN>(s, desc_add(dq[0], c * S::BM * 128 + kk * 32),
+                      desc_add(k0, c * S::BN * 128 + kk * 32), c + kk > 0);
   }
-  if (S::TAIL) wgmma_ss<S::BN>(s, dqt, dkt, 1);
+  if constexpr (S::T32 != 0) {
+    const uint64_t k1 = desc_add(dk[1], so);
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+      wgmma_ss<S::BN>(s, desc_add(dq[1], kk * 32), desc_add(k1, kk * 32), 1);
+  }
+  if constexpr (S::T16 != 0)
+    wgmma_ss<S::BN>(s, dq[2], desc_add(dk[2], so), 1);
 }
 
-// Issue O += P V: P's 16-key step kk is the A fragment p[kk]; V is read
-// MN-major (transposed) from its 64-column chunks (dv) and the 16-column
-// tail (dvt).
-template <int DP>
+// Issue O += P V over NCH 64-column chunks of V from dv[0] on, then its
+// 32- and 16-column chunks: P's 16-key step kk is the A fragment p[kk]; V
+// is read MN-major (transposed); `so` is the stage's byte offset.
+template <int DP, int NCH>
 __device__ __forceinline__ void issue_pv(float* o, const uint32_t (*p)[4],
-                                         uint64_t dv, uint64_t dvt) {
+                                         const uint64_t* dv, uint32_t so) {
   using S = FwdShape<DP>;
+  const uint64_t v0 = desc_add(dv[0], so), v1 = desc_add(dv[1], so),
+                 v2 = desc_add(dv[2], so);
 #pragma unroll
   for (int kk = 0; kk < S::BN / 16; ++kk) {
 #pragma unroll
-    for (int c = 0; c < S::NW; ++c)
+    for (int c = 0; c < NCH; ++c)
       wgmma_rs_n64(o + 32 * c, p[kk],
-                   desc_add(dv, c * S::BN * 128 + kk * 16 * 128));
-    if (S::TAIL)
-      wgmma_rs_n16(o + 32 * S::NW, p[kk], desc_add(dvt, kk * 16 * 32));
+                   desc_add(v0, c * S::BN * 128 + kk * 16 * 128));
+    if constexpr (S::T32 != 0)
+      wgmma_rs_n32(o + 32 * NCH, p[kk], desc_add(v1, kk * 16 * 64));
+    if constexpr (S::T16 != 0)
+      wgmma_rs_n16(o + 32 * NCH + S::T32 / 2, p[kk],
+                   desc_add(v2, kk * 16 * 32));
   }
 }
 
@@ -379,6 +408,12 @@ __device__ __forceinline__ void pack_p(const float* s, uint32_t (*p)[4]) {
   }
 }
 
+// A stage's first key (-1: the end of the walk), warp-uniform to the
+// compiler, as the branches around the products need.
+__device__ __forceinline__ int stage_k0(const int* meta_k0, int stage) {
+  return __shfl_sync(0xffffffffu, meta_k0[stage], 0);
+}
+
 // One arrival per warp on a stage's empty barrier, after the warp's
 // products that read the stage are done.
 __device__ __forceinline__ void release(uint32_t bar, int lane) {
@@ -388,17 +423,23 @@ __device__ __forceinline__ void release(uint32_t bar, int lane) {
 
 // ---- the kernel ----------------------------------------------------------
 
+// Named barriers (0 is __syncthreads): the turn-taking (1, 2), the
+// split's merge rows written (3) and read (4).
+constexpr int kMergeFull = 3, kMergeEmpty = 4;
+
 // Block i walks the work items i, i + grid, ... (attention_plan.cuh: a
 // persistent grid for the vision tower, one item per block under
 // positions). With two Q buffers the producer loads the next item's Q and
 // first K/V tiles while the consumers finish the current item; the stage
-// ring runs on across items.
-template <int DP>
+// ring runs on across items. SPLIT: K1's key split (64-row items).
+template <int DP, bool SPLIT>
 __global__ void __launch_bounds__(FwdShape<DP>::THREADS, 1)
-attention_fwd_kernel(__grid_constant__ const FwdMaps maps, const FwdArgs a) {
+attention_fwd_kernel(__grid_constant__ const FwdMaps<DP> maps,
+                     const FwdArgs a) {
   using S = FwdShape<DP>;
-  constexpr int BM = S::BM, BN = S::BN, NW = S::NW, TAIL = S::TAIL;
-  constexpr int ST = S::ST, NC = S::NC;
+  constexpr int BN = S::BN, NW = S::NW, ST = S::ST;
+  constexpr bool WIDE = S::WIDE;
+  constexpr int M32 = FwdMaps<DP>::M32, M16 = FwdMaps<DP>::M16;
 
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -412,6 +453,7 @@ attention_fwd_kernel(__grid_constant__ const FwdMaps maps, const FwdArgs a) {
   const uint32_t full0 = qempty0 + 16;            // full[s] = full0 + 8 s
   const uint32_t empty0 = full0 + 8 * ST;         // empty[s]
 
+  constexpr int BM = SPLIT ? 64 : S::BM;          // query rows per item
   const int n_qt = (a.Sq + BM - 1) / BM;
   const int hbn = a.Hq * a.B;
   const int items = n_qt * hbn;
@@ -422,11 +464,11 @@ attention_fwd_kernel(__grid_constant__ const FwdMaps maps, const FwdArgs a) {
   if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i) {
       mbar_init(qfull0 + 8 * i, 1);
-      mbar_init(qempty0 + 8 * i, NC * 4);
+      mbar_init(qempty0 + 8 * i, S::NC * 4);
     }
     for (int s = 0; s < ST; ++s) {
       mbar_init(full0 + 8 * s, 1);
-      mbar_init(empty0 + 8 * s, NC * 4);
+      mbar_init(empty0 + 8 * s, S::NC * 4);
     }
     mbar_init_fence();
   }
@@ -434,7 +476,7 @@ attention_fwd_kernel(__grid_constant__ const FwdMaps maps, const FwdArgs a) {
 
   if (wg == 0) {
     // ---------------- producer ----------------
-    if constexpr (NC == 2) setmaxnreg_dec<40>();
+    setmaxnreg_dec<40>();
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
       constexpr int PL = BN / 32;   // key positions a lane reads per tile
@@ -450,14 +492,20 @@ attention_fwd_kernel(__grid_constant__ const FwdMaps maps, const FwdArgs a) {
         const int qb = li % S::QB, use = li / S::QB;   // buffer, its use
         if (use > 0) mbar_wait(qempty0 + 8 * qb, (use - 1) & 1);
         if (lane == 0) {
+          // the Q box has BM rows; each chunk region has room for S::BM
           const uint32_t qf = qfull0 + 8 * qb;
           const uint32_t qs = base + S::Q_OFF + qb * S::Q_BYTES;
-          mbar_arrive_tx(qf, S::Q_BYTES);
+          mbar_arrive_tx(qf, BM * DP * 2);
 #pragma unroll
           for (int c = 0; c < NW; ++c)
-            tma_load_4d(qs + c * BM * 128, &maps.q[0], qf, c * 64, q0, h, b);
-          if (TAIL)
-            tma_load_4d(qs + S::Q_TAIL, &maps.q[1], qf, NW * 64, q0, h, b);
+            tma_load_4d(qs + c * S::BM * 128, &maps.q[0], qf, c * 64, q0, h,
+                        b);
+          if constexpr (S::T32 != 0)
+            tma_load_4d(qs + S::OFF32 * S::BM, &maps.q[M32], qf, NW * 64, q0,
+                        h, b);
+          if constexpr (S::T16 != 0)
+            tma_load_4d(qs + S::OFF16 * S::BM, &maps.q[M16], qf,
+                        NW * 64 + S::T32, q0, h, b);
         }
         // the tile's smallest and largest query position (real rows only)
         int qmin = INT_MAX, qmax = INT_MIN;
@@ -515,11 +563,17 @@ attention_fwd_kernel(__grid_constant__ const FwdMaps maps, const FwdArgs a) {
                 tma_load_4d(vs + c * BN * 128, &maps.v[0], fb, c * 64, k0,
                             hk, b);
               }
-              if (TAIL) {
-                tma_load_4d(ks + S::KV_TAIL, &maps.k[1], fb, NW * 64, k0, hk,
-                            b);
-                tma_load_4d(vs + S::KV_TAIL, &maps.v[1], fb, NW * 64, k0, hk,
-                            b);
+              if constexpr (S::T32 != 0) {
+                tma_load_4d(ks + S::OFF32 * BN, &maps.k[M32], fb, NW * 64, k0,
+                            hk, b);
+                tma_load_4d(vs + S::OFF32 * BN, &maps.v[M32], fb, NW * 64, k0,
+                            hk, b);
+              }
+              if constexpr (S::T16 != 0) {
+                tma_load_4d(ks + S::OFF16 * BN, &maps.k[M16], fb,
+                            NW * 64 + S::T32, k0, hk, b);
+                tma_load_4d(vs + S::OFF16 * BN, &maps.v[M16], fb,
+                            NW * 64 + S::T32, k0, hk, b);
               }
             }
             if (++stage == ST) { stage = 0; phase ^= 1; }
@@ -538,8 +592,11 @@ attention_fwd_kernel(__grid_constant__ const FwdMaps maps, const FwdArgs a) {
     }
   } else {
     // ---------------- consumers ----------------
-    if constexpr (NC == 2) setmaxnreg_inc<232>();
-    const int cw = wg - 1;                        // consumer index
+    setmaxnreg_inc<232>();
+    // consumer index; where a branch on it guards a product (the split),
+    // warp-uniform to the compiler (a shuffle from lane 0), as ptxas
+    // serializes the products of a branch it takes for divergent
+    const int cw = SPLIT ? __shfl_sync(0xffffffffu, wg, 0) - 1 : wg - 1;
     const int t = threadIdx.x - 128 * wg;
     const int lane = t & 31;
     const int quad = lane & 3;
@@ -547,27 +604,29 @@ attention_fwd_kernel(__grid_constant__ const FwdMaps maps, const FwdArgs a) {
     const float sl2 = a.scale * kLog2e;           // plain: score -> log2
     const float cap_in = a.scale / (capped ? a.soft_cap : 1.f);
     const float cap_out = a.soft_cap * kLog2e;
-    // descriptors of the K/V stage 0; a stage adds stage * KV_BYTES
-    const uint64_t dk = gmma_desc(base + S::K_OFF, 16, 1024, kSw128);
-    const uint64_t dkt = gmma_desc(base + S::K_OFF + S::KV_TAIL, 16, 256,
-                                   kSw32);
-    const uint64_t dv = gmma_desc(base + S::V_OFF, BN * 128, 1024, kSw128);
-    const uint64_t dvt = gmma_desc(base + S::V_OFF + S::KV_TAIL, BN * 32, 256,
-                                   kSw32);
+    // descriptors of the K/V stage 0; a stage adds stage * KV_BYTES. WIDE:
+    // this warpgroup's half of V's (and O's) columns
+    constexpr int NCH = WIDE ? NW / 2 : NW;       // 64-column chunks of O
+    uint64_t dk[3], dv[3];
+    chunk_descs<DP>(dk, base + S::K_OFF, BN, 0, false);
+    chunk_descs<DP>(dv, base + S::V_OFF, BN, 0, true);
+    if constexpr (WIDE) dv[0] = desc_add(dv[0], cw * NCH * BN * 128);
     constexpr int NS = BN / 2;                    // S registers per thread
-    constexpr int NO = 32 * NW + (TAIL ? 8 : 0);  // O registers per thread
+    constexpr int NO = S::NO;                     // O registers per thread
+    // a stage's first key (-1 ends the walk); where a branch on it or on
+    // the warpgroup guards a product, read warp-uniform
+    auto k0_of = [&](int st) {
+      if constexpr (SPLIT) return stage_k0(meta_k0, st);
+      else return meta_k0[st];
+    };
     float s[NS];
     uint32_t p[BN / 16][4];
     float o[NO];
 
-    // Software pipeline over an item's key tiles: iteration j issues
-    // S_j = Q K_j^T and then O += P_{j-1} V_{j-1}, runs the softmax of S_j
-    // while that product is still on the tensor cores, and releases stage
-    // j-1 once it is done. A pair of named barriers makes the two consumer
-    // warpgroups take turns issuing their products, so one warpgroup's
-    // softmax overlaps the other's products (a lone consumer, DP = 256,
-    // takes no turns).
-    if (NC == 2 && cw == 1) named_arrive(1, 256);   // warpgroup 0 first
+    // a pair of named barriers makes the two consumer warpgroups take
+    // turns issuing their products (warpgroup 0 first)
+    constexpr bool turns = !SPLIT;
+    if (turns && cw == 1) named_arrive(1, 256);
     int stage = 0;
     uint32_t phase = 0;
     int li = 0;
@@ -575,7 +634,8 @@ attention_fwd_kernel(__grid_constant__ const FwdMaps maps, const FwdArgs a) {
       const TileCoord tc = plan_tile(item, n_qt, hbn, use_pos);
       const int q0 = tc.tile * BM;
       const int h = tc.hb % a.Hq, b = tc.hb / a.Hq;
-      const int r0 = q0 + 64 * cw + 16 * (t >> 5) + (lane >> 2), r1 = r0 + 8;
+      const int row = WIDE || SPLIT ? 0 : 64 * cw;  // the warpgroup's rows
+      const int r0 = q0 + row + 16 * (t >> 5) + (lane >> 2), r1 = r0 + 8;
       const bool ok0 = r0 < a.Sq, ok1 = r1 < a.Sq;
       int qp0 = INT_MIN, qp1 = INT_MIN;
       if (use_pos) {
@@ -584,10 +644,9 @@ attention_fwd_kernel(__grid_constant__ const FwdMaps maps, const FwdArgs a) {
         if (ok1) qp1 = qpb[r1];
       }
       const int qb = li % S::QB;
-      const uint32_t qs = base + S::Q_OFF + qb * S::Q_BYTES;
-      const uint64_t dq = gmma_desc(qs + cw * 64 * 128, 16, 1024, kSw128);
-      const uint64_t dqt =
-          gmma_desc(qs + S::Q_TAIL + cw * 64 * 32, 16, 256, kSw32);
+      uint64_t dq[3];
+      chunk_descs<DP>(dq, base + S::Q_OFF + qb * S::Q_BYTES, S::BM, row,
+                      false);
 #pragma unroll
       for (int i = 0; i < NO; ++i) o[i] = 0.f;
       float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
@@ -595,15 +654,30 @@ attention_fwd_kernel(__grid_constant__ const FwdMaps maps, const FwdArgs a) {
 
       mbar_wait(qfull0 + 8 * qb, (li / S::QB) & 1);
       mbar_wait(full0 + 8 * stage, phase);
-      int prev = -1;                               // stage of P_{j-1}
-      if (meta_k0[stage] >= 0) {
+      int prev = -1;            // the stage of this warpgroup's last P V
+      int j = 0;                // the item's key tiles so far
+      // Software pipeline over an item's key tiles: iteration j issues S_j
+      // = Q K_j^T and then O += P_{j-1} V_{j-1}, runs the softmax of S_j
+      // while that product is still on the tensor cores, and releases
+      // stage j-1 once it is done. Under the split this warpgroup takes
+      // the tiles j % 2 == cw and releases the others unread. Every wgmma
+      // sits on a path both warpgroups take.
+      auto skip_others = [&]() {
+        while (SPLIT && (j & 1) != cw && k0_of(stage) >= 0) {
+          release(empty0 + 8 * stage, lane);
+          ++j;
+          if (++stage == ST) { stage = 0; phase ^= 1; }
+          mbar_wait(full0 + 8 * stage, phase);
+        }
+      };
+      skip_others();
+      if (k0_of(stage) >= 0) {
         // first tile: S_0 and its softmax (O is still zero)
-        if (NC == 2) named_sync(1 + cw, 256);
+        if (turns) named_sync(1 + cw, 256);
         wgmma_fence();
-        const uint32_t so = stage * S::KV_BYTES;
-        issue_qk<DP>(s, dq, dqt, desc_add(dk, so), desc_add(dkt, so));
+        issue_qk<DP>(s, dq, dk, stage * S::KV_BYTES);
         wgmma_commit();
-        if (NC == 2) named_arrive(2 - cw, 256);
+        if (turns) named_arrive(2 - cw, 256);
         wgmma_wait<0>();
         fence_regs<NS>(s);
         softmax_tile<NS>(s, meta_full[stage] != 0, capped, use_pos,
@@ -612,22 +686,22 @@ attention_fwd_kernel(__grid_constant__ const FwdMaps maps, const FwdArgs a) {
                          al1);
         pack_p<BN / 16>(s, p);
         prev = stage;
+        ++j;
         if (++stage == ST) { stage = 0; phase ^= 1; }
         for (;;) {
           mbar_wait(full0 + 8 * stage, phase);
-          const int k0 = meta_k0[stage];
+          skip_others();
+          const int k0 = k0_of(stage);
           if (k0 < 0) break;
-          if (NC == 2) named_sync(1 + cw, 256);
+          if (turns) named_sync(1 + cw, 256);
           wgmma_fence();
-          const uint32_t so = stage * S::KV_BYTES;
-          issue_qk<DP>(s, dq, dqt, desc_add(dk, so), desc_add(dkt, so));
+          issue_qk<DP>(s, dq, dk, stage * S::KV_BYTES);
           wgmma_commit();
           rescale<NO>(o, al0, al1);
           wgmma_fence();
-          const uint32_t po = prev * S::KV_BYTES;
-          issue_pv<DP>(o, p, desc_add(dv, po), desc_add(dvt, po));
+          issue_pv<DP, NCH>(o, p, dv, prev * S::KV_BYTES);
           wgmma_commit();
-          if (NC == 2) named_arrive(2 - cw, 256);
+          if (turns) named_arrive(2 - cw, 256);
           wgmma_wait<1>();
           fence_regs<NS>(s);
           softmax_tile<NS>(s, meta_full[stage] != 0, capped, use_pos,
@@ -639,6 +713,7 @@ attention_fwd_kernel(__grid_constant__ const FwdMaps maps, const FwdArgs a) {
           fence_regs<NS>(s);   // P is written after P_{j-1} V_{j-1} is done
           pack_p<BN / 16>(s, p);
           prev = stage;
+          ++j;
           if (++stage == ST) { stage = 0; phase ^= 1; }
         }
       }
@@ -649,13 +724,47 @@ attention_fwd_kernel(__grid_constant__ const FwdMaps maps, const FwdArgs a) {
       if (prev >= 0) {
         rescale<NO>(o, al0, al1);
         wgmma_fence();
-        const uint32_t po = prev * S::KV_BYTES;
-        issue_pv<DP>(o, p, desc_add(dv, po), desc_add(dvt, po));
+        issue_pv<DP, NCH>(o, p, dv, prev * S::KV_BYTES);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs<NO>(o);
         release(empty0 + 8 * prev, lane);
       }
+
+      if constexpr (SPLIT) {
+        // warpgroup 1's O and (m, l) by thread, merged by warpgroup 0
+        float4* mo = reinterpret_cast<float4*>(sm + S::M_OFF);
+        float4* mr = mo + (NO / 4) * 128;
+        if (cw == 1) {
+          if (li > 0) named_sync(kMergeEmpty, 256);  // the last item's read
+#pragma unroll
+          for (int i = 0; i < NO; i += 4)
+            mo[(i / 4) * 128 + t] = make_float4(o[i], o[i + 1], o[i + 2],
+                                                o[i + 3]);
+          mr[t] = make_float4(m0, m1, l0, l1);
+          named_arrive(kMergeFull, 256);
+        } else {
+          named_sync(kMergeFull, 256);
+          const float4 r = mr[t];
+          const float mn0 = fmaxf(m0, r.x), mn1 = fmaxf(m1, r.y);
+          const float a0 = ex2(m0 - mn0), a1 = ex2(m1 - mn1);
+          const float b0 = ex2(r.x - mn0), b1 = ex2(r.y - mn1);
+#pragma unroll
+          for (int i = 0; i < NO; i += 4) {
+            const float4 w = mo[(i / 4) * 128 + t];
+            o[i] = o[i] * a0 + w.x * b0;
+            o[i + 1] = o[i + 1] * a0 + w.y * b0;
+            o[i + 2] = o[i + 2] * a1 + w.z * b1;
+            o[i + 3] = o[i + 3] * a1 + w.w * b1;
+          }
+          l0 = l0 * a0 + r.z * b0;
+          l1 = l1 * a1 + r.w * b1;
+          m0 = mn0;
+          m1 = mn1;
+          if (item + (int)gridDim.x < items) named_arrive(kMergeEmpty, 256);
+        }
+      }
+      if (SPLIT && cw == 1) continue;   // warpgroup 0 stores the rows
 
       l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
       l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
@@ -664,17 +773,17 @@ attention_fwd_kernel(__grid_constant__ const FwdMaps maps, const FwdArgs a) {
       const bool v0 = m0 > kNegInf * 0.5f && l0 > 0.f;
       const bool v1 = m1 > kNegInf * 0.5f && l1 > 0.f;
       const float inv0 = v0 ? 1.f / l0 : 0.f, inv1 = v1 ? 1.f / l1 : 0.f;
-      if (a.lse != nullptr && quad == 0) {
+      if (a.lse != nullptr && quad == 0 && (!WIDE || cw == 0)) {
         float* lb = a.lse + ((long long)b * a.Hq + h) * a.Sq;
         if (ok0) lb[r0] = v0 ? m0 * kLn2 + logf(l0) : kNegInf;
         if (ok1) lb[r1] = v1 ? m1 * kLn2 + logf(l1) : kNegInf;
       }
       __nv_bfloat16* ob = a.o + b * a.o_sb + h * a.o_sh;
+      const int c0 = WIDE ? 128 * cw : 0;   // this warpgroup's first column
 #pragma unroll
       for (int i = 0; i < NO; i += 4) {
-        // register i: chunk i / 32 (the tail after the 64-column chunks),
-        // n-tile (i % 32) / 4 of 8 columns
-        const int d = 64 * (i / 32) + 8 * ((i % 32) / 4) + 2 * quad;
+        // register i: n-tile i / 4 of 8 columns (the chunks in order)
+        const int d = c0 + 8 * (i / 4) + 2 * quad;
         if (d < a.D) {
           if (ok0)
             *reinterpret_cast<uint32_t*>(ob + r0 * a.o_ss + d) =
@@ -702,26 +811,16 @@ inline int sm_count() {
   return n;
 }
 
-// The forward at padded head dim DP.
-template <int DP>
-inline cudaError_t attention_forward(const FwdArgs& a, cudaStream_t stream) {
+// One instance's launch: its shared-memory attribute is set and its
+// blocks per SM are asked once.
+template <int DP, bool SPLIT>
+inline cudaError_t launch_forward(const FwdMaps<DP>& m, const FwdArgs& a,
+                                  int bm, cudaStream_t stream) {
   using S = FwdShape<DP>;
-  FwdMaps m;
-  for (int w = 0; w < (S::TAIL ? 2 : 1); ++w) {
-    const int width = w == 0 ? 64 : S::TAIL;
-    if (!encode_view(&m.q[w], a.q, a.B, a.Sq, a.Hq, a.D, a.q_sb, a.q_ss,
-                     a.q_sh, width, S::BM) ||
-        !encode_view(&m.k[w], a.k, a.B, a.Sk, a.Hkv, a.D, a.k_sb, a.k_ss,
-                     a.k_sh, width, S::BN) ||
-        !encode_view(&m.v[w], a.v, a.B, a.Sk, a.Hkv, a.D, a.v_sb, a.v_ss,
-                     a.v_sh, width, S::BN))
-      return cudaErrorInvalidValue;
-  }
-  if (!S::TAIL) m.q[1] = m.q[0], m.k[1] = m.k[0], m.v[1] = m.v[0];
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        attention_fwd_kernel<DP>,
+        attention_fwd_kernel<DP, SPLIT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
     if (e != cudaSuccess) return e;
     attr_set = true;
@@ -729,18 +828,48 @@ inline cudaError_t attention_forward(const FwdArgs& a, cudaStream_t stream) {
   static int per_sm = 0;
   if (per_sm == 0) {
     const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, attention_fwd_kernel<DP>, S::THREADS, S::SMEM);
+        &per_sm, attention_fwd_kernel<DP, SPLIT>, S::THREADS, S::SMEM);
     if (e != cudaSuccess) return e;
     if (per_sm == 0) return cudaErrorInvalidConfiguration;
   }
-  const long long items =
-      (long long)((a.Sq + S::BM - 1) / S::BM) * a.Hq * a.B;
+  const long long items = (long long)((a.Sq + bm - 1) / bm) * a.Hq * a.B;
   if (items == 0) return cudaSuccess;
   if (items > INT_MAX) return cudaErrorInvalidValue;
   const int grid =
       plan_grid((int)items, sm_count(), per_sm, a.q_pos != nullptr);
-  attention_fwd_kernel<DP><<<grid, S::THREADS, S::SMEM, stream>>>(m, a);
+  attention_fwd_kernel<DP, SPLIT><<<grid, S::THREADS, S::SMEM, stream>>>(m,
+                                                                         a);
   return cudaGetLastError();
+}
+
+// The forward at padded head dim DP. K1 (no positions, DP < 128) takes
+// the key split where plan_split says so (one block per SM: the shared
+// memory of every instance is over half of the SM's).
+template <int DP>
+inline cudaError_t attention_forward(const FwdArgs& a, cudaStream_t stream) {
+  using S = FwdShape<DP>;
+  static_assert(2 * S::SMEM > kSmemMax, "one block per SM");
+  const bool split = a.q_pos == nullptr && DP < 128 &&
+                     plan_split(a.Sq, a.Hq * a.B, sm_count());
+  const int bm = split ? 64 : S::BM;
+  FwdMaps<DP> m;
+  // the box widths in map order: 64, then 32 and 16 where DP has them
+  int width[3] = {64, 0, 0};
+  if (S::T32) width[FwdMaps<DP>::M32] = 32;
+  if (S::T16) width[FwdMaps<DP>::M16] = 16;
+  for (int w = 0; w < FwdMaps<DP>::N; ++w) {
+    if (!encode_view(&m.q[w], a.q, a.B, a.Sq, a.Hq, a.D, a.q_sb, a.q_ss,
+                     a.q_sh, width[w], bm) ||
+        !encode_view(&m.k[w], a.k, a.B, a.Sk, a.Hkv, a.D, a.k_sb, a.k_ss,
+                     a.k_sh, width[w], S::BN) ||
+        !encode_view(&m.v[w], a.v, a.B, a.Sk, a.Hkv, a.D, a.v_sb, a.v_ss,
+                     a.v_sh, width[w], S::BN))
+      return cudaErrorInvalidValue;
+  }
+  if constexpr (DP < 128) {
+    if (split) return launch_forward<DP, true>(m, a, bm, stream);
+  }
+  return launch_forward<DP, false>(m, a, bm, stream);
 }
 
 }  // namespace

@@ -1,9 +1,11 @@
 // Launch plans of the attention kernels: the order of the work items of
 // the forward (attention_fwd.cuh; query tile, batch x head) and of the
 // backward (flash_attention_bwd.cu; K4 takes the forward's, K5 key tile,
-// batch x KV head and, at head dim 256, a share of the query heads), and
-// the size of the forward's grid. Plain C++ with no CUDA types, so the
-// host compiler can build it too (tests/test_torch_attention_plan.py).
+// batch x KV head and, at head dim 256, a share of the query heads), the
+// forward's query rows per item (K1's key split) and grid size, and the
+// forward's tile geometry and shared-memory layout (FwdShape). Plain C++
+// with no CUDA types, so the host compiler can build it too
+// (tests/test_torch_attention_plan.py).
 #pragma once
 
 #ifdef __CUDACC__
@@ -13,6 +15,74 @@
 #endif
 
 namespace svt {
+
+constexpr int kConsumers = 2;          // consumer warpgroups per block
+constexpr int kSmemMax = 232448;       // dynamic shared memory of a block
+
+// The forward's tile geometry at padded head dim DP (attention_fwd.cuh).
+// A tile's head dim is kept as 64-column chunks (128-byte swizzle), then
+// a 32-column chunk (64-byte swizzle) and a 16-column chunk (32-byte
+// swizzle) where DP needs them: 80 = 64 + 16, 96 = 64 + 32, 112 = 64 + 32
+// + 16. A chunk of a tile of R rows holds R rows of its width; the
+// chunks follow one another, each on a 1024-byte boundary.
+template <int DP>
+struct FwdShape {
+  // WIDE (DP = 256): a 64-row O accumulator would be 128 f32 registers a
+  // thread, so both consumer warpgroups take the same 64 query rows, each
+  // holding half of O's columns
+  static constexpr bool WIDE = DP == 256;
+  static constexpr int NC = kConsumers;
+  static constexpr int BM = WIDE ? 64 : 64 * NC;   // query rows per block
+  // keys per tile: 128 where the stages fit (fewer pipeline round trips
+  // per key, wider S products), else 64
+  static constexpr int BN = DP <= 80 ? 128 : 64;
+  static constexpr int NW = DP / 64;               // 64-column chunks
+  static constexpr int T32 = DP % 64 >= 32 ? 32 : 0;
+  static constexpr int T16 = DP % 32;
+  static_assert((DP >= 64 && DP <= 128 && DP % 16 == 0) || DP == 256,
+                "head dim 64-128 in steps of 16, or 256");
+  // bytes of a chunk's rows: columns 64 * c .. are at chunk(c) * rows
+  static constexpr int OFF32 = NW * 128;            // x rows: the 32-col
+  static constexpr int OFF16 = NW * 128 + T32 * 2;  // x rows: the 16-col
+  // stages: a consumer holds two at a time; three at DP = 256
+  static constexpr int ST = WIDE ? 3 : 4;
+  static constexpr int THREADS = 128 * (NC + 1);
+  // O registers a consumer thread holds (a 64 x 64 chunk is 32)
+  static constexpr int NO = (WIDE ? NW / 2 : NW) * 32 + T32 / 2 + T16 / 2;
+  static constexpr int Q_BYTES = BM * DP * 2;
+  static constexpr int KV_BYTES = BN * DP * 2;
+  // Q buffers: two where a block walks several items (the next item's Q
+  // loads during the current one); the prefill and training kernels
+  // (DP >= 128, positions) take one item per block and need one
+  static constexpr int QB = DP >= 128 ? 1 : 2;
+  static constexpr int Q_OFF = 0;
+  static constexpr int K_OFF = Q_OFF + QB * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + ST * KV_BYTES;
+  // K1's key split (DP < 128): one warpgroup's O (f32, by thread) and
+  // row state (m, l), which the other merges
+  static constexpr int M_BYTES = DP < 128 ? 64 * DP * 4 + 128 * 16 : 0;
+  static constexpr int M_OFF = V_OFF + ST * KV_BYTES;
+  static constexpr int POS_OFF = M_OFF + M_BYTES;
+  static constexpr int META_OFF = POS_OFF + ST * BN * 4;
+  static constexpr int BAR_OFF = META_OFF + ST * 8;     // 8-byte aligned
+  static constexpr int SMEM = BAR_OFF + (4 + 2 * ST) * 8 + 1024;  // + align
+  static_assert(SMEM <= kSmemMax, "the block's shared memory fits the SM");
+};
+
+// K1 (no positions, DP < 128): the query rows of a work item. 128 rows,
+// one 64-row half per consumer warpgroup, or 64 rows that both
+// warpgroups share, each taking every other key tile, their rows merged
+// by the running max and sum at the end (the split). A split item costs
+// more than half of a 128-row one (its key tiles are loaded for half the
+// rows), so the split is taken only where it adds no round over the
+// grid's block slots (items / slots, rounded up): where the 128-row items
+// leave slots idle and the 64-row ones still fit them. (Taking it where
+// it adds a round lost 25-30% at S = 577, batch 1, and 15% at batch 3-4.)
+SVT_HD bool plan_split(int S, int heads_batch, int slots) {
+  const long long n128 = (long long)((S + 127) / 128) * heads_batch;
+  const long long n64 = (long long)((S + 63) / 64) * heads_batch;
+  return (n64 + slots - 1) / slots <= (n128 + slots - 1) / slots;
+}
 
 struct TileCoord {
   int tile;   // query (or key) tile: rows from tile * (rows per block)

@@ -17,14 +17,16 @@
 // q + visible k/v + o bytes; at the main path's prefill (Sq >= 256,
 // D=128, GQA 28/4; Gemma's D=256, 8/1) and in training (S=4096) that is
 // hundreds to thousands of FLOPs per byte, so the tensor cores bound it.
-// Head dims 64, 128 and 256 (the D = 256 instance: one consumer
-// warpgroup, attention_fwd.cuh). The design
-// (attention_fwd.cuh): wgmma on TMA-loaded, swizzled K/V tiles that a
-// producer warp keeps in flight behind mbarriers (loads overlap the
-// products, V is read transposed by the tensor cores), 128-row blocks of
-// two consumer warpgroups that share each K/V tile, no per-element mask on
-// tiles wholly below the diagonal, and the query tiles that see the most
-// keys started first, so the short tiles fill the last wave.
+// Head dims 64, 128 and 256. The design (attention_fwd.cuh): wgmma on
+// TMA-loaded, swizzled K/V tiles that a producer warp keeps in flight
+// behind mbarriers (loads overlap the products, V is read transposed by
+// the tensor cores), 128-row blocks of two consumer warpgroups that share
+// each K/V tile, no per-element mask on tiles wholly below the diagonal,
+// and the query tiles that see the most keys started first, so the short
+// tiles fill the last wave. At D = 256 (Gemma) a 64-row O is 128 f32
+// registers a thread, and a 384-thread block caps a thread at 168: WIDE
+// takes 64-row tiles on which both warpgroups compute the whole S and
+// softmax and each holds half of O's columns.
 //
 // C interface (ctypes): q/o are [B, Sq, Hq, D]; k/v are [B, Hkv, Sk, D]
 // (kv_major, the cache layout) or [B, Sk, Hkv, D], described by strides

@@ -64,7 +64,8 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A [B, S, H, D] bf16 view (element strides sb, ss, sh; D contiguous) as a
-// 4-D tensor map {D, S, H, B} with a (width x rows) box; columns past D and
+// 4-D tensor map {D, S, H, B} with a (width x rows) box, swizzled over its
+// row (width 64, 32 or 16 bf16: 128, 64 or 32 bytes); columns past D and
 // rows past S read as zeros.
 inline bool encode_view(CUtensorMap* map, const void* ptr, int B, int S,
                         int H, int D, long long sb, long long ss,
@@ -79,8 +80,9 @@ inline bool encode_view(CUtensorMap* map, const void* ptr, int B, int S,
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            width == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                        : CU_TENSOR_MAP_SWIZZLE_32B,
+            width == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+            : width == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                          : CU_TENSOR_MAP_SWIZZLE_32B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

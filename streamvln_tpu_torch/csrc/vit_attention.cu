@@ -14,20 +14,25 @@
 // producer warp keeps in flight behind mbarriers, so loads overlap the
 // products; tiles with no ragged tail take no per-element mask. D=72 is
 // padded to 80 (a 64-column and a 16-column chunk; the padding is 11% of
-// the products). The encoder zoo's towers add D=88 (EVA01-CLIP-g) and
-// D=104 (CLIP-bigG, MLCD-bigG): both run the DP=128 instance, two 64-column
-// chunks whose TMA boxes zero-fill the columns past D, as the TPU kernel
-// pads every D <= 128 to 128 lanes; the padding is 31% of the products at
-// 88 and 19% at 104, and the output columns past D are never stored.
-// Blocks take 128-row query tiles (two consumer warpgroups sharing each K/V
-// tile) at every batch; at batch 1 and S=729 that is 6 x 16 = 96 blocks for
-// the card's 132 SMs.
+// the products). The encoder zoo's towers add D=88 (EVA01-CLIP-g), padded
+// to 96 (a 64- and a 32-column chunk), and D=104 (CLIP-bigG, MLCD-bigG),
+// padded to 112 (64 + 32 + 16): 8% and 7% of the products, where the TPU
+// kernel pads every D <= 128 to 128 lanes (31% and 19%); the TMA boxes
+// zero-fill the columns past D and the output columns past D are never
+// stored. Blocks take 128-row query tiles (two consumer warpgroups sharing
+// each K/V tile), which at batch 1 leave most of the card's 132 SMs idle
+// (S=257 x 16 heads: 48 blocks; S=197 x 12: 24); there the plan
+// (attention_plan.cuh::plan_split) takes 64-row tiles instead, on which
+// the two warpgroups split the key tiles and merge their rows by the
+// running max (80 and 48 blocks), wherever that adds no round over the
+// SMs. SigLIP at batch 1 (6 x 16 = 96 blocks of 128 rows; 192 of 64 would
+// take two rounds) and every batch of 8 or more keep 128-row tiles.
 //
 // C interface (ctypes): q/k/v/o are [B, S, H, D] bf16 with the head dim
 // contiguous; strides are in elements and multiples of 8 (TMA needs
 // 16-byte strides). D is 64 (CLIP, EVA02), 72 (SigLIP, padded to 80), 88
-// or 104 (padded to 128); any other D, or a layout the tensor maps refuse,
-// returns cudaErrorInvalidValue.
+// (padded to 96) or 104 (padded to 112); any other D, or a layout the
+// tensor maps refuse, returns cudaErrorInvalidValue.
 #include "attention_fwd.cuh"
 
 extern "C" int svt_vit_attention(
@@ -54,8 +59,8 @@ extern "C" int svt_vit_attention(
   switch (D) {
     case 64: return svt::attention_forward<64>(a, st);
     case 72: return svt::attention_forward<80>(a, st);
-    case 88:
-    case 104: return svt::attention_forward<128>(a, st);
+    case 88: return svt::attention_forward<96>(a, st);
+    case 104: return svt::attention_forward<112>(a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

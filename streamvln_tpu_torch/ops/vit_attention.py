@@ -28,8 +28,8 @@ from streamvln_tpu_torch.kernels import build
 launches = 0
 launches_by_batch: dict = {}       # batch size -> kernel launches
 launches_by_shape: dict = {}       # (B, S, H, D) -> kernel launches
-# CLIP-L and EVA02 (64), SigLIP (72, padded to 80), EVA01-CLIP-g (88) and
-# CLIP/MLCD-bigG (104), both padded to 128 as the TPU kernel pads them
+# CLIP-L and EVA02 (64), SigLIP (72, padded to 80), EVA01-CLIP-g (88,
+# padded to 96) and CLIP/MLCD-bigG (104, padded to 112)
 KERNEL_HEAD_DIMS = (64, 72, 88, 104)
 
 

@@ -1,8 +1,9 @@
 """The launch plans of the port's attention kernels
 (`streamvln_tpu_torch/csrc/attention_plan.cuh`): the order of the work
 items of the forward and of the backward's dK/dV kernel (K5), K5's split
-of a KV head's query heads at head dim 256, and the forward's grid
-size. The header is plain
+of a KV head's query heads at head dim 256, the forward's grid size, K1's
+query rows per item (the key split) and the forward's tile geometry and
+shared-memory layout at every padded head dim. The header is plain
 C++; the host compiler builds it here behind a small C shim, so these tests
 run the very functions the kernels' launcher and blocks call.
 """
@@ -42,8 +43,40 @@ void key_item(int item, int hb, int group, int splits, int* out) {
   out[3] = k.head0;
   out[4] = k.heads;
 }
+int split(int S, int hb, int slots) {
+  return svt::plan_split(S, hb, slots);
+}
+}
+template <int DP>
+static void fill_shape(int* out) {
+  using S = svt::FwdShape<DP>;
+  const int v[] = {S::SMEM, S::BM, S::BN, S::NW, S::T32, S::T16, S::ST,
+                   S::NO, S::Q_BYTES, S::KV_BYTES, S::QB, S::Q_OFF,
+                   S::K_OFF, S::V_OFF, S::M_OFF, S::M_BYTES, S::POS_OFF,
+                   S::WIDE, S::OFF32, S::OFF16, S::THREADS,
+                   S::BAR_OFF};
+  for (int i = 0; i < (int)(sizeof(v) / sizeof(v[0])); ++i) out[i] = v[i];
+}
+extern "C" int fwd_shape(int dp, int* out) {
+  switch (dp) {
+    case 64: fill_shape<64>(out); return 0;
+    case 80: fill_shape<80>(out); return 0;
+    case 96: fill_shape<96>(out); return 0;
+    case 112: fill_shape<112>(out); return 0;
+    case 128: fill_shape<128>(out); return 0;
+    case 256: fill_shape<256>(out); return 0;
+  }
+  return 1;
 }
 """
+SHAPE_KEYS = ("SMEM", "BM", "BN", "NW", "T32", "T16", "ST", "NO", "Q_BYTES",
+              "KV_BYTES", "QB", "Q_OFF", "K_OFF", "V_OFF", "M_OFF",
+              "M_BYTES", "POS_OFF", "WIDE", "OFF32", "OFF16",
+              "THREADS", "BAR_OFF")
+# the block's dynamic shared memory on the H100 (227 KB)
+SMEM_MAX = 232448
+# K1's head dims and the instance each runs (csrc/vit_attention.cu)
+K1_PADDED = {64: 64, 72: 80, 88: 96, 104: 112}
 H100_SMS = 132
 
 
@@ -225,3 +258,119 @@ def test_split_items_cover_every_pair_and_head_once(plan, n_tiles, hb,
     assert sorted(seen) == [(t, h, j) for t in range(n_tiles)
                             for h in range(hb) for j in range(group)]
     assert all(a <= b for a, b in zip(tiles, tiles[1:]))
+
+
+def _shape(plan, dp):
+    out = (ctypes.c_int * len(SHAPE_KEYS))()
+    assert plan.fwd_shape(dp, out) == 0
+    return dict(zip(SHAPE_KEYS, out))
+
+
+@pytest.mark.parametrize("dp", [64, 80, 96, 112, 128, 256])
+def test_forward_layout_fits_the_sm(plan, dp):
+    """Every instance's chunks make up its head dim (64-column chunks, then
+    a 32- and a 16-column chunk), every chunk region of a Q, K or V tile
+    starts on a 1024-byte boundary (the swizzle patterns), the regions
+    follow one another without overlap and the block's shared memory (plus
+    the alignment slack) fits 227 KB; K1's instances (DP < 128) hold the
+    split's merge rows (warpgroup 1's O by thread and its row state)."""
+    s = _shape(plan, dp)
+    assert s["NW"] * 64 + s["T32"] + s["T16"] == dp
+    assert s["SMEM"] <= SMEM_MAX
+    for rows in (s["BM"], s["BN"], 64):
+        for off in (0, s["OFF32"] * rows, s["OFF16"] * rows):
+            assert off % 1024 == 0, (rows, off)
+    assert s["Q_BYTES"] == s["BM"] * dp * 2
+    assert s["KV_BYTES"] == s["BN"] * dp * 2
+    assert s["K_OFF"] == s["Q_OFF"] + s["QB"] * s["Q_BYTES"]
+    assert s["V_OFF"] == s["K_OFF"] + s["ST"] * s["KV_BYTES"]
+    assert s["M_OFF"] == s["V_OFF"] + s["ST"] * s["KV_BYTES"]
+    assert s["POS_OFF"] == s["M_OFF"] + s["M_BYTES"]
+    for off in ("K_OFF", "V_OFF", "M_OFF"):
+        assert s[off] % 1024 == 0
+    assert s["THREADS"] == 384
+    assert s["SMEM"] == s["BAR_OFF"] + (4 + 2 * s["ST"]) * 8 + 1024
+    if dp < 128:
+        assert s["M_BYTES"] == s["NO"] * 128 * 4 + 128 * 16
+    else:
+        assert s["M_BYTES"] == 0
+
+
+def test_forward_at_head_dim_256_is_wide(plan):
+    """DP = 256: both consumer warpgroups on one 64-row tile, each holding
+    half of O (64 f32 registers a thread, as a 64 x 128 tile), and three
+    stages of 64-key K and V tiles beside the 32 KB Q tile, which a fourth
+    stage would not fit."""
+    s = _shape(plan, 256)
+    assert s["WIDE"] == 1 and s["BM"] == 64 and s["BN"] == 64
+    assert s["ST"] == 3 and s["NO"] == 64 and s["QB"] == 1
+    assert s["Q_BYTES"] == 32768 and s["KV_BYTES"] == 32768
+    assert s["SMEM"] + 2 * s["KV_BYTES"] > SMEM_MAX
+
+
+@pytest.mark.parametrize("D", [64, 72, 88, 104])
+def test_k1_pads_the_zoo_head_dims_to_a_16_column_step(plan, D):
+    """K1's instances pad D to the next multiple of 16 (the depth step of
+    S = Q K^T): 88 -> 96 and 104 -> 112 (8% and 7% of the products),
+    where 128 took 31% and 19%."""
+    dp = K1_PADDED[D]
+    s = _shape(plan, dp)
+    assert dp - D < 16 and s["NW"] * 64 + s["T32"] + s["T16"] == dp
+    assert not s["WIDE"] and s["BM"] == 128
+
+
+def _k1_cover(plan, B, S, H, D, slots=H100_SMS):
+    """Walks K1's items as the kernel does (plan_split, plan_tile, each
+    warpgroup's rows and key tiles) and counts how often each (batch x
+    head, query row, key tile) is taken. Returns the counts and whether
+    the split was taken."""
+    import numpy as np
+    s = _shape(plan, K1_PADDED[D])
+    hb, bn = B * H, s["BN"]
+    split = bool(plan.split(S, hb, slots))
+    bm = 64 if split else 128
+    n_qt, n_kt = -(-S // bm), -(-S // bn)
+    counts = np.zeros((hb, S, n_kt), np.int32)
+    for item in range(n_qt * hb):
+        tile, h = _tile(plan, item, n_qt, hb, False)
+        q0 = tile * bm
+        for cw in (0, 1):
+            r0 = q0 if split else q0 + 64 * cw
+            keys = [kt for kt in range(n_kt) if not split or kt % 2 == cw]
+            counts[h, r0:min(r0 + 64, S), keys] += 1
+    return counts, split
+
+
+# the zoo's rows (chip_smoke.VIT_ZOO_SHAPES), SigLIP's batches on the main
+# paths, and ragged S at the zoo's head dims at batch 1 and 2
+@pytest.mark.parametrize("B,S,H,D", [
+    (1, 257, 16, 88), (1, 257, 16, 104), (1, 577, 16, 104),
+    (1, 577, 16, 64), (4, 577, 16, 64), (9, 577, 16, 64), (1, 197, 12, 64),
+    (3, 729, 16, 72), (4, 729, 16, 72), (5, 729, 16, 72),
+    (1, 729, 16, 72), (8, 729, 16, 72), (16, 729, 16, 72),
+    (28, 729, 16, 72), (32, 729, 16, 72),
+    (1, 65, 4, 88), (2, 129, 4, 104), (1, 191, 4, 64), (2, 197, 4, 88),
+    (1, 257, 4, 104), (2, 577, 4, 64), (1, 1, 2, 88)])
+def test_k1_items_cover_every_row_and_key_once(plan, B, S, H, D):
+    counts, _ = _k1_cover(plan, B, S, H, D)
+    assert bool((counts == 1).all())
+
+
+# K1 at batch 1 (and 2): the shapes, the 128-row items and the plan's
+# grid. The split takes 64-row items wherever they fill more SMs and add
+# no round over them; where 64-row items would exceed the SMs (S = 577 x
+# 16 heads: 160) the 128-row items stay, one round on 80 SMs.
+@pytest.mark.parametrize("B,S,H,split,grid", [
+    (1, 257, 16, True, 80), (1, 197, 12, True, 48), (1, 577, 16, False, 80),
+    (1, 729, 16, False, 96), (2, 257, 4, True, 40), (1, 65, 4, True, 8),
+    (4, 577, 16, False, 132), (3, 729, 16, False, 132)])
+def test_k1_grid_fills_the_card_where_no_round_is_added(plan, B, S, H,
+                                                        split, grid):
+    hb = B * H
+    got = bool(plan.split(S, hb, H100_SMS))
+    items = -(-S // (64 if got else 128)) * hb
+    assert got == split
+    assert plan.grid(items, H100_SMS, 1, 0) == grid
+    n64, n128 = -(-S // 64) * hb, -(-S // 128) * hb
+    # the grid is the most blocks a plan can have in one round
+    assert grid == (n64 if n64 <= H100_SMS else min(n128, H100_SMS))

@@ -60,23 +60,31 @@ def test_vit_kernel_matches_plain(dev, B, S, H, D):
                   va.vit_attention_plain(q, k, v.abs()))
 
 
-# the encoder zoo's shapes: EVA01-CLIP-g (D=88, S=257), CLIP/MLCD-bigG
-# (D=104 at S=257 and 577; both padded to 128 in the kernel), CLIP-L and
-# EVA02 (D=64 at S=577 and 197; S2's 1, 4 and 9 crops), anyres's SigLIP
-# batches of thumbnail and tiles (D=72, B=3, 4, 5), and ragged tiles at the
-# new head dims
+# the encoder zoo's shapes: EVA01-CLIP-g (D=88, S=257; padded to 96 in
+# the kernel), CLIP/MLCD-bigG (D=104 at S=257 and 577; padded to 112),
+# CLIP-L and EVA02 (D=64 at S=577 and 197; S2's 1, 4 and 9 crops),
+# anyres's SigLIP batches of thumbnail and tiles (D=72, B=3, 4, 5), and
+# ragged tiles at the zoo's head dims at batch 1 and 2, where the plan
+# splits the keys of 64-row tiles between the warpgroups (a tile of one
+# row, a single key tile, odd and even key-tile counts); a second call
+# bit-equal
 @pytest.mark.parametrize("B,S,H,D", [
     (1, 257, 16, 88), (1, 257, 16, 104), (1, 577, 16, 104),
     (1, 577, 16, 64), (4, 577, 16, 64), (9, 577, 16, 64), (1, 197, 12, 64),
     (3, 729, 16, 72), (4, 729, 16, 72), (5, 729, 16, 72),
-    (2, 65, 4, 88), (1, 129, 4, 104), (3, 191, 2, 88)])
+    (2, 65, 4, 88), (1, 129, 4, 104), (3, 191, 2, 88),
+    (1, 65, 4, 104), (2, 129, 4, 88), (1, 191, 4, 104), (2, 197, 4, 64),
+    (1, 257, 4, 64), (2, 577, 4, 104), (1, 577, 4, 88), (1, 33, 2, 64),
+    (2, 63, 3, 104), (1, 1, 2, 88)])
 def test_vit_kernel_at_the_zoo_shapes(dev, B, S, H, D):
     rng = np.random.default_rng(1)
     q, k, v = (_rand(rng, (B, S, H, D), dev) for _ in range(3))
     n0 = va.launches_by_shape.get((B, S, H, D), 0)
     out = va.vit_attention(q, k, v)
+    again = va.vit_attention(q, k, v)
     torch.cuda.synchronize()
-    assert va.launches_by_shape[(B, S, H, D)] == n0 + 1
+    assert va.launches_by_shape[(B, S, H, D)] == n0 + 2
+    assert torch.equal(out, again)
     _assert_close(out, va.vit_attention_plain(q, k, v),
                   va.vit_attention_plain(q, k, v.abs()))
 
@@ -855,11 +863,16 @@ def test_prefetcher_uploads_on_a_side_stream_in_order(dev):
 
 
 # The LLM families' shapes: K2/K3 at Gemma's head dim 256 (8 query heads
-# on one KV head; the kernel's one-consumer instance), K2 at group sizes 1
-# (Llama-2, Qwen2-MoE: 32/32) and 5 (Qwen2-14B: 40/8), on the KV-major
-# 4096-slot cache at a prefill's offset, ragged query tiles included
+# on one KV head, and 6/2 and 3/3; the WIDE instance: both warpgroups on
+# one 64-row tile),
+# K2 at group sizes 1 (Llama-2, Qwen2-MoE: 32/32) and 5 (Qwen2-14B: 40/8),
+# on the KV-major 4096-slot cache at a prefill's offset, ragged query
+# tiles and prefills of one tile (64 rows, and 65: a second tile of one
+# row) included; a second call bit-equal
 @pytest.mark.parametrize("Sq,off,Hq,Hkv,D", [
     (768, 300, 8, 1, 256), (2560, 0, 8, 1, 256), (130, 1900, 8, 1, 256),
+    (64, 300, 8, 1, 256), (65, 0, 8, 1, 256), (64, 4000, 8, 1, 256),
+    (130, 700, 6, 2, 256), (700, 0, 3, 3, 256),
     (768, 300, 32, 32, 128), (700, 1000, 40, 8, 128)])
 def test_flash_kernel_at_the_family_shapes(dev, Sq, off, Hq, Hkv, D):
     rng = np.random.default_rng(13)
@@ -871,8 +884,10 @@ def test_flash_kernel_at_the_family_shapes(dev, Sq, off, Hq, Hkv, D):
     k_pos = torch.arange(cap, device=dev, dtype=torch.int32)[None]
     n0 = fa.launches
     out = fa.flash_attention(q, k, v, q_pos, k_pos, kv_major=True)
+    again = fa.flash_attention(q, k, v, q_pos, k_pos, kv_major=True)
     torch.cuda.synchronize()
-    assert fa.launches == n0 + 1
+    assert fa.launches == n0 + 2
+    assert torch.equal(out, again)
     assert torch.all(out[0, 5] == 0)
     _assert_close(out, fa.flash_attention_plain(q, k, v, q_pos, k_pos,
                                                 kv_major=True),
@@ -880,11 +895,14 @@ def test_flash_kernel_at_the_family_shapes(dev, Sq, off, Hq, Hkv, D):
                                            kv_major=True))
 
 
-@pytest.mark.parametrize("S,n_valid,kv_major", [(200, 170, False),
-                                                (384, 384, True)])
+@pytest.mark.parametrize("S,n_valid,kv_major", [
+    (200, 170, False), (384, 384, True), (4096, 3900, False), (64, 64, True),
+    (65, 60, False)])
 def test_flash_lse_kernel_at_head_dim_256(dev, S, n_valid, kv_major):
     """K3 at D = 256 (the same instance as K2) against its plain version,
-    and K4 on its output (Gemma's training backward)."""
+    at Gemma-2B's training shape (S = 4096, 3,900 valid) and at one query
+    tile (64 and 65 rows), a second call bit-equal, and K4 on its output
+    (Gemma's training backward). Row 3 of batch 1 sees no key."""
     rng = np.random.default_rng(14)
     B, Hq, Hkv, D = 2, 8, 1, 256
     q = _rand(rng, (B, S, Hq, D), dev)
@@ -894,8 +912,12 @@ def test_flash_lse_kernel_at_head_dim_256(dev, S, n_valid, kv_major):
     n3 = fa.lse_launches
     out, lse = fa.flash_attention_lse(q, k, v, q_pos, k_pos,
                                       kv_major=kv_major)
+    out2, lse2 = fa.flash_attention_lse(q, k, v, q_pos, k_pos,
+                                        kv_major=kv_major)
     torch.cuda.synchronize()
-    assert fa.lse_launches == n3 + 1
+    assert fa.lse_launches == n3 + 2
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert torch.all(out[1, 3] == 0) and torch.all(lse[1, :, 3] == fa.NEG_INF)
     ref_out, ref_lse = fa.flash_attention_lse_plain(q, k, v, q_pos, k_pos,
                                                     kv_major=kv_major)
     _assert_close(out, ref_out, fa.flash_attention_plain(
@@ -911,6 +933,34 @@ def test_flash_lse_kernel_at_head_dim_256(dev, S, n_valid, kv_major):
     t_dq = _rounding_terms(*args, kv_major)[0]
     _assert_grad_close(dq, fa.flash_bwd_dq_plain(*args, kv_major=kv_major),
                        t_dq, "dq")
+
+
+# K2 and K3 at head dim 256 captured into a CUDA graph (as the engine's
+# prefill and the training step may run them) and replayed twice, each
+# replay bit-equal to the eager call
+@pytest.mark.parametrize("lse", [False, True])
+def test_flash_kernel_d256_graph_replays_equal_eager(dev, lse):
+    rng = np.random.default_rng(18)
+    B, S, Hq, Hkv, D = 2, 1000, 8, 1, 256
+    q = _rand(rng, (B, S, Hq, D), dev)
+    k, v = (_rand(rng, (B, S, Hkv, D), dev) for _ in range(2))
+    q_pos, k_pos = _train_positions(B, S, S, 900, dev, None)
+
+    def call():
+        if lse:
+            return fa.flash_attention_lse(q, k, v, q_pos, k_pos)
+        return (fa.flash_attention(q, k, v, q_pos, k_pos),)
+    eager = call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = call()
+    for _ in range(2):
+        for x in outs:
+            x.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(outs, eager))
 
 
 # K8 at the families' shapes: Gemma's head dim 256 with G = 8 (ragged

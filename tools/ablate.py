@@ -7,8 +7,12 @@ setting changed under `streamvln_tpu_torch/_build/ablate/<variant>/` and
 times the kernels of the libraries a variant changes through their
 wrappers at the main path's shapes by device time (torch.profiler), beside
 the kernels as they are ("base", every library). The attention forward
-(`attention_fwd.cuh`: K1 vit_attention, K2/K3 flash_attention) is timed at
-the SigLIP and prefill shapes and the train step's, the backward
+(`attention_fwd.cuh`: K1 vit_attention, K2/K3 flash_attention) is timed on
+the settled yardstick (chip_smoke.graph_ms; K1 over operand copies past
+the L2 cache) at the SigLIP batches (1, 8, 16, 28, 32), the encoder zoo's
+shapes (chip_smoke.VIT_ZOO_SHAPES), the prefill shapes and the train
+step's, at head dims 128 and 256 (Gemma: K2 and K3 at Sq 768 and 2560 on
+the 4096-slot cache, K3 at B=2 S=4096), the backward
 (`flash_attention_bwd.cu`: K4 dQ, K5 dK/dV) at the train step's shape at
 head dims 128 and 256; K6
 (int4 dequant-matmul,
@@ -52,6 +56,9 @@ ATTN = ("vit_attention", "flash_attention")
 BWD = "flash_attention_bwd"
 K6, K8 = "int4_matmul", "decode_attention"
 FWD, PLAN = "attention_fwd.cuh", "kernel_plan.cuh"
+PLAN_A = "attention_plan.cuh"
+_SPLIT_RULE = ("  return (n64 + slots - 1) / slots <= (n128 + slots - 1) / "
+               "slots;")
 BWD_CU = f"{BWD}.cu"
 _SKIP = ("      if (n > 0) {{ __syncwarp(); if (lane == 0) "
          "mbar_arrive(empty0 + 8 * st); continue; }}\n{}")
@@ -82,9 +89,9 @@ _FWD_HILO = [
     (FWD, "    uint32_t p[BN / 16][4];",
      "    uint32_t p[BN / 16][4], pl[BN / 16][4];"),
     (FWD, "pack_p<BN / 16>(s, p);", "pack_p_hilo<BN / 16>(s, p, pl);"),
-    (FWD, "issue_pv<DP>(o, p, desc_add(dv, po), desc_add(dvt, po));",
-     "issue_pv<DP>(o, p, desc_add(dv, po), desc_add(dvt, po));\n"
-     "          issue_pv<DP>(o, pl, desc_add(dv, po), desc_add(dvt, po));")]
+    (FWD, "issue_pv<DP, NCH>(o, p, dv, prev * S::KV_BYTES);",
+     "issue_pv<DP, NCH>(o, p, dv, prev * S::KV_BYTES);\n"
+     "          issue_pv<DP, NCH>(o, pl, dv, prev * S::KV_BYTES);")]
 _BWD_HILO = [
     (BWD_CU, "// ---- K4: dQ ----", _HILO.format("pack_ds_hilo")
      + "// ---- K4: dQ ----"),
@@ -178,25 +185,36 @@ VARIANTS = {
         "  float y;\n  asm(\"ex2.approx.ftz.f32 %0, %1;\\n\" : \"=f\"(y) "
         ": \"f\"(x));\n  return y;", "  return x * 0.5f;")]),
     # attention forward: the S = Q K^T products
-    "noqk": (ATTN, [(FWD, "      wgmma_ss<S::BN>(s, desc_add(dq,",
-                     "      if (0) wgmma_ss<S::BN>(s, desc_add(dq,"),
-                    (FWD, "  if (S::TAIL) wgmma_ss<S::BN>(s, dqt, dkt, 1);",
-                     "")]),
+    "noqk": (ATTN, [(FWD, "      wgmma_ss<S::BN>(s, desc_add(dq[0],",
+                     "      if (0) wgmma_ss<S::BN>(s, desc_add(dq[0],"),
+                    (FWD, "      wgmma_ss<S::BN>(s, desc_add(dq[1], kk * 32),",
+                     "      if (0) wgmma_ss<S::BN>(s, desc_add(dq[1], "
+                     "kk * 32),"),
+                    (FWD, "    wgmma_ss<S::BN>(s, dq[2], desc_add(dk[2], so), "
+                     "1);", "    ;")]),
     # attention forward: the P V products
     "nopv": (ATTN, [(FWD, "      wgmma_rs_n64(o + 32 * c, p[kk],",
                      "      if (0) wgmma_rs_n64(o + 32 * c, p[kk],"),
-                    (FWD, "      wgmma_rs_n16(o + 32 * S::NW, p[kk], "
-                     "desc_add(dvt, kk * 16 * 32));", "      ;")]),
-    # attention forward, K1 only (D=72): the 16-column chunk in both
-    # products
-    "notail": (ATTN, [(FWD, "  if (S::TAIL) wgmma_ss<S::BN>(s, dqt, dkt, 1);",
-                       ""),
-                      (FWD, "      wgmma_rs_n16(o + 32 * S::NW, p[kk], "
-                       "desc_add(dvt, kk * 16 * 32));", "      ;")]),
+                    (FWD, "      wgmma_rs_n32(o + 32 * NCH, p[kk],",
+                     "      if (0) wgmma_rs_n32(o + 32 * NCH, p[kk],"),
+                    (FWD, "      wgmma_rs_n16(o + 32 * NCH + S::T32 / 2, "
+                     "p[kk],", "      if (0) wgmma_rs_n16(o + 32 * NCH + "
+                     "S::T32 / 2, p[kk],")]),
+    # attention forward, K1's head dims 72, 88 and 104: the 32- and
+    # 16-column chunks in both products
+    "notail": (ATTN, [
+        (FWD, "      wgmma_ss<S::BN>(s, desc_add(dq[1], kk * 32),",
+         "      if (0) wgmma_ss<S::BN>(s, desc_add(dq[1], kk * 32),"),
+        (FWD, "    wgmma_ss<S::BN>(s, dq[2], desc_add(dk[2], so), 1);",
+         "    ;"),
+        (FWD, "      wgmma_rs_n32(o + 32 * NCH, p[kk],",
+         "      if (0) wgmma_rs_n32(o + 32 * NCH, p[kk],"),
+        (FWD, "      wgmma_rs_n16(o + 32 * NCH + S::T32 / 2, p[kk],",
+         "      if (0) wgmma_rs_n16(o + 32 * NCH + S::T32 / 2, p[kk],")]),
     # attention forward: the two consumer warpgroups' turn-taking
     "noping": (ATTN, [(FWD, "named_sync(1 + cw, 256);", "(void)0;"),
                       (FWD, "named_arrive(2 - cw, 256);", "(void)0;"),
-                      (FWD, "if (NC == 2 && cw == 1) named_arrive(1, 256);",
+                      (FWD, "if (turns && cw == 1) named_arrive(1, 256);",
                        "")]),
     # K4/K5: the exponentials (P = S * scale - LSE instead)
     "bwd_noexp": ((BWD,), [(BWD_CU, "ex2(fmaf(", "(fmaf(")]),
@@ -300,6 +318,25 @@ VARIANTS = {
                             "cluster_arrive();")]),
     # K8: clusters of any size up to 16, not powers of two only
     "k8_any_size": ((K8,), [(PLAN, "p > 1; p /= 2)", "p > 1; --p)")]),
+    # the attention forward as it is, alone
+    "attn": (ATTN, []),
+    # K1 without the key split: 128-row items at every shape
+    "k1_nosplit": (ATTN[:1], [(PLAN_A, _SPLIT_RULE, "  return false;")]),
+    # K1's split also where 128-row items leave block slots idle (the
+    # 64-row items then take a second round)
+    "k1_fill": (ATTN[:1], [(PLAN_A, _SPLIT_RULE,
+                            "  return n128 < slots ||" + _SPLIT_RULE[8:])]),
+    # the forward at head dim 256 with two stages instead of three
+    "d256_st2": (ATTN[1:], [(PLAN_A, "static constexpr int ST = WIDE ? 3 : 4;",
+                             "static constexpr int ST = WIDE ? 2 : 4;")]),
+    # K1 at head dims 88 and 104 on the DP = 128 instance (the TPU
+    # kernel's padding to 128 lanes) instead of 96 and 112
+    "k1_pad128": (ATTN[:1], [
+        ("vit_attention.cu",
+         "    case 88: return svt::attention_forward<96>(a, st);\n"
+         "    case 104: return svt::attention_forward<112>(a, st);",
+         "    case 88:\n"
+         "    case 104: return svt::attention_forward<128>(a, st);")]),
     # K8 with %globaltimer stamps per block at its phase boundaries (the
     # kernel's timeline; ncu does not run on the card's machine): times as
     # "k8", then the stamps of each K8 case's last rotation
@@ -349,6 +386,9 @@ def use_variant(procs: dict) -> None:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {path}:\n{out}")
         print(f"{lib}: {chip_smoke.ptxas_summary(out)}", file=sys.stderr)
+        for line in out.splitlines():
+            if "serialized" in line:
+                print(f"  {line.strip()[-160:]}", file=sys.stderr)
         cdll = ctypes.CDLL(path)
         for sym, argtypes in build.ARGTYPES.items():
             if hasattr(cdll, sym):
@@ -362,10 +402,11 @@ def use_variant(procs: dict) -> None:
 
 
 def cases(torch) -> dict:
-    """{case: (library, [calls], calls timed)}: K1 at batch 1 and 9
-    (SigLIP), K2 at the prefill buckets 768 and 2560 over a 4096-slot cache
-    from position 300, K3, K4 and K5 at the train step's shape (K4/K5 also
-    at Gemma's head dim 256); K6 at every int4
+    """{case: (library, [calls], calls timed: 0 for the settled
+    yardstick)}: K1 at the SigLIP batches and the zoo's shapes, K2 at the
+    prefill buckets 768 and 2560 over a 4096-slot cache from position 300
+    (also at Gemma's head dim 256, with K3), K3, K4 and K5 at the train
+    step's shape (also at Gemma's head dim 256); K6 at every int4
     projection's decode shape and gate/up at 128 rows, K8 at 300 and 4096
     live keys of a 4096-slot cache (K8_ROWS: the main path's and the
     families' shapes, over their layers' caches), each over operand copies
@@ -380,18 +421,37 @@ def cases(torch) -> dict:
         return torch.randn(shape, generator=g, device="cuda") \
             .to(torch.bfloat16)
     out = {}
-    for B in (1, 9):
-        q, k, v = (rnd(B, 729, 16, 72) for _ in range(3))
-        out[f"K1 B={B}"] = ("vit_attention", [
-            lambda q=q, k=k, v=v: va.vit_attention(q, k, v)], 10)
+    # K1 at the SigLIP batches and the zoo's shapes, each over operand
+    # copies past the L2 cache
+    shapes = [(B, 729, 16, 72) for B in (1, 8, 16, 28, 32)] + [
+        s for s in chip_smoke.VIT_ZOO_SHAPES if s[1:] != (729, 16, 72)
+        or s[0] not in (1, 8, 16, 28, 32)]
+    for B, S, H, D in shapes:
+        ops = [tuple(rnd(B, S, H, D) for _ in range(3)) for _ in range(
+            chip_smoke._copies(4 * B * S * H * D * 2))]
+        out[f"K1 B={B} S={S} H={H} D={D}"] = ("vit_attention", [
+            lambda o=o: va.vit_attention(*o) for o in ops], 0)
     kp = torch.arange(4096, device="cuda", dtype=torch.int32)[None]
-    for sq in (768, 2560):
-        q, k, v = rnd(1, sq, 28, 128), rnd(1, 4, 4096, 128), \
-            rnd(1, 4, 4096, 128)
-        qp = (300 + torch.arange(sq, device="cuda", dtype=torch.int32))[None]
-        out[f"K2 Sq={sq}"] = ("flash_attention", [
-            lambda q=q, k=k, v=v, qp=qp: fa.flash_attention(
-                q, k, v, qp, kp, kv_major=True)], 10)
+    # K2 (and at head dim 256 K3) on the 4096-slot cache from position 300:
+    # Qwen2-7B's 28/4 heads, Gemma's 8/1 at head dim 256, and at Sq 768
+    # the families' group sizes 1 (32/32) and 5 (40/8)
+    for hq, hkv, d, sqs in ((28, 4, 128, (768, 2560)),
+                            (8, 1, 256, (768, 2560)), (32, 32, 128, (768,)),
+                            (40, 8, 128, (768,))):
+        for sq in sqs:
+            q, k, v = rnd(1, sq, hq, d), rnd(1, hkv, 4096, d), \
+                rnd(1, hkv, 4096, d)
+            qp = (300 + torch.arange(sq, device="cuda",
+                                     dtype=torch.int32))[None]
+            tag = f" D={d}" if d != 128 else f" G={hq // hkv}" \
+                if hq != 28 else ""
+            out[f"K2{tag} Sq={sq}"] = ("flash_attention", [
+                lambda q=q, k=k, v=v, qp=qp: fa.flash_attention(
+                    q, k, v, qp, kp, kv_major=True)] * 10, 0)
+            if d == 256:
+                out[f"K3{tag} Sq={sq}"] = ("flash_attention", [
+                    lambda q=q, k=k, v=v, qp=qp: fa.flash_attention_lse(
+                        q, k, v, qp, kp, kv_major=True)] * 10, 0)
     S, n = 4096, 3900
     q, k, v = rnd(2, S, 28, 128), rnd(2, S, 4, 128), rnd(2, S, 4, 128)
     pos = torch.arange(S, device="cuda", dtype=torch.int32)
@@ -400,7 +460,7 @@ def cases(torch) -> dict:
         .contiguous()
     out["K3"] = ("flash_attention", [
         lambda q=q, k=k, v=v, qp=qp: fa.flash_attention_lse(
-            q, k, v, qp, kp3)], 10)
+            q, k, v, qp, kp3)] * 10, 0)
     o, lse = fa.flash_attention_lse(q, k, v, qp, kp3)
     do = rnd(2, S, 28, 128)
     bwd = (q, k, v, do, lse, fa._dsum(do, o), qp, kp3)
@@ -408,6 +468,9 @@ def cases(torch) -> dict:
     out["K5"] = (BWD, [lambda: fa.flash_bwd_dkv(*bwd)], 10)
     # ... and at Gemma's (head dim 256, 8/1 heads)
     q, k, v = rnd(2, S, 8, 256), rnd(2, S, 1, 256), rnd(2, S, 1, 256)
+    out["K3 D=256"] = ("flash_attention", [
+        lambda q=q, k=k, v=v, qp=qp: fa.flash_attention_lse(
+            q, k, v, qp, kp3)] * 10, 0)
     o, lse = fa.flash_attention_lse(q, k, v, qp, kp3)
     do = rnd(2, S, 8, 256)
     bwd256 = (q, k, v, do, lse, fa._dsum(do, o), qp, kp3)
@@ -443,9 +506,9 @@ def cases(torch) -> dict:
 
 
 def time_case(torch, case, fns, calls) -> float:
-    """K8 on the settled yardstick (no bound: an ablated kernel may beat
-    it), the others by device time."""
-    if case.startswith("K8"):
+    """The attention forward and K8 on the settled yardstick (no bound: an
+    ablated kernel may beat it; `calls` 0), the others by device time."""
+    if not calls or case.startswith("K8"):
         return chip_smoke.graph_ms(torch, fns, 0.0, case)["ms"]
     return chip_smoke.device_ms(torch, fns, calls)
 

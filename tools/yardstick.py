@@ -1,0 +1,97 @@
+"""The attention and int4 kernels' rows on the settled yardstick, alone.
+
+    python3 tools/yardstick.py [--tree DIR] [group ...]
+
+Builds the kernel libraries and runs chip_smoke.py's kernel checks (each
+against its plain version, timed on `chip_smoke.graph_ms` beside its
+library call, and by torch.profiler device time) without the rest of the
+script. Groups (default all):
+  k1      K1 at the SigLIP batches the main paths send (1, 8, 16, 28, 32)
+          and at chip_smoke.VIT_ZOO_SHAPES;
+  int4    K6 at every int4 projection's shape and K7 at its shapes;
+  anyres  K2 without a cache at anyres's two prefills (ANYRES_SQ);
+  d256    K2 and K3 at head dim 256 (8/1 heads) over the 4096-slot cache
+          at Sq 768 and 2560, and K3 (with K4/K5) at Gemma-2B's training
+          shape (B=2 S=4096, 3,900 valid).
+Prints the card and one JSON line per record, and writes them all to
+chiprun_out/yardstick.json. With `--tree DIR` the kernels and wrappers
+are another checkout's (its `streamvln_tpu_torch/`, e.g. the parent
+commit unpacked with `git archive`), checked and timed by this tree's
+chip_smoke.py. Needs a CUDA card and nvcc.
+"""
+from __future__ import annotations
+
+import importlib.util
+import json
+import os
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TREE = sys.argv[2] if __name__ == "__main__" and sys.argv[1:2] == \
+    ["--tree"] else HERE
+sys.path.insert(0, os.path.abspath(TREE))
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
+
+GROUPS = ("k1", "int4", "anyres", "d256")
+SIGLIP_BATCHES = (1, 8, 16, 28, 32)
+# the uncached prefill lengths of chip_smoke's two anyres images
+ANYRES_SQ = (3032, 3046)
+
+
+def run(torch, group: str) -> list:
+    import torch.nn.functional as F
+
+    from streamvln_tpu_torch.models import quant
+    from streamvln_tpu_torch.ops import flash_attention as fa
+    from streamvln_tpu_torch.ops import int4_matmul as i4
+    from streamvln_tpu_torch.ops import vit_attention as va
+    cs = chip_smoke
+    if group == "k1":
+        return [cs.check_vit(torch, F, va, b) for b in SIGLIP_BATCHES] + [
+            cs.check_vit(torch, F, va, B, S=S, H=H, D=D)
+            for B, S, H, D in cs.VIT_ZOO_SHAPES]
+    if group == "int4":
+        k6, k7 = cs.check_int4(torch, i4, quant)
+        return k6 + k7
+    if group == "anyres":
+        return [cs.check_flash_uncached(torch, F, fa, s) for s in ANYRES_SQ]
+    recs = [cs.check_flash(torch, F, fa, sq, Hq=8, Hkv=1, D=256, lse=lse,
+                           graph=True)
+            for sq in (768, 2560) for lse in (False, True)]
+    train = cs.check_training_kernels(torch, F, fa, Hq=8, Hkv=1, D=256)
+    return recs + [dict(train[n], kernel=n) for n in train]
+
+
+def main(argv) -> int:
+    import torch
+    if argv[:1] == ["--tree"]:
+        argv = argv[2:]
+    if not torch.cuda.is_available():
+        print("yardstick: needs a CUDA card", file=sys.stderr)
+        return 2
+    groups = argv or list(GROUPS)
+    unknown = [g for g in groups if g not in GROUPS]
+    if unknown:
+        print(f"yardstick: unknown groups {unknown}", file=sys.stderr)
+        return 2
+    from streamvln_tpu_torch.kernels import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build_all()
+    card = chip_smoke.card_line()
+    print(card, flush=True)
+    out = {"card": card, "tree": TREE}
+    for g in groups:
+        out[g] = run(torch, g)
+        for r in out[g]:
+            print(json.dumps({"group": g, **r}, default=str), flush=True)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "yardstick.json"), "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
