@@ -34,10 +34,12 @@ Phases (any failure exits non-zero before the result line):
      fails at its end if any phase launched K7 at another shape), K8
      (decode attention) at four live lengths of a 4096-slot cache; K6, K7
      and K8 timed over enough operand copies to miss the L2 cache, as the
-     decode path does, with their host cost per call; every K6 and K8
-     shape also checks that a second call is bit-equal to the first and
-     that a call launches one kernel; K6 (beside int4pack), K7 and K8
-     (beside SDPA) also on the settled yardstick (graph_ms: a rotation
+     decode path does, with their host cost per call; every K6, K7 and
+     K8 shape also checks that a second call is bit-equal to the first
+     and that a call launches one kernel, K7 in bf16 and f32; K6 (beside
+     int4pack), K7 (beside a copy of its output's size, the card's
+     stream rate) and K8 (beside SDPA) also on the settled yardstick
+     (graph_ms: a rotation
      captured into one CUDA graph, replayed GRAPH_REPLAYS times between
      CUDA events, the median of GRAPH_RUNS readings with min and max; a
      reading below the bound is refused, logged and not recorded), with
@@ -1001,7 +1003,7 @@ def check_int4(torch, i4, quant):
     same bf16-rounded weights, so only the f32 summation order differs:
     |err| <= 1e-5 * sum_k |x_k w_k| + 1e-6 elementwise; a second call
     bit-equal; one kernel and nothing else enqueued per call (a captured
-    CUDA graph's nodes). K7: bit-equal."""
+    CUDA graph's nodes). K7: check_dequant."""
     weights, recs, dq = {}, [], []
     for i, (name, din, dout, M) in enumerate(INT4_SHAPES):
         if (din, dout) not in weights:
@@ -1094,14 +1096,28 @@ def check_int4(torch, i4, quant):
 
 
 def check_dequant(torch, i4, name, wp, s):
-    """K7 against its plain version: bit-equal."""
+    """K7 against its plain version: bit-equal in bf16 and in f32, a
+    second call bit-equal, one kernel and nothing else enqueued per call
+    (a captured CUDA graph's nodes). Timed in bf16 on the settled
+    yardstick beside the card's practical stream rate: `dst.copy_(src)` of
+    two bf16 buffers of K7's output size, graph-timed over sources past
+    2.5x the L2 cache into one destination, as K7 writes one output
+    (copy_ms: a ceiling for a stream on this card, not a library call for
+    the function, so library_ms stays None); the GB/s of each."""
     _, half, dout = wp.shape
-    out = i4.int4_dequant_split(wp, s, 0, torch.bfloat16)
-    torch.cuda.synchronize()
-    ref = i4.int4_dequant_split_plain(wp, s, 0, torch.bfloat16)
-    equal = torch.equal(out, ref)
-    err = (out.float() - ref.float()).abs().max().item()
-    del out, ref
+    checks = {}
+    for dt in (torch.bfloat16, torch.float32):
+        out = i4.int4_dequant_split(wp, s, 0, dt)
+        again = i4.int4_dequant_split(wp, s, 0, dt)
+        torch.cuda.synchronize()
+        ref = i4.int4_dequant_split_plain(wp, s, 0, dt)
+        checks[dt] = (torch.equal(out, ref), torch.equal(out, again),
+                      (out.float() - ref.float()).abs().max().item())
+        del out, again, ref
+    equal, again_equal, err = checks[torch.bfloat16]
+    f32_equal, f32_again, _ = checks[torch.float32]
+    per_call = launches_per_call(
+        torch, lambda: i4.int4_dequant_split(wp, s, 0, torch.bfloat16))
     n = _copies(wp.numel() * 5)
     ops = [(wp, s)] + [(wp.clone(), s.clone()) for _ in range(n - 1)]
     kfns = [(lambda a=a, b=b: i4.int4_dequant_split(a, b, 0, torch.bfloat16))
@@ -1113,18 +1129,44 @@ def check_dequant(torch, i4, name, wp, s):
     b_ms, b_by = bound(0.0, nbytes)
     shape = f"{name} din={2 * half} dout={dout} -> bf16 [2, {half}, {dout}]"
     graphs, graph_line = graph_pair(torch, kfns, None, b_ms, f"K7 {shape}")
+    del ops, kfns
+    out_elems = 2 * half * dout
+    m = _copies(2 * 2 * out_elems)
+    srcs = [torch.empty(out_elems, dtype=torch.bfloat16, device="cuda")
+            .normal_() for _ in range(m)]
+    dst = torch.empty_like(srcs[0])
+    copy = graph_ms(torch, [(lambda a=a: dst.copy_(a)) for a in srcs],
+                    bound(0.0, 2 * 2 * out_elems)[0], f"copy at K7 {shape}")
+    del srcs, dst
+
+    def gbps(nb, t):
+        return nb / t / 1e6 if t else None
+    k7_gbps, copy_gbps = gbps(nbytes, graphs["graph_ms"]), \
+        gbps(2 * 2 * out_elems, copy["ms"])
     rec = {"shape": shape, "key": [2 * half, dout, "bfloat16"],
-           "max_abs_err": err,
-           "bit_equal": equal, "ms": ms, "event_ms": event_ms,
-           "plain_ms": plain,
+           "f32_key": [2 * half, dout, "float32"],
+           "max_abs_err": err, "bit_equal": equal,
+           "second_call_bit_equal": again_equal, "f32_bit_equal": f32_equal,
+           "f32_second_call_bit_equal": f32_again,
+           "kernels_per_call": len(per_call), "enqueued": per_call,
+           "ms": ms, "event_ms": event_ms, "plain_ms": plain,
            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-           "bytes": nbytes, "rotation": n, **graphs}
-    log(f"K7 int4_dequant_split {rec['shape']}: bit-equal {equal}; "
-        f"{graph_line}; kernel "
-        f"{ms:.4f} ms device ({event_ms:.4f} ms event-timed) plain "
+           "bytes": nbytes, "rotation": n, **graphs,
+           "copy_ms": copy["ms"], "copy_min": copy["min"],
+           "copy_max": copy["max"], "copy_refused": copy["refused"],
+           "copy_rotation": m, "graph_gbps": k7_gbps,
+           "copy_gbps": copy_gbps,
+           "share_of_copy": k7_gbps / copy_gbps if k7_gbps and copy_gbps
+           else None}
+    log(f"K7 int4_dequant_split {rec['shape']}: bit-equal {equal} (f32 "
+        f"{f32_equal}), second call {again_equal} (f32 {f32_again}), "
+        f"enqueues {per_call} per call; {graph_line} = {k7_gbps} GB/s; "
+        f"copy of the output's size {graph_text(copy)} = {copy_gbps} GB/s; "
+        f"kernel {ms:.4f} ms device ({event_ms:.4f} ms event-timed) plain "
         f"{plain:.4f} ms bound {b_ms:.4f} ms ({b_by})")
-    if not equal:
-        raise AssertionError(f"int4_dequant_split differs at {rec['shape']}")
+    require(f"int4_dequant_split at {rec['shape']}", bit_equal=equal,
+            f32_bit_equal=f32_equal, deterministic=again_equal and f32_again,
+            one_launch=per_call == ["kernel"])
     return rec
 
 
@@ -7170,7 +7212,7 @@ def main() -> int:
     k7_shapes = {f"{din}x{dout} {dt}": n for (din, dout, dt), n
                  in sorted(i4.dequant_launches_by_shape.items())}
     unchecked = set(i4.dequant_launches_by_shape) - {
-        tuple(r["key"]) for r in dequant_recs}
+        tuple(k) for r in dequant_recs for k in (r["key"], r["f32_key"])}
     if unchecked:
         raise AssertionError(f"the run launched K7 at (din, dout, dtype) "
                              f"{sorted(unchecked)}, which phase 2 did not "

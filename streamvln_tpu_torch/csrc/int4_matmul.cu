@@ -50,10 +50,30 @@
 // thread over the whole contraction in order.
 //
 // K7 (svt_int4_dequant_split) replaces _dequant_kernel: one layer to
-// [2, din/2, dout] in x's type, low-nibble rows then high-nibble rows,
-// each value nibble * scale (f32) rounded once. A pure streaming pass
-// (0.5 B + scales read, 2 x 2 B written per byte in bf16): one thread per
-// 16 packed bytes, 16-byte loads and stores.
+// [2, din/2, dout] in T (bf16 or f32), low-nibble rows then high-nibble
+// rows, each value nibble * scale (f32) rounded once.
+//
+// Bound on the H100: a pure stream. Per packed byte it reads 1 byte and
+// 4/32 bytes of scales and writes 4 bytes (bf16; 8 in f32): device memory
+// (3.35 TB/s) bounds it. The stores are 78% of the bytes and, measured,
+// nearly all of the time: without them the kernel takes a tenth as long.
+//
+// Design (kernel_plan.cuh: unpack_*): a unit is a scale group's 32
+// packed rows of a 512-column tile (8 or 2 rows for a smaller layer); one
+// block per SM of up to 16 warps, the grid sweeping the units in
+// row-major order. A lane holds 16 columns of a unit as 16 / NPC chunks
+// of NPC columns (NPC = 8 in bf16, 4 in f32), chunk k at k * 32 NPC + NPC
+// lane: so each 16-byte store of a chunk, over the warp, fills 512
+// contiguous bytes of an output row, and each chunk's packed bytes, over
+// the warp, are one contiguous load. (A lane's 16 contiguous columns made
+// each store instruction half-fill 32 sectors 32 bytes apart; that cost
+// 1.2-1.9x.) A lane reads its 16 scales once per unit (once per group at the
+// large layers: 0.125 bytes a packed byte, where re-reading them per 16
+// bytes cost 4), issues 8 rows' loads (ld.global.nc, no L1 allocation)
+// before it unpacks any, and stores 16-byte vectors. Each nibble becomes
+// an exact float in one LOP3 and one FADD (nibble_at). 32-bit indices. No
+// shared memory and nothing encoded on the host: one launch, safe to
+// capture at any address.
 //
 // C interface (ctypes): pointers are to one layer's slice; the wrapper
 // checks shapes (din, dout multiples of 512; M <= 128 for bf16), types,
@@ -79,16 +99,6 @@ constexpr int K6_MAX_ROWS = 128;
 // (u ^ 8) - 8 == q, and 0x4B000000 | k is the float 2^23 + k
 __device__ __forceinline__ float nibble_to_f(uint32_t u) {
   return __int_as_float(0x4B000000u | (u ^ 8u)) - 8388616.0f;
-}
-
-__device__ __forceinline__ void load_scales16(const float* p, float* sc) {
-  const float4* p4 = reinterpret_cast<const float4*>(p);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float4 f = __ldg(p4 + i);
-    sc[4 * i] = f.x; sc[4 * i + 1] = f.y;
-    sc[4 * i + 2] = f.z; sc[4 * i + 3] = f.w;
-  }
 }
 
 // The signed nibble at bit p (p + 3 <= 22) of w as an exact float, in one
@@ -372,53 +382,143 @@ int4_f32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
     if (m0 + m < M) out[static_cast<size_t>(m0 + m) * dout + col] = acc[m];
 }
 
+// ---- K7 ----
+
+// A lane's columns of a 512-column tile: K chunks of NPC columns, chunk k
+// at k * 32 NPC + NPC lane, so that one chunk's 16-byte store from every
+// lane of a warp fills 512 contiguous bytes of an output row (NPC = 8 in
+// bf16, 4 in f32), and its NPC packed bytes from every lane are one
+// contiguous load.
 template <typename T>
-__device__ __forceinline__ void store16(T* dst, const float* v);
-template <> __device__ __forceinline__ void store16<float>(float* dst,
-                                                         const float* v) {
-  float4* d = reinterpret_cast<float4*>(dst);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    d[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+struct UnpackLane {
+  static constexpr int NPC = 16 / sizeof(T);   // columns of a chunk
+  static constexpr int K = 16 / NPC;           // chunks of a lane
+  static constexpr int WORDS = NPC / 4;        // packed words of a chunk
+};
+
+// The packed bytes of a chunk, read once, so not kept in L1.
+template <int WORDS>
+__device__ __forceinline__ void ld_chunk(const uint8_t* p, uint32_t* w) {
+  if constexpr (WORDS == 2)
+    asm volatile("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];\n"
+                 : "=r"(w[0]), "=r"(w[1]) : "l"(p));
+  else
+    asm volatile("ld.global.nc.L1::no_allocate.u32 %0, [%1];\n"
+                 : "=r"(w[0]) : "l"(p));
 }
-template <> __device__ __forceinline__ void store16<__nv_bfloat16>(
-    __nv_bfloat16* dst, const float* v) {
-  uint32_t u[8];
+
+// 16 bytes of the output. Volatile with a memory clobber, so no load of a
+// later row moves above it.
+__device__ __forceinline__ void st_out(void* p, uint4 v) {
+  asm volatile("st.global.v4.b32 [%0], {%1, %2, %3, %4};\n"
+               ::"l"(p), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
+}
+
+// A chunk's NPC values in T as 16 bytes.
+__device__ __forceinline__ uint4 to16(const float* v, float*) {
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                    __float_as_uint(v[2]), __float_as_uint(v[3]));
+}
+__device__ __forceinline__ uint4 to16(const float* v, __nv_bfloat16*) {
+  return make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
+                    pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
+}
+
+// One packed word (4 columns) with their scales: the low nibbles' values
+// to l[0..3], the high nibbles' to h[0..3], each nibble * scale in f32.
+// Byte b's low nibble is at bit 8b, its high one at 8b + 4 (those at bits
+// 20, 24 and 28 from w >> 12, as nibble_at takes p <= 19).
+__device__ __forceinline__ void unpack_word(uint32_t w, const float* s,
+                                            float* l, float* h) {
+  const uint32_t v = w >> 12;
+  l[0] = nibble_at(w, 0) * s[0];
+  h[0] = nibble_at(w, 4) * s[0];
+  l[1] = nibble_at(w, 8) * s[1];
+  h[1] = nibble_at(w, 12) * s[1];
+  l[2] = nibble_at(w, 16) * s[2];
+  h[2] = nibble_at(v, 8) * s[2];
+  l[3] = nibble_at(v, 12) * s[3];
+  h[3] = nibble_at(v, 16) * s[3];
+}
+
+// The plan (kernel_plan.cuh) gives each warp its units of ROWS rows; a
+// lane takes 16 columns of each (UnpackLane). Per unit it loads its 16
+// scales, then takes the rows SUB at a time: it issues their loads (with
+// the scales', at the first) before it unpacks any, and stores each row's
+// two halves.
+template <typename T, int ROWS, int SUB>
+__global__ void __launch_bounds__(32 * kUnpackWarps, 1)
+int4_unpack_kernel(const uint8_t* __restrict__ w, const float* __restrict__ s,
+                   T* __restrict__ out, int half, int dout) {
+  using L = UnpackLane<T>;
+  constexpr int NPC = L::NPC, K = L::K, WORDS = L::WORDS;
+  static_assert(ROWS % SUB == 0 && GROUP_ROWS % ROWS == 0,
+                "a unit lies in one scale group");
+  const int lane = threadIdx.x & 31;
+  const UnpackGrid grid = {static_cast<int>(gridDim.x),
+                           static_cast<int>(blockDim.x >> 5), ROWS};
+  const UnpackRun run = unpack_run(unpack_units(half, dout, ROWS), grid,
+                                   blockIdx.x, threadIdx.x >> 5);
+  const int plane = half * dout;               // elements of one half
+  for (int u = run.begin; u < run.end; u += run.step) {
+    const UnpackUnit t = unpack_unit(dout, ROWS, u);
+    const int c = t.col + NPC * lane;          // the lane's first column
+    float sc[K][NPC];
+    const float* sg = s + t.row / GROUP_ROWS * dout + c;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    u[i] = *reinterpret_cast<uint32_t*>(&h);
+    for (int k = 0; k < K; ++k)
+#pragma unroll
+      for (int i = 0; i < NPC / 4; ++i) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(
+            sg + k * 32 * NPC) + i);
+        sc[k][4 * i] = v.x;
+        sc[k][4 * i + 1] = v.y;
+        sc[k][4 * i + 2] = v.z;
+        sc[k][4 * i + 3] = v.w;
+      }
+#pragma unroll 1
+    for (int r0 = 0; r0 < ROWS; r0 += SUB) {
+      const int off = (t.row + r0) * dout + c;
+      uint32_t p[SUB][K][WORDS];
+#pragma unroll
+      for (int i = 0; i < SUB; ++i)
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          ld_chunk<WORDS>(w + off + i * dout + k * 32 * NPC, p[i][k]);
+#pragma unroll
+      for (int i = 0; i < SUB; ++i)
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          float l[NPC], h[NPC];
+#pragma unroll
+          for (int j = 0; j < WORDS; ++j)
+            unpack_word(p[i][k][j], sc[k] + 4 * j, l + 4 * j, h + 4 * j);
+          T* dst = out + off + i * dout + k * 32 * NPC;
+          st_out(dst, to16(l, dst));
+          st_out(dst + plane, to16(h, dst));
+        }
+    }
   }
-  uint4* d = reinterpret_cast<uint4*>(dst);
-  d[0] = make_uint4(u[0], u[1], u[2], u[3]);
-  d[1] = make_uint4(u[4], u[5], u[6], u[7]);
 }
 
 template <typename T>
-__global__ void int4_dequant_split_kernel(const uint8_t* __restrict__ w,
-                                          const float* __restrict__ s,
-                                          T* __restrict__ out, int half,
-                                          int dout) {
-  const long long n = static_cast<long long>(half) * dout;
-  for (long long e = (blockIdx.x * static_cast<long long>(blockDim.x)
-                      + threadIdx.x) * 16; e < n;
-       e += static_cast<long long>(gridDim.x) * blockDim.x * 16) {
-    const int r = static_cast<int>(e / dout);
-    const int c = static_cast<int>(e - static_cast<long long>(r) * dout);
-    const uint4 p = __ldg(reinterpret_cast<const uint4*>(w + e));
-    float sc[16];
-    load_scales16(s + static_cast<size_t>(r / GROUP_ROWS) * dout + c, sc);
-    const uint32_t words[4] = {p.x, p.y, p.z, p.w};
-    float lo[16], hi[16];
-#pragma unroll
-    for (int b = 0; b < 16; ++b) {
-      const uint32_t byte = (words[b >> 2] >> (8 * (b & 3))) & 0xFFu;
-      lo[b] = nibble_to_f(byte & 0xFu) * sc[b];
-      hi[b] = nibble_to_f(byte >> 4) * sc[b];
-    }
-    store16<T>(out + e, lo);
-    store16<T>(out + n + e, hi);
-  }
+cudaError_t launch_unpack(const void* w, const void* s, void* out, int half,
+                          int dout, cudaStream_t st) {
+  const UnpackGrid g = unpack_grid(half, dout);
+  const dim3 grid(g.blocks), block(32 * g.warps);
+  const uint8_t* wp = static_cast<const uint8_t*>(w);
+  const float* sp = static_cast<const float*>(s);
+  T* op = static_cast<T*>(out);
+  if (g.rows == 32)
+    int4_unpack_kernel<T, 32, 8><<<grid, block, 0, st>>>(wp, sp, op, half,
+                                                          dout);
+  else if (g.rows == 8)
+    int4_unpack_kernel<T, 8, 8><<<grid, block, 0, st>>>(wp, sp, op, half,
+                                                         dout);
+  else
+    int4_unpack_kernel<T, 2, 2><<<grid, block, 0, st>>>(wp, sp, op, half,
+                                                         dout);
+  return cudaGetLastError();
 }
 
 template <int NT>
@@ -471,18 +571,13 @@ extern "C" int svt_int4_matmul(const void* x, const void* w, const void* s,
 extern "C" int svt_int4_dequant_split(const void* w, const void* s,
                                       void* out, int half, int dout,
                                       int is_bf16, void* stream) {
-  if (half % 256 || dout % 512) return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t align = reinterpret_cast<uintptr_t>(w)
+      | reinterpret_cast<uintptr_t>(s) | reinterpret_cast<uintptr_t>(out);
+  if (half < 256 || half % 256 || dout < 512 || dout % 512 || align % 16 ||
+      2LL * half * dout >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long units = static_cast<long long>(half) * dout / 16;
-  const int blocks = static_cast<int>((units + 255) / 256 < 132 * 16
-                                      ? (units + 255) / 256 : 132 * 16);
-  const uint8_t* wp = static_cast<const uint8_t*>(w);
-  const float* sp = static_cast<const float*>(s);
-  if (is_bf16)
-    svt::int4_dequant_split_kernel<__nv_bfloat16><<<blocks, 256, 0, st>>>(
-        wp, sp, static_cast<__nv_bfloat16*>(out), half, dout);
-  else
-    svt::int4_dequant_split_kernel<float><<<blocks, 256, 0, st>>>(
-        wp, sp, static_cast<float*>(out), half, dout);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      is_bf16 ? svt::launch_unpack<__nv_bfloat16>(w, s, out, half, dout, st)
+              : svt::launch_unpack<float>(w, s, out, half, dout, st));
 }

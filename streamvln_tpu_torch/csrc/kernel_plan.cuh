@@ -1,7 +1,7 @@
-// Launch plans of K6 (int4_matmul.cu) and K8 (decode_attention.cu): how
-// many blocks a launch takes and which share of the work each block owns;
-// K8's shared-memory layout and the order of its merge. Plain
-// C++ with no CUDA types, so the host compiler can build it too
+// Launch plans of K6 and K7 (int4_matmul.cu) and K8 (decode_attention.cu):
+// how many blocks a launch takes and which share of the work each block
+// owns; K8's shared-memory layout and the order of its merge. Plain C++
+// with no CUDA types, so the host compiler can build it too
 // (tests/test_torch_kernel_plan.py).
 #pragma once
 
@@ -50,6 +50,75 @@ SVT_HD Range int4_groups(int groups, int splits, int z) {
   r.begin = static_cast<int>(static_cast<long long>(groups) * z / splits);
   r.end = static_cast<int>(static_cast<long long>(groups) * (z + 1) / splits);
   return r;
+}
+
+// ---- K7: one layer unpacked to [2, half, dout] --------------------------
+//
+// A unit is `rows` packed rows of one kUnpackCols-column tile (16 columns
+// for each lane of a warp) inside one scale group: a whole group (32
+// rows) where that gives every warp of a full grid a unit, else 8 rows,
+// or 2 where 8-row units would give fewer than kUnpackMinUnits per SM (a
+// small layer's few stores then spread over more warps). A lane reads
+// its 16 scales once per unit. Units are numbered row-major (the tiles of
+// the first rows, then of the next ones), and the grid sweeps them in
+// that order: unit u goes to warp u % (blocks warps), counting the warps
+// of all blocks first (warp w of block b is b + w blocks), so that the
+// card works on a compact window of the output and no block holds more
+// than one unit over another. The grid is one block per SM (fewer where
+// there are fewer units); its warps are the fewest that take a block's
+// units in as few rounds as kUnpackWarps warps would, so that no warp of
+// a block holds more than one unit over another and a last round is not
+// left to a few warps alone (at Qwen2-14B's down projection, 16.4 units a
+// block, 16 warps left a second 32-row unit to a few warps and took 13%
+// longer than 9 warps of one or two). Every index fits 32 bits (the
+// launcher refuses 2 half dout >= 2^31).
+
+constexpr int kUnpackCols = 512;     // columns of a unit (a warp's)
+constexpr int kUnpackWarps = 16;     // most warps of a block
+constexpr int kUnpackMinUnits = 4;   // 8-row units an SM needs at least
+
+struct UnpackGrid {
+  int blocks, warps, rows;           // warps of each block; rows of a unit
+};
+
+SVT_HD int unpack_units(int half, int dout, int rows) {
+  return half / rows * (dout / kUnpackCols);
+}
+
+SVT_HD UnpackGrid unpack_grid(int half, int dout) {
+  UnpackGrid g;
+  g.rows = unpack_units(half, dout, 32) >= kSms * kUnpackWarps ? 32
+      : unpack_units(half, dout, 8) >= kUnpackMinUnits * kSms ? 8 : 2;
+  const int units = unpack_units(half, dout, g.rows);
+  g.blocks = units < kSms ? units : kSms;
+  const int most = (units + g.blocks - 1) / g.blocks;     // of a block
+  const int rounds = (most + kUnpackWarps - 1) / kUnpackWarps;
+  g.warps = (most + rounds - 1) / rounds;
+  return g;
+}
+
+// The units of warp w of block b: begin, begin + step, ... below end.
+struct UnpackRun {
+  int begin, end, step;
+};
+SVT_HD UnpackRun unpack_run(int units, UnpackGrid g, int b, int w) {
+  UnpackRun r;
+  r.begin = b + w * g.blocks;
+  r.end = units;
+  r.step = g.blocks * g.warps;
+  return r;
+}
+
+// Unit u: its tile's first column and its first packed row.
+struct UnpackUnit {
+  int col, row;
+};
+SVT_HD UnpackUnit unpack_unit(int dout, int rows, int u) {
+  const int tiles = dout / kUnpackCols;
+  UnpackUnit t;
+  t.col = u % tiles * kUnpackCols;
+  t.row = u / tiles * rows;
+  return t;
 }
 
 // ---- K8: decode attention over keys 0..length-1 of the cache ------------

@@ -7,7 +7,9 @@ K6 replaces `streamvln_tpu/ops/int4_matmul.py::_kernel` and K7 its
 on the H100 and the design: K6 streams the packed weights through a ring
 of asynchronous copies, multiplies on the tensor cores (bf16 x; f32 x takes a
 CUDA-core kernel) and merges the splits of its contraction inside one
-launch, in a fixed order; its grid comes from `csrc/kernel_plan.cuh`.
+launch, in a fixed order; K7 is a pure stream, one block per SM whose
+warps walk runs of 8-row units, each group's scales read once per run.
+Both grids come from `csrc/kernel_plan.cuh`.
 Layout (models/quant.py): packed uint8 [L, din/2, dout], byte r = w[2r]
 (low nibble) | w[2r+1] (high nibble), signed in [-7, 7]; f32 scales
 [L, din/64, dout]. A product is taken as `x[:, 0::2] @ lo + x[:, 1::2] @

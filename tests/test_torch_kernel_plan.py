@@ -1,6 +1,8 @@
-"""The launch plans of the port's K6 (int4 dequant-matmul) and K8 (decode
-attention) kernels (`streamvln_tpu_torch/csrc/kernel_plan.cuh`): the
-contraction split and block count of K6; K8's shared-memory layout and the
+"""The launch plans of the port's K6 (int4 dequant-matmul), K7 (int4
+unpack) and K8 (decode attention) kernels
+(`streamvln_tpu_torch/csrc/kernel_plan.cuh`): the contraction split and
+block count of K6; K7's grid and the runs of units its warps take; K8's
+shared-memory layout and the
 blocks per SM it allows, its grid (clusters sized so that one wave holds
 them), its live-prefix shares and its merge (the warps of a block, then the
 blocks of a cluster). The header is plain
@@ -121,6 +123,40 @@ int dec_const(int i) {
 }
 int i4_cluster() { return svt::kI4Cluster; }
 int cols() { return svt::kI4Cols; }
+// K7: {blocks, warps, rows}, the units, and each warp's units with every
+// unit's (first column, first packed row), warp by warp in grid order;
+// returns the units written
+void i7_grid(int half, int dout, int* out) {
+  const UnpackGrid g = unpack_grid(half, dout);
+  out[0] = g.blocks;
+  out[1] = g.warps;
+  out[2] = g.rows;
+}
+int i7_units(int half, int dout, int rows) {
+  return unpack_units(half, dout, rows);
+}
+int i7_walk(int half, int dout, int* count, int* col, int* row) {
+  const UnpackGrid g = unpack_grid(half, dout);
+  const int units = unpack_units(half, dout, g.rows);
+  int n = 0;
+  for (int b = 0; b < g.blocks; ++b)
+    for (int w = 0; w < g.warps; ++w) {
+      const UnpackRun r = unpack_run(units, g, b, w);
+      count[b * g.warps + w] = 0;
+      for (int u = r.begin; u < r.end; u += r.step, ++n) {
+        const UnpackUnit t = unpack_unit(dout, g.rows, u);
+        col[n] = t.col;
+        row[n] = t.row;
+        ++count[b * g.warps + w];
+      }
+    }
+  return n;
+}
+int i7_const(int i) {
+  const int c[] = {kUnpackMinUnits, kUnpackCols, kUnpackWarps,
+                   kI4GroupRows};
+  return c[i];
+}
 }
 """
 # (M, din, dout) of every int4 product on the main path (streamvln_7b with
@@ -131,6 +167,19 @@ MAIN_PATH_INT4 = {"qkv": (1, 3584, 4608), "o": (1, 3584, 3584),
                   "lm_head": (1, 3584, 152064),
                   "gate_up_128": (128, 3584, 37888)}
 LENGTHS = (0, 1, 15, 16, 17, 63, 64, 300, 1900, 2049, 4095, 4096)
+# (din, dout) of every K7 launch on the main paths: streamvln_7b's fused
+# qkv, o (and q), fused gate/up, down, lm_head, and the k/v and gate/up
+# that a QLoRA step unpacks unfused; Qwen2-14B's qkv, o, gate/up, down,
+# lm_head (--bits 4)
+K7_MAIN = {"qkv": (3584, 4608), "o": (3584, 3584), "gu": (3584, 37888),
+           "down": (18944, 3584), "lm_head": (3584, 152064),
+           "k/v": (3584, 512), "gate/up": (3584, 18944),
+           "qkv 14b": (5120, 7168), "o 14b": (5120, 5120),
+           "gu 14b": (5120, 27648), "down 14b": (13824, 5120),
+           "lm_head 14b": (5120, 152064)}
+# the CUDA tests' shapes (din 512-1024, dout 512-1536)
+K7_TEST = ((512, 512), (1024, 512), (512, 1536), (1024, 1536),
+           (1024, 1024))
 
 
 @pytest.fixture(scope="module")
@@ -213,6 +262,80 @@ def test_int4_splits_cover_every_group_once(plan, M, din, dout):
         assert e > b                    # every split has a group
         seen += range(b, e)
     assert seen == list(range(groups))
+
+
+def _k7_walk(plan, din, dout):
+    """K7's plan at one shape: (blocks, warps, rows), the units, each
+    warp's count of units in grid order, and every unit's (column, row)
+    in the order the warps take them."""
+    half = din // 2
+    grid = (ctypes.c_int * 3)()
+    plan.i7_grid(half, dout, grid)
+    blocks, warps, rows = grid
+    units = plan.i7_units(half, dout, rows)
+    count = (ctypes.c_int * (blocks * warps))()
+    col, row = (ctypes.c_int * units)(), (ctypes.c_int * units)()
+    n = plan.i7_walk(half, dout, count, col, row)
+    assert n == units
+    return ((blocks, warps, rows), units, np.array(count), np.array(col),
+            np.array(row))
+
+
+@pytest.mark.parametrize("din,dout", [*K7_MAIN.values(), *K7_TEST])
+def test_unpack_units_cover_every_element_once(plan, din, dout):
+    """Every (packed row, column) of the output is in exactly one unit of
+    exactly one warp: the units' rows x 512-column rectangles tile [half,
+    dout], and each lies inside one scale group."""
+    cols, group = plan.i7_const(1), plan.i7_const(3)
+    (_, _, rows), units, _, col, row = _k7_walk(plan, din, dout)
+    assert rows in (2, 8, 32) and group % rows == 0
+    assert units == din // 2 // rows * (dout // cols)
+    assert (col % cols == 0).all() and (row % rows == 0).all()
+    cover = np.zeros((din // 2 // rows, dout // cols), np.int32)
+    np.add.at(cover, (row // rows, col // cols), 1)
+    assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("name", sorted(K7_MAIN))
+def test_unpack_grid_fills_the_card(plan, name):
+    """At every main-path shape: one block on every SM, of at most
+    kUnpackWarps warps, the fewest that take a block's units in as few
+    rounds as kUnpackWarps would; no block holds more than one unit over
+    another, no warp more than one over another; whole groups where they
+    give every warp of a full grid a unit (a lane then reads each group's
+    scales once); and the grid sweeps the units in row-major order, unit
+    u to warp u % (blocks warps), the warps of all blocks counted first."""
+    din, dout = K7_MAIN[name]
+    half, sms, most = din // 2, plan.dec_const(0), plan.i7_const(2)
+    (blocks, warps, rows), units, count, col, row = _k7_walk(plan, din,
+                                                             dout)
+    assert blocks == sms and 1 <= warps <= most
+    n = count.reshape(blocks, warps)
+    assert n.sum(1).max() - n.sum(1).min() <= 1
+    assert n.max() - n.min() <= 1
+    per_block = -(-units // blocks)
+    rounds = -(-per_block // most)
+    assert n.max() == rounds and warps == -(-per_block // rounds)
+    want = 32 if half // 32 * (dout // 512) >= sms * most else \
+        8 if half // 8 * (dout // 512) >= plan.i7_const(0) * sms else 2
+    assert rows == want
+    u = row // rows * (dout // 512) + col // 512
+    start = np.concatenate([[0], np.cumsum(count)[:-1]])
+    for b in range(blocks):
+        for w in range(warps):
+            i = b * warps + w
+            mine = u[start[i]:start[i] + count[i]]
+            gw = b + w * blocks
+            assert (mine == gw + blocks * warps * np.arange(count[i])).all()
+
+
+@pytest.mark.parametrize("din,dout", K7_TEST)
+def test_unpack_grid_at_the_test_shapes(plan, din, dout):
+    """Below 132 units every unit has a block of one warp."""
+    (blocks, warps, rows), units, _, _, _ = _k7_walk(plan, din, dout)
+    sms = plan.dec_const(0)
+    want = (units, 1) if units < sms else (sms, -(-units // sms))
+    assert (blocks, warps) == want and rows == 2
 
 
 # blocks of the cluster of each (row, KV head) on the stated GPC layout:

@@ -502,6 +502,38 @@ def test_int4_kernels_match_plain(dev, M, din, dout, dtype):
     assert (i4.launches - n6, i4.dequant_launches - n7) == (4, 2)
 
 
+# K7 at its plan's edges (csrc/kernel_plan.cuh, unpack_*) and in each of
+# its three unit sizes: the smallest shape (2-row units: 128 blocks of one
+# warp), a ragged grid of 8-row units whose blocks' runs end inside rows
+# (672 units over 132 blocks of 6 warps), k/v's width (one 512-column
+# tile, 2-row units over 132 blocks of 7 warps, some idle) and lm_head's
+# (297 tiles; whole-group units, 9 warps of 2), in bf16 and f32, at both
+# layers of a stack; every byte value and scales over eight octaves:
+# bit-equal to the plain version, a second call bit-equal, and the launch
+# counter one up per call
+@pytest.mark.parametrize("din,dout", [(512, 512), (3584, 1536),
+                                      (3584, 512), (512, 152064)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int4_unpack_at_the_plan_edges(dev, din, dout, dtype):
+    from streamvln_tpu_torch.ops import int4_matmul as i4
+    g = torch.Generator(device=dev).manual_seed(din + dout)
+    wp = torch.randint(0, 256, (2, din // 2, dout), generator=g,
+                       device=dev, dtype=torch.uint8)
+    s = torch.exp2(torch.rand((2, din // 64, dout), generator=g,
+                              device=dev) * 8 - 12)
+    for layer in (0, 1):
+        n = i4.dequant_launches
+        out = i4.int4_dequant_split(wp, s, layer, dtype)
+        assert i4.dequant_launches - n == 1
+        again = i4.int4_dequant_split(wp, s, layer, dtype)
+        assert i4.dequant_launches - n == 2
+        torch.cuda.synchronize()
+        assert out.shape == (2, din // 2, dout) and out.dtype == dtype
+        assert torch.equal(out, i4.int4_dequant_split_plain(wp, s, layer,
+                                                            dtype))
+        assert torch.equal(out, again)
+
+
 def test_int4_wrappers_refuse_what_the_kernels_do_not_take(dev):
     from streamvln_tpu_torch.ops import int4_matmul as i4
     wp, s = _int4_weight(512, 512, dev, 0)

@@ -20,7 +20,10 @@ head dims 128 and 256; K6
 decode path's shapes over a rotation of operand copies that misses the L2
 cache; K8 also at the families' decode shapes (Gemma's head dim 256, G = 5,
 G = 1), on the settled yardstick (chip_smoke.graph_ms: one CUDA graph of
-the rotation, replayed between CUDA events, the median of its readings).
+the rotation, replayed between CUDA events, the median of its readings);
+K7 (int4 unpack, `int4_matmul.cu`) on the same yardstick at every shape
+chip_smoke.py checks, beside a copy and a fill of its output's size (the
+card's stream rates; the "int4" variant times K6 and K7 as they are).
 An ablated kernel computes wrong results: the point is how much of the
 time each part holds. Prints the card and one JSON line per variant;
 "k8_stamps" also one per K8 case with K8's timeline: when its blocks reach
@@ -174,120 +177,181 @@ _K8_STAMPS = [
     (_K8_CU, "  mbar_wait(recv, 0);\n", "  mbar_wait(recv, 0);\n  stamp(4);\n"),
     (_K8_CU, _LAST, _LAST[:-2] + "\n  stamp(5);\n}\n"),
     (_K8_CU, None, _STAMP_READ)]
+# K7's shapes: every one chip_smoke.py checks (the main paths' int4
+# projections of streamvln_7b and Qwen2-14B, and the QLoRA step's unfused
+# k/v and gate/up)
+K7_SHAPES = tuple((n, din, dout) for n, din, dout, M in
+                  chip_smoke.INT4_SHAPES if M == 1) + chip_smoke.K7_SHAPES
+_K7_CU = f"{K6}.cu"
+_K7_SCALES = """        const float4 v = __ldg(reinterpret_cast<const float4*>(
+            sg + k * 32 * NPC) + i);
+        sc[k][4 * i] = v.x;
+        sc[k][4 * i + 1] = v.y;
+        sc[k][4 * i + 2] = v.z;
+        sc[k][4 * i + 3] = v.w;"""
+_K7_LOAD = "          ld_chunk<WORDS>(w + off + i * dout + k * 32 * NPC, p[i][k]);"
+_K7_LOADS = """      uint32_t p[SUB][K][WORDS];
+#pragma unroll
+      for (int i = 0; i < SUB; ++i)
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+""" + _K7_LOAD + """
+#pragma unroll
+      for (int i = 0; i < SUB; ++i)
+#pragma unroll
+        for (int k = 0; k < K; ++k) {"""
+_K7_ST = '"st.global.v4.b32 [%0], {%1, %2, %3, %4};\\n"'
+_K7_RUN = """  r.begin = b + w * g.blocks;
+  r.end = units;
+  r.step = g.blocks * g.warps;"""
+_K7_ROWS = "  g.rows = unpack_units(half, dout, 32) >= kSms * kUnpackWarps ? 32"
+# K7 with each row's two 512-column halves staged in shared memory (two
+# buffers a warp) and written by one lane with two bulk copies
+# (cp.async.bulk.global.shared::cta), in place of the lanes' 16-byte stores
+_K7_BULK_PTX = """__device__ __forceinline__ void bulk_store(void* g, const void* s,
+                                           int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\\n"
+               ::"l"(g), "r"(smem_u32(s)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");
+}
+
+// The plan (kernel_plan.cuh) gives each warp its units of ROWS rows; a"""
+_K7_STORE_LOOP = """#pragma unroll
+      for (int i = 0; i < SUB; ++i)
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          float l[NPC], h[NPC];
+#pragma unroll
+          for (int j = 0; j < WORDS; ++j)
+            unpack_word(p[i][k][j], sc[k] + 4 * j, l + 4 * j, h + 4 * j);
+          T* dst = out + off + i * dout + k * 32 * NPC;
+          st_out(dst, to16(l, dst));
+          st_out(dst + plane, to16(h, dst));
+        }"""
+_K7_BULK_LOOP = """#pragma unroll
+      for (int i = 0; i < SUB; ++i) {
+        T* stg = stage + ((threadIdx.x >> 5) * 2 + (nrow & 1))
+            * 2 * kUnpackCols;
+        if (lane == 0) bulk_wait_read<1>();
+        __syncwarp();
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          float l[NPC], h[NPC];
+#pragma unroll
+          for (int j = 0; j < WORDS; ++j)
+            unpack_word(p[i][k][j], sc[k] + 4 * j, l + 4 * j, h + 4 * j);
+          T* sd = stg + k * 32 * NPC + NPC * lane;
+          *reinterpret_cast<uint4*>(sd) = to16(l, sd);
+          *reinterpret_cast<uint4*>(sd + kUnpackCols) = to16(h, sd);
+        }
+        fence_async_shared();
+        __syncwarp();
+        if (lane == 0) {
+          T* g = out + (t.row + r0 + i) * dout + t.col;
+          bulk_store(g, stg, kUnpackCols * sizeof(T));
+          bulk_store(g + plane, stg + kUnpackCols, kUnpackCols * sizeof(T));
+          bulk_commit();
+        }
+        ++nrow;
+      }"""
+_K7_BULK = [
+    (_K7_CU, "\n// The plan (kernel_plan.cuh) gives each warp its units of ROWS rows; a",
+     "\n" + _K7_BULK_PTX),
+    (_K7_CU, "  const int plane = half * dout;               // elements of one half\n",
+     "  const int plane = half * dout;               // elements of one half\n"
+     "  extern __shared__ __align__(128) unsigned char smraw[];\n"
+     "  T* stage = reinterpret_cast<T*>(smraw);\n  int nrow = 0;\n"),
+    (_K7_CU, _K7_STORE_LOOP, _K7_BULK_LOOP),
+    (_K7_CU, """    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_unpack(""", """    }
+  }
+  if (lane == 0) bulk_wait_read<0>();
+}
+
+template <typename T>
+cudaError_t launch_unpack("""),
+    (_K7_CU, "  T* op = static_cast<T*>(out);\n",
+     "  T* op = static_cast<T*>(out);\n"
+     "  const int smem = g.warps * 4 * kUnpackCols * sizeof(T);\n"
+     "  cudaFuncSetAttribute(int4_unpack_kernel<T, 32, 8>, "
+     "cudaFuncAttributeMaxDynamicSharedMemorySize, smem);\n"
+     "  cudaFuncSetAttribute(int4_unpack_kernel<T, 8, 8>, "
+     "cudaFuncAttributeMaxDynamicSharedMemorySize, smem);\n"
+     "  cudaFuncSetAttribute(int4_unpack_kernel<T, 2, 2>, "
+     "cudaFuncAttributeMaxDynamicSharedMemorySize, smem);\n")] + [
+    (_K7_CU, f"int4_unpack_kernel<T, {r}, {b}><<<grid, block, 0, st>>>",
+     f"int4_unpack_kernel<T, {r}, {b}><<<grid, block, smem, st>>>")
+    for r, b in ((32, 8), (8, 8), (2, 2))]
 # name: (libraries it changes, edits as (file in csrc/, old text, new text))
 VARIANTS = {
     "base": ((*ATTN, BWD, K6, K8), []),
     # K8 as it is, alone
     "k8": ((K8,), []),
-    # attention forward: ex2 -> a multiply (the MUFU pipe's share)
-    "noexp": (ATTN, [(
-        "pipeline.cuh",
-        "  float y;\n  asm(\"ex2.approx.ftz.f32 %0, %1;\\n\" : \"=f\"(y) "
-        ": \"f\"(x));\n  return y;", "  return x * 0.5f;")]),
-    # attention forward: the S = Q K^T products
-    "noqk": (ATTN, [(FWD, "      wgmma_ss<S::BN>(s, desc_add(dq[0],",
-                     "      if (0) wgmma_ss<S::BN>(s, desc_add(dq[0],"),
-                    (FWD, "      wgmma_ss<S::BN>(s, desc_add(dq[1], kk * 32),",
-                     "      if (0) wgmma_ss<S::BN>(s, desc_add(dq[1], "
-                     "kk * 32),"),
-                    (FWD, "    wgmma_ss<S::BN>(s, dq[2], desc_add(dk[2], so), "
-                     "1);", "    ;")]),
-    # attention forward: the P V products
-    "nopv": (ATTN, [(FWD, "      wgmma_rs_n64(o + 32 * c, p[kk],",
-                     "      if (0) wgmma_rs_n64(o + 32 * c, p[kk],"),
-                    (FWD, "      wgmma_rs_n32(o + 32 * NCH, p[kk],",
-                     "      if (0) wgmma_rs_n32(o + 32 * NCH, p[kk],"),
-                    (FWD, "      wgmma_rs_n16(o + 32 * NCH + S::T32 / 2, "
-                     "p[kk],", "      if (0) wgmma_rs_n16(o + 32 * NCH + "
-                     "S::T32 / 2, p[kk],")]),
-    # attention forward, K1's head dims 72, 88 and 104: the 32- and
-    # 16-column chunks in both products
-    "notail": (ATTN, [
-        (FWD, "      wgmma_ss<S::BN>(s, desc_add(dq[1], kk * 32),",
-         "      if (0) wgmma_ss<S::BN>(s, desc_add(dq[1], kk * 32),"),
-        (FWD, "    wgmma_ss<S::BN>(s, dq[2], desc_add(dk[2], so), 1);",
-         "    ;"),
-        (FWD, "      wgmma_rs_n32(o + 32 * NCH, p[kk],",
-         "      if (0) wgmma_rs_n32(o + 32 * NCH, p[kk],"),
-        (FWD, "      wgmma_rs_n16(o + 32 * NCH + S::T32 / 2, p[kk],",
-         "      if (0) wgmma_rs_n16(o + 32 * NCH + S::T32 / 2, p[kk],")]),
-    # attention forward: the two consumer warpgroups' turn-taking
-    "noping": (ATTN, [(FWD, "named_sync(1 + cw, 256);", "(void)0;"),
-                      (FWD, "named_arrive(2 - cw, 256);", "(void)0;"),
-                      (FWD, "if (turns && cw == 1) named_arrive(1, 256);",
-                       "")]),
-    # K4/K5: the exponentials (P = S * scale - LSE instead)
-    "bwd_noexp": ((BWD,), [(BWD_CU, "ex2(fmaf(", "(fmaf(")]),
-    # K4/K5: the products fed from registers (dS K; P^T dO and dS^T Q)
-    "bwd_nods": ((BWD,), [
-        (BWD_CU, "issue_rs<NW, BN / 16>(acc, f,",
-         "if (0) issue_rs<NW, BN / 16>(acc, f,"),
-        (BWD_CU, "issue_rs<NW, BQ / 16>(dv, pf,",
-         "if (0) issue_rs<NW, BQ / 16>(dv, pf,"),
-        (BWD_CU, "issue_rs<NW, BQ / 16>(dk, sf,",
-         "if (0) issue_rs<NW, BQ / 16>(dk, sf,"),
-        (BWD_CU, "issue_rs<2, BN / 16>(acc, f,",
-         "if (0) issue_rs<2, BN / 16>(acc, f,"),
-        (BWD_CU, "issue_rs<NW, BQ / 16>(acc, f,",
-         "if (0) issue_rs<NW, BQ / 16>(acc, f,")]),
-    # K4/K5: consumers release every stage unread (the ring alone)
-    "bwd_noconsume": ((BWD,), [
-        (BWD_CU, "    int prev = -1;\n    if (meta_k0[stage] >= 0) {",
-         "    int prev = -1;\n    while (meta_k0[stage] >= 0) {\n"
-         "      release(empty0 + 8 * stage, lane);\n"
-         "      if (leader) { prefetch(); commit(); }\n"
-         "      if (++stage == ST) { stage = 0; phase ^= 1; }\n"
-         "      mbar_wait(full0 + 8 * stage, phase);\n    }\n    if (0) {"),
-        (BWD_CU, "    if (meta_q0[stage] < 0) break;\n",
-         "    if (meta_q0[stage] < 0) break;\n"
-         "    release(empty0 + 8 * stage, lane);\n"
-         "    if (leader) commit();\n"
-         "    if (++stage == ST) { stage = 0; phase ^= 1; }\n"
-         "    continue;\n"),
-        (BWD_CU, "      if (meta_k0[stage] < 0) break;\n",
-         "      if (meta_k0[stage] < 0) break;\n"
-         "      release(empty0 + 8 * stage, lane);\n"
-         "      if (leader) commit();\n"
-         "      if (++stage == ST) { stage = 0; phase ^= 1; }\n"
-         "      continue;\n")]),
-    # K4/K5: the launch alone (same grid and shared memory)
-    "bwd_empty": ((BWD,), [
-        (BWD_CU, "  using S = DqShape<DP>;\n  constexpr",
-         "  if (a.B > 0) return;\n  using S = DqShape<DP>;\n  constexpr"),
-        (BWD_CU, "  using S = DkvShape<DP>;\n  constexpr",
-         "  if (a.B > 0) return;\n  using S = DkvShape<DP>;\n  constexpr")]),
-    # K4/K5 at head dim 256: P and dS into their products as hi + lo bf16
-    # pairs (each product fed from registers issued twice), as K8 splits P
-    "bwd_pds_hilo": ((BWD,), _BWD_HILO),
-    # attention forward (K1-K3): P into P V as a hi + lo bf16 pair
-    "fwd_p_hilo": (ATTN, _FWD_HILO),
-    # both of the above (K3's and K4/K5's P, and dS, as pairs)
-    "pds_hilo_all": ((ATTN[1], BWD), _FWD_HILO + _BWD_HILO),
-    # K6: the nibble -> bf16 arithmetic (the raw word goes to the products)
-    "k6_nodequant": ((K6,), [(f"{K6}.cu", _PACK, "    d[b] = w >> b;")]),
-    # K6: the scale multiplies only
-    "k6_nofmul": ((K6,), [(
-        f"{K6}.cu", _PACK, "    d[b] = pack_bf16x2(q[2 * b], q[2 * b + 1]);")]),
-    # K6: the tensor-core products (a cheap use of the operands instead)
-    "k6_nomma": ((K6,), [(
-        f"{K6}.cu",
-        "for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[j][nt], a, bf[nt]);",
-        "for (int nt = 0; nt < NT; ++nt) acc[j][nt][0] += "
-        "__uint_as_float(a[0] ^ bf[nt][0]);")]),
-    # K6: consumers release every stage unread (the copy pipeline alone)
-    "k6_noconsume": ((K6,), [(
-        f"{K6}.cu", "      const unsigned char* stg = sm + st * S::STAGE;\n"
-        "      float sc",
-        _SKIP.format("      const unsigned char* stg = sm + st * S::STAGE;\n"
-                     "      float sc"))]),
-    # K6: clusters of up to 16 blocks (non-portable)
-    "k6_c16": ((K6,), [(PLAN, "constexpr int kI4Cluster = 8;",
-                        "constexpr int kI4Cluster = 16;"),
-                       (f"{K6}.cu", "S::SMEM_MAX, false);",
-                        "S::SMEM_MAX, true);")]),
-    # K6: splits for two blocks per SM at every M
-    "k6_2per_sm": ((K6,), [(PLAN, "const int per_sm = M <= 8 ? 4 : 2;",
-                            "const int per_sm = 2;")]),
+    # K6 and K7 as they are, alone
+    "int4": ((K6,), []),
+    # K7: no scale loads (every scale 1)
+    "k7_noscale": ((K6,), [(_K7_CU, _K7_SCALES, "        sc[k][4 * i] = "
+                            "sc[k][4 * i + 1] = sc[k][4 * i + 2] = "
+                            "sc[k][4 * i + 3] = 1.f;")]),
+    # K7: no packed loads (the words made from the unit's offset): the
+    # stores' pattern alone
+    "k7_noload": ((K6,), [(_K7_CU, _K7_LOAD, """          for (int j = 0; j < WORDS; ++j)
+            p[i][k][j] = off * 2654435761u + i * 40503u + k + j;""")]),
+    # K7: no stores (the values still computed, fed to an empty asm)
+    "k7_nostore": ((K6,), [(_K7_CU, _K7_ST, '""')]),
+    # K7: one row's load in flight per warp (each load after the last
+    # row's stores)
+    "k7_oneload": ((K6,), [(_K7_CU, _K7_LOADS, """#pragma unroll
+      for (int i = 0; i < SUB; ++i)
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          uint32_t p[SUB][K][WORDS];
+""" + _K7_LOAD)]),
+    # K7: stores with evict-first priority in L2 (st.global.cs)
+    "k7_st_cs": ((K6,), [(_K7_CU, _K7_ST, _K7_ST.replace(
+        "st.global.", "st.global.cs."))]),
+    # K7: each row's halves by bulk copies from shared memory
+    "k7_bulk": ((K6,), _K7_BULK),
+    # K7: blocks of up to 32, 8 or 4 warps instead of 16
+    "k7_w32": ((K6,), [(PLAN, "constexpr int kUnpackWarps = 16;",
+                        "constexpr int kUnpackWarps = 32;")]),
+    "k7_w8": ((K6,), [(PLAN, "constexpr int kUnpackWarps = 16;",
+                       "constexpr int kUnpackWarps = 8;")]),
+    "k7_w4": ((K6,), [(PLAN, "constexpr int kUnpackWarps = 16;",
+                       "constexpr int kUnpackWarps = 4;")]),
+    # K7: each block its own contiguous run of units, its warps taking
+    # them in turn, instead of the grid sweeping them
+    "k7_band": ((K6,), [(PLAN, _K7_RUN, """  const int lo = static_cast<int>(
+      static_cast<long long>(units) * b / g.blocks);
+  r.begin = lo + w;
+  r.end = static_cast<int>(static_cast<long long>(units) * (b + 1)
+                           / g.blocks);
+  r.step = g.warps;""")]),
+    # K7: up to 16 warps a block whatever the rounds they leave
+    "k7_w16": ((K6,), [(PLAN, "  g.warps = (most + rounds - 1) / rounds;",
+                        "  g.warps = most < kUnpackWarps ? most : "
+                        "kUnpackWarps;")]),
+    # K7: 8-row units at the large layers too (scales read per 8 rows)
+    "k7_units8": ((K6,), [(PLAN, _K7_ROWS, "  g.rows = false ? 32")]),
+    # K7: 16 rows' loads in flight per lane at the large layers, not 8
+    "k7_sub16": ((K6,), [(_K7_CU, "int4_unpack_kernel<T, 32, 8>",
+                          "int4_unpack_kernel<T, 32, 16>")]),
+    # K7: no 2-row units at the small layers
+    "k7_no2": ((K6,), [(PLAN, "constexpr int kUnpackMinUnits = 4;",
+                        "constexpr int kUnpackMinUnits = 0;")]),
     # K8: consumers release every stage unread
     "k8_noconsume": ((K8,), [(
         f"{K8}.cu", "    if (jb < decode_boxes(nkeys, t) && first < 16) {",
@@ -380,9 +444,12 @@ def build_variant(name: str) -> dict:
 
 
 def use_variant(procs: dict) -> None:
-    """Wait for a variant's builds and make the wrappers launch it."""
+    """Wait for a variant's builds and make the wrappers launch it (a
+    variant named again is loaded again, its build kept)."""
     for lib, (proc, path) in procs.items():
-        out, _ = proc.communicate()
+        out = proc.stdout.read() if not proc.stdout.closed else ""
+        proc.wait()
+        proc.stdout.close()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {path}:\n{out}")
         print(f"{lib}: {chip_smoke.ptxas_summary(out)}", file=sys.stderr)
@@ -401,13 +468,17 @@ def use_variant(procs: dict) -> None:
         build._libs[lib] = cdll
 
 
-def cases(torch) -> dict:
+def cases(torch, libs) -> dict:
     """{case: (library, [calls], calls timed: 0 for the settled
-    yardstick)}: K1 at the SigLIP batches and the zoo's shapes, K2 at the
-    prefill buckets 768 and 2560 over a 4096-slot cache from position 300
-    (also at Gemma's head dim 256, with K3), K3, K4 and K5 at the train
+    yardstick)} of the libraries `libs`: K1 at the SigLIP batches and
+    the zoo's shapes, K2 at the prefill buckets 768 and 2560 over a
+    4096-slot cache from position 300 (also at Gemma's head dim 256,
+    with K3), K3, K4 and K5 at the train
     step's shape (also at Gemma's head dim 256); K6 at every int4
-    projection's decode shape and gate/up at 128 rows, K8 at 300 and 4096
+    projection's shape chip_smoke.py checks; K7 at every shape
+    it unpacks on the main paths (K7_SHAPES) beside a copy of its output's
+    size (the card's stream rate, graph-timed as K7 is) and a fill of it
+    (a write-only stream); K8 at 300 and 4096
     live keys of a 4096-slot cache (K8_ROWS: the main path's and the
     families' shapes, over their layers' caches), each over operand copies
     past 2.5x the 50 MB L2 cache."""
@@ -421,87 +492,111 @@ def cases(torch) -> dict:
         return torch.randn(shape, generator=g, device="cuda") \
             .to(torch.bfloat16)
     out = {}
-    # K1 at the SigLIP batches and the zoo's shapes, each over operand
-    # copies past the L2 cache
-    shapes = [(B, 729, 16, 72) for B in (1, 8, 16, 28, 32)] + [
-        s for s in chip_smoke.VIT_ZOO_SHAPES if s[1:] != (729, 16, 72)
-        or s[0] not in (1, 8, 16, 28, 32)]
-    for B, S, H, D in shapes:
-        ops = [tuple(rnd(B, S, H, D) for _ in range(3)) for _ in range(
-            chip_smoke._copies(4 * B * S * H * D * 2))]
-        out[f"K1 B={B} S={S} H={H} D={D}"] = ("vit_attention", [
-            lambda o=o: va.vit_attention(*o) for o in ops], 0)
-    kp = torch.arange(4096, device="cuda", dtype=torch.int32)[None]
-    # K2 (and at head dim 256 K3) on the 4096-slot cache from position 300:
-    # Qwen2-7B's 28/4 heads, Gemma's 8/1 at head dim 256, and at Sq 768
-    # the families' group sizes 1 (32/32) and 5 (40/8)
-    for hq, hkv, d, sqs in ((28, 4, 128, (768, 2560)),
-                            (8, 1, 256, (768, 2560)), (32, 32, 128, (768,)),
-                            (40, 8, 128, (768,))):
-        for sq in sqs:
-            q, k, v = rnd(1, sq, hq, d), rnd(1, hkv, 4096, d), \
-                rnd(1, hkv, 4096, d)
-            qp = (300 + torch.arange(sq, device="cuda",
-                                     dtype=torch.int32))[None]
-            tag = f" D={d}" if d != 128 else f" G={hq // hkv}" \
-                if hq != 28 else ""
-            out[f"K2{tag} Sq={sq}"] = ("flash_attention", [
-                lambda q=q, k=k, v=v, qp=qp: fa.flash_attention(
-                    q, k, v, qp, kp, kv_major=True)] * 10, 0)
-            if d == 256:
-                out[f"K3{tag} Sq={sq}"] = ("flash_attention", [
-                    lambda q=q, k=k, v=v, qp=qp: fa.flash_attention_lse(
+    if ATTN[0] in libs:
+        # K1 at the SigLIP batches and the zoo's shapes, each over operand
+        # copies past the L2 cache
+        shapes = [(B, 729, 16, 72) for B in (1, 8, 16, 28, 32)] + [
+            s for s in chip_smoke.VIT_ZOO_SHAPES if s[1:] != (729, 16, 72)
+            or s[0] not in (1, 8, 16, 28, 32)]
+        for B, S, H, D in shapes:
+            ops = [tuple(rnd(B, S, H, D) for _ in range(3)) for _ in range(
+                chip_smoke._copies(4 * B * S * H * D * 2))]
+            out[f"K1 B={B} S={S} H={H} D={D}"] = ("vit_attention", [
+                lambda o=o: va.vit_attention(*o) for o in ops], 0)
+    if ATTN[1] in libs:
+        kp = torch.arange(4096, device="cuda", dtype=torch.int32)[None]
+        # K2 (and at head dim 256 K3) on the 4096-slot cache from position
+        # 300: Qwen2-7B's 28/4 heads, Gemma's 8/1 at head dim 256, and at
+        # Sq 768 the families' group sizes 1 (32/32) and 5 (40/8)
+        for hq, hkv, d, sqs in ((28, 4, 128, (768, 2560)),
+                                (8, 1, 256, (768, 2560)),
+                                (32, 32, 128, (768,)),
+                                (40, 8, 128, (768,))):
+            for sq in sqs:
+                q, k, v = rnd(1, sq, hq, d), rnd(1, hkv, 4096, d), \
+                    rnd(1, hkv, 4096, d)
+                qp = (300 + torch.arange(sq, device="cuda",
+                                         dtype=torch.int32))[None]
+                tag = f" D={d}" if d != 128 else f" G={hq // hkv}" \
+                    if hq != 28 else ""
+                out[f"K2{tag} Sq={sq}"] = ("flash_attention", [
+                    lambda q=q, k=k, v=v, qp=qp: fa.flash_attention(
                         q, k, v, qp, kp, kv_major=True)] * 10, 0)
-    S, n = 4096, 3900
-    q, k, v = rnd(2, S, 28, 128), rnd(2, S, 4, 128), rnd(2, S, 4, 128)
-    pos = torch.arange(S, device="cuda", dtype=torch.int32)
-    qp = torch.where(pos < n, pos, 0)[None].repeat(2, 1).contiguous()
-    kp3 = torch.where(pos < n, pos, fa.INVALID_POS)[None].repeat(2, 1) \
-        .contiguous()
-    out["K3"] = ("flash_attention", [
-        lambda q=q, k=k, v=v, qp=qp: fa.flash_attention_lse(
-            q, k, v, qp, kp3)] * 10, 0)
-    o, lse = fa.flash_attention_lse(q, k, v, qp, kp3)
-    do = rnd(2, S, 28, 128)
-    bwd = (q, k, v, do, lse, fa._dsum(do, o), qp, kp3)
-    out["K4"] = (BWD, [lambda: fa.flash_bwd_dq(*bwd)], 10)
-    out["K5"] = (BWD, [lambda: fa.flash_bwd_dkv(*bwd)], 10)
-    # ... and at Gemma's (head dim 256, 8/1 heads)
-    q, k, v = rnd(2, S, 8, 256), rnd(2, S, 1, 256), rnd(2, S, 1, 256)
-    out["K3 D=256"] = ("flash_attention", [
-        lambda q=q, k=k, v=v, qp=qp: fa.flash_attention_lse(
-            q, k, v, qp, kp3)] * 10, 0)
-    o, lse = fa.flash_attention_lse(q, k, v, qp, kp3)
-    do = rnd(2, S, 8, 256)
-    bwd256 = (q, k, v, do, lse, fa._dsum(do, o), qp, kp3)
-    out["K4 D=256"] = (BWD, [lambda: fa.flash_bwd_dq(*bwd256)], 10)
-    out["K5 D=256"] = (BWD, [lambda: fa.flash_bwd_dkv(*bwd256)], 10)
-    for name, din, dout, M in (("qkv", 3584, 4608, 1), ("o", 3584, 3584, 1),
-                               ("gu", 3584, 37888, 1),
-                               ("down", 18944, 3584, 1),
-                               ("lm_head", 3584, 152064, 1),
-                               ("gu128", 3584, 37888, 128)):
-        n = max(1, -(-int(125e6) // (din * dout // 2 + din * dout // 16)))
-        ws = [(torch.randint(0, 256, (1, din // 2, dout), generator=g,
-                             device="cuda", dtype=torch.uint8),
-               torch.rand((1, din // 64, dout), generator=g, device="cuda")
-               * 0.01) for _ in range(n)]
-        x = rnd(M, din)
-        out[f"K6 {name}"] = (K6, [
-            lambda w=w, s=s, x=x: i4.int4_matmul(x, w, s, 0)
-            for w, s in ws], 24)
-    # K8 at the main path's shape (28/4 heads over 28 layers) and the
-    # families' (Gemma 8/1 at D = 256 over 18 layers, Qwen2-14B 40/8 over
-    # 28, Llama-2 32/32 over 12), each over its layers' caches in turn
-    for tag, Hq, Hkv, D, L, lens in K8_ROWS:
-        dq = rnd(L, 1, 1, Hq, D)
-        dk, dv = rnd(L, 1, Hkv, 4096, D), rnd(L, 1, Hkv, 4096, D)
-        for n in lens:
-            lens_t = torch.full((1,), n, dtype=torch.int32, device="cuda")
-            out[f"K8{tag} {n}"] = (K8, [
-                lambda i=i, q=dq, k=dk, v=dv, ln=lens_t:
-                da.decode_attention(q[i], k[i], v[i], ln)
-                for i in range(L)], 2 * L)
+                if d == 256:
+                    out[f"K3{tag} Sq={sq}"] = ("flash_attention", [
+                        lambda q=q, k=k, v=v, qp=qp: fa.flash_attention_lse(
+                            q, k, v, qp, kp, kv_major=True)] * 10, 0)
+    if ATTN[1] in libs or BWD in libs:
+        S, n = 4096, 3900
+        q, k, v = rnd(2, S, 28, 128), rnd(2, S, 4, 128), rnd(2, S, 4, 128)
+        pos = torch.arange(S, device="cuda", dtype=torch.int32)
+        qp = torch.where(pos < n, pos, 0)[None].repeat(2, 1).contiguous()
+        kp3 = torch.where(pos < n, pos, fa.INVALID_POS)[None].repeat(2, 1) \
+            .contiguous()
+        out["K3"] = ("flash_attention", [
+            lambda q=q, k=k, v=v, qp=qp: fa.flash_attention_lse(
+                q, k, v, qp, kp3)] * 10, 0)
+        o, lse = fa.flash_attention_lse(q, k, v, qp, kp3)
+        do = rnd(2, S, 28, 128)
+        bwd = (q, k, v, do, lse, fa._dsum(do, o), qp, kp3)
+        out["K4"] = (BWD, [lambda: fa.flash_bwd_dq(*bwd)], 10)
+        out["K5"] = (BWD, [lambda: fa.flash_bwd_dkv(*bwd)], 10)
+        # ... and at Gemma's (head dim 256, 8/1 heads)
+        q, k, v = rnd(2, S, 8, 256), rnd(2, S, 1, 256), rnd(2, S, 1, 256)
+        out["K3 D=256"] = ("flash_attention", [
+            lambda q=q, k=k, v=v, qp=qp: fa.flash_attention_lse(
+                q, k, v, qp, kp3)] * 10, 0)
+        o, lse = fa.flash_attention_lse(q, k, v, qp, kp3)
+        do = rnd(2, S, 8, 256)
+        bwd256 = (q, k, v, do, lse, fa._dsum(do, o), qp, kp3)
+        out["K4 D=256"] = (BWD, [lambda: fa.flash_bwd_dq(*bwd256)], 10)
+        out["K5 D=256"] = (BWD, [lambda: fa.flash_bwd_dkv(*bwd256)], 10)
+    if K6 in libs:
+        # K6 at every int4 projection's shape that chip_smoke.py checks:
+        # the 7B's at 1, 7 and 128 rows, Qwen2-14B's at one row
+        for name, din, dout, M in chip_smoke.INT4_SHAPES:
+            name = f"{name} M={M}" if M > 1 else name
+            n = max(1, -(-int(125e6) // (din * dout // 2
+                                         + din * dout // 16)))
+            ws = [(torch.randint(0, 256, (1, din // 2, dout), generator=g,
+                                 device="cuda", dtype=torch.uint8),
+                   torch.rand((1, din // 64, dout), generator=g,
+                              device="cuda") * 0.01) for _ in range(n)]
+            x = rnd(M, din)
+            out[f"K6 {name}"] = (K6, [
+                lambda w=w, s=s, x=x: i4.int4_matmul(x, w, s, 0)
+                for w, s in ws], 24)
+        # K7 over operand copies past the L2 cache, and a copy of its
+        # output's size over sources past it into one destination
+        for name, din, dout in K7_SHAPES:
+            n = chip_smoke._copies(din // 2 * dout * 5)
+            ws = [(torch.randint(0, 256, (1, din // 2, dout), generator=g,
+                                 device="cuda", dtype=torch.uint8),
+                   torch.rand((1, din // 64, dout), generator=g,
+                              device="cuda") * 0.01) for _ in range(n)]
+            out[f"K7 {name}"] = (K6, [
+                lambda w=w, s=s: i4.int4_dequant_split(w, s, 0)
+                for w, s in ws], 0)
+            srcs = [rnd(din, dout) for _ in range(
+                chip_smoke._copies(din * dout * 4))]
+            dst = torch.empty_like(srcs[0])
+            out[f"copy {name}"] = (K6, [lambda a=a, d=dst: d.copy_(a)
+                                        for a in srcs], 0)
+            # a write-only stream of the output's size
+            out[f"fill {name}"] = (K6, [lambda d=dst: d.fill_(1.0)], 0)
+    if K8 in libs:
+        # K8 at the main path's shape (28/4 heads over 28 layers) and the
+        # families' (Gemma 8/1 at D = 256 over 18 layers, Qwen2-14B 40/8 over
+        # 28, Llama-2 32/32 over 12), each over its layers' caches in turn
+        for tag, Hq, Hkv, D, L, lens in K8_ROWS:
+            dq = rnd(L, 1, 1, Hq, D)
+            dk, dv = rnd(L, 1, Hkv, 4096, D), rnd(L, 1, Hkv, 4096, D)
+            for n in lens:
+                lens_t = torch.full((1,), n, dtype=torch.int32, device="cuda")
+                out[f"K8{tag} {n}"] = (K8, [
+                    lambda i=i, q=dq, k=dk, v=dv, ln=lens_t:
+                    da.decode_attention(q[i], k[i], v[i], ln)
+                    for i in range(L)], 2 * L)
     return out
 
 
@@ -554,8 +649,8 @@ def main(argv) -> int:
     if unknown:
         print(f"ablate: unknown variants {unknown}", file=sys.stderr)
         return 2
-    builds = {n: build_variant(n) for n in names}
-    work = cases(torch)
+    builds = {n: build_variant(n) for n in dict.fromkeys(names)}
+    work = cases(torch, {lib for n in names for lib in VARIANTS[n][0]})
     print(torch.cuda.get_device_name(0), subprocess.run(
         ["nvidia-smi", "--query-gpu=power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip())

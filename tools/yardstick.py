@@ -8,11 +8,17 @@ library call, and by torch.profiler device time) without the rest of the
 script. Groups (default all):
   k1      K1 at the SigLIP batches the main paths send (1, 8, 16, 28, 32)
           and at chip_smoke.VIT_ZOO_SHAPES;
-  int4    K6 at every int4 projection's shape and K7 at its shapes;
+  int4    K6 at every int4 projection's shape and K7 at its shapes
+          (beside a copy of its output's size);
   anyres  K2 without a cache at anyres's two prefills (ANYRES_SQ);
   d256    K2 and K3 at head dim 256 (8/1 heads) over the 4096-slot cache
           at Sq 768 and 2560, and K3 (with K4/K5) at Gemma-2B's training
-          shape (B=2 S=4096, 3,900 valid).
+          shape (B=2 S=4096, 3,900 valid);
+  cross   the two int4 routes at 16-256 rows (CROSS_ROWS) of gate/up, o
+          and down (CROSS_SHAPES): K6 (up to 128 rows) against K7 plus
+          the f32-accumulating product (`int4_prefill_matmul`), each over
+          weight copies past the L2 cache, graph-timed (the place of
+          KERNEL_MAX_ROWS).
 Prints the card and one JSON line per record, and writes them all to
 chiprun_out/yardstick.json. With `--tree DIR` the kernels and wrappers
 are another checkout's (its `streamvln_tpu_torch/`, e.g. the parent
@@ -35,10 +41,40 @@ _spec = importlib.util.spec_from_file_location(
 chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
 
-GROUPS = ("k1", "int4", "anyres", "d256")
+GROUPS = ("k1", "int4", "anyres", "d256", "cross")
 SIGLIP_BATCHES = (1, 8, 16, 28, 32)
 # the uncached prefill lengths of chip_smoke's two anyres images
 ANYRES_SQ = (3032, 3046)
+CROSS_ROWS = (16, 32, 64, 128, 256)
+CROSS_SHAPES = (("gu", 3584, 37888), ("o", 3584, 3584),
+                ("down", 18944, 3584))
+
+
+def crossover(torch, i4, quant) -> list:
+    """K6 against K7 plus the product at CROSS_ROWS rows of CROSS_SHAPES:
+    graph-timed ms of each route per call (K6 only up to its 128 rows)."""
+    cs = chip_smoke
+    recs = []
+    for i, (name, din, dout) in enumerate(CROSS_SHAPES):
+        wp, s = cs.int4_weight(torch, quant, din, dout, 70 + i)
+        n = cs._copies(wp.numel() * 5)
+        ops = [(wp, s)] + [(wp.clone(), s.clone()) for _ in range(n - 1)]
+        for M in CROSS_ROWS:
+            g = torch.Generator(device="cuda").manual_seed(M)
+            x = torch.randn((M, din), generator=g, device="cuda") \
+                .to(torch.bfloat16)
+            what = f"{name} M={M} din={din} dout={dout}"
+            k7 = cs.graph_ms(torch, [
+                lambda a=a, b=b: i4.int4_prefill_matmul(x, a, b, 0)
+                for a, b in ops], 0.0, f"K7 + product {what}")
+            k6 = cs.graph_ms(torch, [
+                lambda a=a, b=b: i4.int4_matmul(x, a, b, 0)
+                for a, b in ops], 0.0, f"K6 {what}") \
+                if M <= i4.KERNEL_MAX_ROWS else {"ms": None}
+            recs.append({"shape": what, "M": M, "k6_ms": k6["ms"],
+                         "k7_product_ms": k7["ms"], "rotation": n})
+        del ops, wp, s
+    return recs
 
 
 def run(torch, group: str) -> list:
@@ -56,6 +92,8 @@ def run(torch, group: str) -> list:
     if group == "int4":
         k6, k7 = cs.check_int4(torch, i4, quant)
         return k6 + k7
+    if group == "cross":
+        return crossover(torch, i4, quant)
     if group == "anyres":
         return [cs.check_flash_uncached(torch, F, fa, s) for s in ANYRES_SQ]
     recs = [cs.check_flash(torch, F, fa, sq, Hq=8, Hkv=1, D=256, lse=lse,
