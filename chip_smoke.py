@@ -24,7 +24,8 @@ Phases (any failure exits non-zero before the result line):
      own offsets, an idle row that sees no key, INVALID_POS keys) (K1
      and K2 by device time, with their event time and host cost per
      call; K1 and SDPA also on the settled yardstick below, over operand
-     copies past the L2 cache; K1, K2 and K3 wherever checked: a second
+     copies past the L2 cache, and K2 at B=1 beside SDPA on the live
+     prefix (GRAPH_CALLS calls); K1, K2 and K3 wherever checked: a second
      call bit-equal, one kernel enqueued per call and two replays of a
      captured CUDA graph bit-equal to the eager call); K6
      (int4 dequant-matmul) at every int4 projection's decode shape, the
@@ -91,10 +92,11 @@ Phases (any failure exits non-zero before the result line):
      K5 (dK/dV) against their plain versions at the train step's shape
      (B=2, S=4096, 28/4 heads, D=128, bf16, 3,900 valid tokens, padded
      keys at INVALID_POS, one row that sees no key), each timed beside
-     its plain version and SDPA's forward / backward under autograd; dQ,
-     dK and dV bit-equal over two calls; the same at Gemma-2B's training
-     shape (8/1 heads, D=256: K4/K5's WIDE instance, K5 with its head
-     split);
+     its plain version and SDPA's forward / backward under autograd, K3
+     also on the settled yardstick beside causal SDPA over the valid
+     rows; dQ, dK and dV bit-equal over two calls; the same at Gemma-2B's
+     training shape (8/1 heads, D=256: K4/K5's WIDE instance, K5 with its
+     head split);
      (b) LoRA SFT of streamvln_7b on the phase-3 weights (rank 16 on the
      seven default targets): 3 optimizer steps of 2 micro-batches of two
      VLN windows (8 <memory> + 8 current 480x640 frames each, bucket
@@ -795,7 +797,7 @@ def check_vit(torch, F, va, B, rng_seed=0, S=729, H=16, D=72):
 
 
 def check_flash(torch, F, fa, Sq, offsets=(300,), cap=4096, seed=1,
-                Hq=28, Hkv=4, D=128, lse=False, graph=False):
+                Hq=28, Hkv=4, D=128, lse=False, graph=False, live=False):
     """K2 against its plain version: a prefill of Sq queries into a
     cap-slot KV-head-major cache, one batch row per entry of `offsets`
     (row b's queries at positions offsets[b] .. offsets[b] + Sq - 1); query
@@ -808,7 +810,9 @@ def check_flash(torch, F, fa, Sq, offsets=(300,), cap=4096, seed=1,
     call bit-equal, one kernel enqueued per call, and replays of a
     captured CUDA graph bit-equal to the eager call. With `graph`, the
     kernel and SDPA also on the settled yardstick (graph_ms over
-    GRAPH_CALLS calls)."""
+    GRAPH_CALLS calls). With `live`, the cache is cut to the slots some
+    query sees (the same output: the kernel skips the rest), so the gap
+    to the whole cache is the cost of the key tiles it does not visit."""
     B = len(offsets)
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((B, Sq, Hq, D), generator=g, device="cuda") \
@@ -824,6 +828,10 @@ def check_flash(torch, F, fa, Sq, offsets=(300,), cap=4096, seed=1,
     if B > 1:
         q_pos[-1] = -1                    # an idle row: no key at all
         k_pos[-2, 1000:] = fa.INVALID_POS
+    if live:
+        cap = min(int(q_pos.max().item()) + 1, cap)
+        k, v = k[:, :, :cap], v[:, :, :cap]
+        k_pos = k_pos[:, :cap].contiguous()
     kfn = fa.flash_attention_lse if lse else fa.flash_attention
 
     def kernel():
@@ -1280,11 +1288,14 @@ def grad_compare(out, ref, term) -> dict:
 
 
 def check_training_kernels(torch, F, fa, B=2, S=4096, n_valid=3900,
-                           Hq=28, Hkv=4, D=128, seed=3):
+                           Hq=28, Hkv=4, D=128, seed=3, graph=False):
     """Phase 4a: K3, K4 and K5 against their plain versions on the same
     inputs at the train step's attention shape, each timed beside its
     plain version and SDPA (forward for K3; its backward, which computes
-    dQ, dK and dV in one call, for K4 and K5)."""
+    dQ, dK and dV in one call, for K4 and K5). With `graph`, K3 also on
+    the settled yardstick (graph_ms over GRAPH_CALLS calls) beside causal
+    SDPA over the n_valid valid rows (the same causal work without the
+    padding)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rnd(*shape):
@@ -1408,6 +1419,20 @@ def check_training_kernels(torch, F, fa, B=2, S=4096, n_valid=3900,
         recs[name]["bit_equal"] = bit_equal
     # blocks per (64-key tile, batch x KV head) pair: the head split
     recs["flash_bwd_dkv"]["head_splits"] = fa.dkv_splits(B, S, Hq, Hkv, D)
+    if graph:
+        r = recs["flash_attention_lse"]
+        qv, kv, vv = (x[:, :n_valid].transpose(1, 2).contiguous()
+                      for x in (q, k, v))
+        graphs, text = graph_pair(
+            torch, [lambda: fa.flash_attention_lse(q, k, v, q_pos, k_pos)]
+            * GRAPH_CALLS, [lambda: F.scaled_dot_product_attention(
+                qv, kv, vv, is_causal=True, enable_gqa=True)] * GRAPH_CALLS,
+            r["bound_ms"], f"K3 at {shape}")
+        r.update(graphs, library_graph=f"causal F.scaled_dot_product_"
+                 f"attention over the {n_valid} valid rows")
+        log(f"4a flash_attention_lse {shape}: {text} (library: causal SDPA "
+            f"over the {n_valid} valid rows)")
+        del qv, kv, vv
     shares = [c_out["tol_share"], c_lse["tol_share"], c_dq["tol_share"],
               c_dk["tol_share"], c_dv["tol_share"]]
     if not (unseen_ok and bit_equal and all(x <= 1.0 for x in shares)):
@@ -6975,10 +7000,11 @@ def main() -> int:
     if bwd_log is not None and not registers_ok(bwd_log):
         raise AssertionError("the K4/K5 kernels spill registers or "
                              "serialize their wgmma")
-    # the head-dim-256 instances of K2/K3 and K8 (the families) and K1's
-    # DP=96 and DP=112 instances (the zoo's head dims 88 and 104) spill no
-    # register; ptxas's notes on serialized wgmma are printed
+    # the head-dim-256 and -128 instances of K2/K3 and K8 (the families)
+    # and K1's DP=96 and DP=112 instances (the zoo's head dims 88 and 104)
+    # spill no register; ptxas's notes on serialized wgmma are printed
     for name, label in (("flash_attention", "attention_fwd_kernel<256>"),
+                        ("flash_attention", "attention_fwd_kernel<128>"),
                         ("vit_attention", "attention_fwd_kernel<96>"),
                         ("vit_attention", "attention_fwd_kernel<112>"),
                         ("decode_attention",
@@ -6995,6 +7021,12 @@ def main() -> int:
         if not inst or not all(x.endswith(" 0 B spill") for x in inst):
             raise AssertionError(f"{label} spills registers or was not "
                                  f"built: {inst}")
+    # ... and the head-dim-128 instance's products run unserialized
+    text = build.build_logs.get("flash_attention", "")
+    if any("serialized" in line and "attention_fwd_kernelILi128E" in line
+           for line in text.splitlines()):
+        raise AssertionError("ptxas serializes the wgmma of "
+                             "attention_fwd_kernel<128>")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
@@ -7003,7 +7035,8 @@ def main() -> int:
     # history backfill of num_history frames (phase 5), the training tower
     vit = [check_vit(torch, F, va, B) for B in
            (1, streamvln_7b().num_history, TRAIN_TOWER_BATCH)]
-    flash = [check_flash(torch, F, fa, Sq) for Sq in (768, 2560)] + \
+    flash = [check_flash(torch, F, fa, Sq, graph=True)
+             for Sq in (768, 2560)] + \
         [check_flash(torch, F, fa, 768, offsets=WAVE_OFFSETS)]
     int4_recs, dequant_recs = check_int4(torch, i4, quant)
     decode_recs = check_decode(torch, F, da)
@@ -7114,7 +7147,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 4. training: the kernels at the train step's shape, then LoRA SFT
-    train_k = check_training_kernels(torch, F, fa)
+    train_k = check_training_kernels(torch, F, fa, graph=True)
     # ... and at Gemma-2B's (head dim 256, 8/1 heads), where K4/K5 share
     # the score products between their two warpgroups and K5 splits a KV
     # head's 8 query heads over several blocks

@@ -2,18 +2,23 @@
 // (flash_attention.cu), written for Hopper (sm_90a).
 //
 // A block owns a query tile of one (batch, query head) and has two
-// consumer warpgroups. Its first warpgroup is the producer: one warp
-// loads the Q tile once with TMA, then walks the key tiles (BN keys,
-// FwdShape) and keeps K and V tiles in flight into a ring of ST stages in
-// shared memory, each stage signalled by a "full" mbarrier (the TMA bytes
-// and one producer arrival) and released by an "empty" mbarrier (one
-// arrival per consumer warp). The producer also reads each tile's key
-// positions: it skips a tile whose smallest position exceeds the block's
-// largest query position (the exact skip rule; positions need not be
-// sorted), and marks a tile "full" when its largest position is <= the
-// block's smallest query position and it has no ragged tail, so that the
-// consumers apply no per-element mask to it. A stage with k0 = -1 ends
-// the walk.
+// consumer warpgroups. One warp loads the Q tile once with TMA, then walks
+// the key tiles (BN keys, FwdShape) and keeps K and V tiles in flight into
+// a ring of ST stages in shared memory, each stage signalled by a "full"
+// mbarrier (the TMA bytes and one arrival of the walking warp) and
+// released by an "empty" mbarrier (one arrival per consumer warp). Under
+// positions (K2, K3: one item per block) the consumers' eight warps first
+// write two masks of the key tiles (attention_plan.cuh): those the block
+// visits (a tile whose smallest position exceeds the block's largest
+// query position is skipped, the exact rule for positions in any order)
+// and the "full" ones (largest position <= the block's smallest query
+// position, no ragged tail: no per-element mask), all the item's key
+// positions in flight at once, while the producer loads Q and puts tile 0
+// into the ring where the item visits it. The walk then goes over the
+// visited tiles only, loading no position of a skipped tile or a full one
+// (a masked tile's positions go to its stage), and a stage with k0 = -1
+// ends it right after the last visited tile. The walking warp is the
+// producer, the first warp of a third warpgroup.
 //
 // A consumer warpgroup computes S = Q K^T with wgmma (both operands in
 // shared memory, K-major), runs the online softmax in registers in the
@@ -282,11 +287,10 @@ __device__ __forceinline__ void chunk_descs(uint64_t* d, uint32_t addr,
 // Issue S = Q K^T for 64 query rows over the 64-column chunks of the depth,
 // then the 32- and 16-column chunks (16-column steps): dq the Q tile's
 // descriptors at those rows, dk the K stage 0's, `so` the stage's byte
-// offset.
-template <int DP>
+// offset; S is the instance's FwdShape.
+template <typename S>
 __device__ __forceinline__ void issue_qk(float* s, const uint64_t* dq,
                                          const uint64_t* dk, uint32_t so) {
-  using S = FwdShape<DP>;
   const uint64_t k0 = desc_add(dk[0], so);
 #pragma unroll
   for (int c = 0; c < S::NW; ++c) {
@@ -308,10 +312,9 @@ __device__ __forceinline__ void issue_qk(float* s, const uint64_t* dq,
 // Issue O += P V over NCH 64-column chunks of V from dv[0] on, then its
 // 32- and 16-column chunks: P's 16-key step kk is the A fragment p[kk]; V
 // is read MN-major (transposed); `so` is the stage's byte offset.
-template <int DP, int NCH>
+template <typename S, int NCH>
 __device__ __forceinline__ void issue_pv(float* o, const uint32_t (*p)[4],
                                          const uint64_t* dv, uint32_t so) {
-  using S = FwdShape<DP>;
   const uint64_t v0 = desc_add(dv[0], so), v1 = desc_add(dv[1], so),
                  v2 = desc_add(dv[2], so);
 #pragma unroll
@@ -421,25 +424,91 @@ __device__ __forceinline__ void release(uint32_t bar, int lane) {
   if (lane == 0) mbar_arrive(bar);
 }
 
+// ---- the walk over an item's key tiles ------------------------------------
+
+// An item's query range and visited- and full-tile masks
+// (attention_plan.cuh): every calling warp finds the smallest and largest
+// position of the item's real query rows (the nq rows from qp); warp
+// `warp` of the nw calling warps takes its batches of U consecutive key
+// tiles (mask_batch) with all of a batch's position loads in flight
+// together (the first batch with the query positions), and sets the bits
+// of the tiles some query row sees and of those every row sees whole
+// (tile_bits), one atomic per mask a batch (mask_word, mask_place; the
+// masks are zero beforehand).
+template <int BM, int BN, int U>
+__device__ __forceinline__ void visit_masks(const int* qp, int nq,
+                                            const int* kpb, int sk, int n_kt,
+                                            uint32_t* vmask, uint32_t* fmask,
+                                            int warp, int nw, int lane,
+                                            int& qmin, int& qmax) {
+  static_assert(32 % U == 0, "a batch's bits share one mask word");
+  constexpr int PL = BN / 32, QL = BM / 32;
+  int v[U][PL];
+  auto load = [&](int t0) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long k0 = (long long)(t0 + u) * BN + lane;
+#pragma unroll
+      for (int i = 0; i < PL; ++i)   // keys past Sk do not exist
+        v[u][i] = k0 + 32 * i < sk ? kpb[k0 + 32 * i] : INT_MAX;
+    }
+  };
+  int t0 = mask_batch(0, warp, nw, U);
+  load(t0);
+  qmin = INT_MAX;
+  qmax = INT_MIN;
+#pragma unroll
+  for (int i = 0; i < QL; ++i) {
+    if (lane + 32 * i < nq) {
+      const int p = qp[lane + 32 * i];
+      qmin = min(qmin, p);
+      qmax = max(qmax, p);
+    }
+  }
+  qmin = __reduce_min_sync(0xffffffffu, qmin);
+  qmax = __reduce_max_sync(0xffffffffu, qmax);
+  for (int r = 0; t0 < n_kt; t0 = mask_batch(++r, warp, nw, U)) {
+    if (r > 0) load(t0);
+    uint32_t vb = 0, fb = 0;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      int mn = v[u][0], mx = v[u][0];
+#pragma unroll
+      for (int i = 1; i < PL; ++i) {
+        mn = min(mn, v[u][i]);
+        mx = max(mx, v[u][i]);
+      }
+      tile_bits(t0 + u, u, n_kt, BN, sk, __reduce_min_sync(0xffffffffu, mn),
+                __reduce_max_sync(0xffffffffu, mx), qmin, qmax, &vb, &fb);
+    }
+    if (lane == 0) {
+      if (vb) atomicOr(vmask + mask_word(t0), mask_place(vb, t0));
+      if (fb) atomicOr(fmask + mask_word(t0), mask_place(fb, t0));
+    }
+  }
+}
+
 // ---- the kernel ----------------------------------------------------------
 
 // Named barriers (0 is __syncthreads): the turn-taking (1, 2), the
-// split's merge rows written (3) and read (4).
-constexpr int kMergeFull = 3, kMergeEmpty = 4;
+// split's merge rows written (3) and read (4), the consumers' tile masks
+// built for the producer's walk (5).
+constexpr int kMergeFull = 3, kMergeEmpty = 4, kMaskBuilt = 5;
 
 // Block i walks the work items i, i + grid, ... (attention_plan.cuh: a
 // persistent grid for the vision tower, one item per block under
 // positions). With two Q buffers the producer loads the next item's Q and
 // first K/V tiles while the consumers finish the current item; the stage
 // ring runs on across items. SPLIT: K1's key split (64-row items).
-template <int DP, bool SPLIT>
-__global__ void __launch_bounds__(FwdShape<DP>::THREADS, 1)
+template <int DP, bool SPLIT, bool KT128>
+__global__ void __launch_bounds__(FwdShape<DP, KT128>::THREADS, 1)
 attention_fwd_kernel(__grid_constant__ const FwdMaps<DP> maps,
                      const FwdArgs a) {
-  using S = FwdShape<DP>;
+  using S = FwdShape<DP, KT128>;
   constexpr int BN = S::BN, NW = S::NW, ST = S::ST;
   constexpr bool WIDE = S::WIDE;
   constexpr int M32 = FwdMaps<DP>::M32, M16 = FwdMaps<DP>::M16;
+  constexpr int PL = BN / 32;   // key positions a lane reads per tile
 
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -448,6 +517,9 @@ attention_fwd_kernel(__grid_constant__ const FwdMaps<DP> maps,
   int* kpos_s = reinterpret_cast<int*>(sm + S::POS_OFF);
   int* meta_k0 = reinterpret_cast<int*>(sm + S::META_OFF);
   int* meta_full = meta_k0 + ST;
+  const int n_kt = (a.Sk + BN - 1) / BN;            // key tiles
+  uint32_t* vmask = reinterpret_cast<uint32_t*>(sm + S::MASK_OFF);
+  uint32_t* fmask = vmask + mask_words(n_kt);
   const uint32_t qfull0 = base + S::BAR_OFF;      // q_full[i] = qfull0 + 8 i
   const uint32_t qempty0 = qfull0 + 16;           // q_empty[i]
   const uint32_t full0 = qempty0 + 16;            // full[s] = full0 + 8 s
@@ -460,6 +532,7 @@ attention_fwd_kernel(__grid_constant__ const FwdMaps<DP> maps,
   const bool use_pos = a.q_pos != nullptr;
   const int group = a.Hq / a.Hkv;
   const int wg = threadIdx.x / 128;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i) {
@@ -472,122 +545,165 @@ attention_fwd_kernel(__grid_constant__ const FwdMaps<DP> maps,
     }
     mbar_init_fence();
   }
+  // under positions a block takes one item (plan_grid); its masks start
+  // empty
+  if (use_pos)
+    for (int i = threadIdx.x; i < 2 * mask_words(n_kt); i += S::THREADS)
+      vmask[i] = 0;
   __syncthreads();
+
+  // The producer warp's walk: stage n of an item is its n-th key tile
+  // (under positions its n-th visited tile, in order) and, after the last,
+  // an end stage (k0 = -1), issued into the ring once its slot is
+  // released. Under positions a tile that is not full (attention_plan.cuh)
+  // takes its key positions (keys past Sk as INVALID_POS) to its stage for
+  // the consumers' mask; they load while the stage before waits for its
+  // slot.
+  int w_stage = 0;
+  uint32_t w_phase = 0;
+  int w_tile = n_kt, w_b = 0, w_hk = 0;
+  int w_pos[PL];
+  bool w_end = true;
+  const int* w_kpb = nullptr;
+  auto load_tile = [&](int t) {
+    w_tile = t;
+    const bool need = use_pos && t < n_kt && !mask_bit(fmask, t);
+#pragma unroll
+    for (int i = 0; i < PL; ++i) {
+      const long long k = (long long)t * BN + lane + 32 * i;
+      w_pos[i] = !need ? 0 : k >= a.Sk ? kInvalidPos : w_kpb[k];
+    }
+  };
+  auto next_tile = [&](int t) {
+    return use_pos ? next_visited(vmask, n_kt, t) : min(t, n_kt);
+  };
+  // posts the stage of tile w_tile (the end stage past the last tile)
+  auto post = [&]() {
+    mbar_wait(empty0 + 8 * w_stage, w_phase ^ 1);
+    if (w_tile < n_kt) {
+      const int k0 = w_tile * BN;
+      const bool full = use_pos ? mask_bit(fmask, w_tile) : k0 + BN <= a.Sk;
+      if (use_pos && !full) {
+#pragma unroll
+        for (int i = 0; i < PL; ++i)
+          kpos_s[w_stage * BN + lane + 32 * i] = w_pos[i];
+      }
+      __syncwarp();
+      if (lane == 0) {
+        const uint32_t fb = full0 + 8 * w_stage;
+        const uint32_t ks = base + S::K_OFF + w_stage * S::KV_BYTES;
+        const uint32_t vs = base + S::V_OFF + w_stage * S::KV_BYTES;
+        meta_k0[w_stage] = k0;
+        meta_full[w_stage] = full;
+        mbar_arrive_tx(fb, 2 * S::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < NW; ++c) {
+          tma_load_4d(ks + c * BN * 128, &maps.k[0], fb, c * 64, k0, w_hk,
+                      w_b);
+          tma_load_4d(vs + c * BN * 128, &maps.v[0], fb, c * 64, k0, w_hk,
+                      w_b);
+        }
+        if constexpr (S::T32 != 0) {
+          tma_load_4d(ks + S::OFF32 * BN, &maps.k[M32], fb, NW * 64, k0,
+                      w_hk, w_b);
+          tma_load_4d(vs + S::OFF32 * BN, &maps.v[M32], fb, NW * 64, k0,
+                      w_hk, w_b);
+        }
+        if constexpr (S::T16 != 0) {
+          tma_load_4d(ks + S::OFF16 * BN, &maps.k[M16], fb,
+                      NW * 64 + S::T32, k0, w_hk, w_b);
+          tma_load_4d(vs + S::OFF16 * BN, &maps.v[M16], fb,
+                      NW * 64 + S::T32, k0, w_hk, w_b);
+        }
+      }
+    } else {
+      if (lane == 0) {
+        meta_k0[w_stage] = -1;
+        mbar_arrive(full0 + 8 * w_stage);
+      }
+      w_end = true;
+    }
+    if (++w_stage == ST) { w_stage = 0; w_phase ^= 1; }
+  };
+  // The walk of item (q0, b) from KV head hk. Under positions tile 0 goes
+  // into the ring before the consumers' masks are complete, where the
+  // item visits it (as every item whose rows see its keys does): this warp
+  // finds tile 0's bits by the masks' rules from the item's query
+  // positions and tile 0's key positions, loaded together, and sets its
+  // full bit itself (the consumers set the same bits).
+  auto walk_start = [&](int q0, int b, int hk) {
+    w_b = b;
+    w_hk = hk;
+    w_kpb = use_pos ? a.k_pos + (long long)b * a.Sk : nullptr;
+    w_end = false;
+    if (!use_pos) {
+      load_tile(next_tile(0));
+      return;
+    }
+    const int* qp = a.q_pos + (long long)b * a.Sq + q0;
+    int qmin = INT_MAX, qmax = INT_MIN, kmin = INT_MAX, kmax = INT_MIN;
+#pragma unroll
+    for (int i = 0; i < PL; ++i) {
+      const bool real = lane + 32 * i < a.Sk;
+      w_pos[i] = real ? w_kpb[lane + 32 * i] : kInvalidPos;
+      kmin = real ? min(kmin, w_pos[i]) : kmin;
+      kmax = real ? max(kmax, w_pos[i]) : kmax;
+    }
+#pragma unroll
+    for (int i = 0; i < BM / 32; ++i) {
+      if (lane + 32 * i < a.Sq - q0) {
+        qmin = min(qmin, qp[lane + 32 * i]);
+        qmax = max(qmax, qp[lane + 32 * i]);
+      }
+    }
+    uint32_t vb = 0, fb = 0;
+    tile_bits(0, 0, n_kt, BN, a.Sk, __reduce_min_sync(0xffffffffu, kmin),
+              __reduce_max_sync(0xffffffffu, kmax),
+              __reduce_min_sync(0xffffffffu, qmin),
+              __reduce_max_sync(0xffffffffu, qmax), &vb, &fb);
+    if (lane == 0 && fb) atomicOr(fmask, fb);
+    __syncwarp();
+    if (vb) {
+      w_tile = 0;
+      post();
+    }
+    named_sync(kMaskBuilt, S::NC * 128 + 32);   // consumers + this warp
+    load_tile(next_tile(vb));
+  };
 
   if (wg == 0) {
     // ---------------- producer ----------------
+    // under positions (one item per block) the walk starts once the
+    // consumers have built the item's masks
     setmaxnreg_dec<40>();
-    if (threadIdx.x < 32) {
-      const int lane = threadIdx.x;
-      constexpr int PL = BN / 32;   // key positions a lane reads per tile
-      const int n_kt = (a.Sk + BN - 1) / BN;
-      int stage = 0;
-      uint32_t phase = 0;
-      int li = 0;                    // this block's item count
-      for (int item = blockIdx.x; item < items; item += gridDim.x, ++li) {
-        const TileCoord tc = plan_tile(item, n_qt, hbn, use_pos);
-        const int q0 = tc.tile * BM;
-        const int h = tc.hb % a.Hq, b = tc.hb / a.Hq;
-        const int hk = h / group;
-        const int qb = li % S::QB, use = li / S::QB;   // buffer, its use
-        if (use > 0) mbar_wait(qempty0 + 8 * qb, (use - 1) & 1);
-        if (lane == 0) {
-          // the Q box has BM rows; each chunk region has room for S::BM
-          const uint32_t qf = qfull0 + 8 * qb;
-          const uint32_t qs = base + S::Q_OFF + qb * S::Q_BYTES;
-          mbar_arrive_tx(qf, BM * DP * 2);
+    if (warp != 0) return;
+    int li = 0;                      // this block's item count
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++li) {
+      const TileCoord tc = plan_tile(item, n_qt, hbn, use_pos);
+      const int q0 = tc.tile * BM;
+      const int h = tc.hb % a.Hq, b = tc.hb / a.Hq;
+      const int qb = li % S::QB, use = li / S::QB;   // buffer, its use
+      if (use > 0) mbar_wait(qempty0 + 8 * qb, (use - 1) & 1);
+      if (lane == 0) {
+        // the Q box has BM rows; each chunk region has room for S::BM
+        const uint32_t qf = qfull0 + 8 * qb;
+        const uint32_t qs = base + S::Q_OFF + qb * S::Q_BYTES;
+        mbar_arrive_tx(qf, BM * DP * 2);
 #pragma unroll
-          for (int c = 0; c < NW; ++c)
-            tma_load_4d(qs + c * S::BM * 128, &maps.q[0], qf, c * 64, q0, h,
-                        b);
-          if constexpr (S::T32 != 0)
-            tma_load_4d(qs + S::OFF32 * S::BM, &maps.q[M32], qf, NW * 64, q0,
-                        h, b);
-          if constexpr (S::T16 != 0)
-            tma_load_4d(qs + S::OFF16 * S::BM, &maps.q[M16], qf,
-                        NW * 64 + S::T32, q0, h, b);
-        }
-        // the tile's smallest and largest query position (real rows only)
-        int qmin = INT_MAX, qmax = INT_MIN;
-        if (use_pos) {
-          const int* qpb = a.q_pos + (long long)b * a.Sq;
-          for (int r = lane; r < BM; r += 32) {
-            if (q0 + r < a.Sq) {
-              const int p = qpb[q0 + r];
-              qmin = min(qmin, p);
-              qmax = max(qmax, p);
-            }
-          }
-          qmin = __reduce_min_sync(0xffffffffu, qmin);
-          qmax = __reduce_max_sync(0xffffffffu, qmax);
-        }
-        const int* kpb = use_pos ? a.k_pos + (long long)b * a.Sk : nullptr;
-        // this lane's key positions (keys lane + 32 i) of a tile; keys
-        // past Sk are invalid
-        auto key_pos = [&](int k) {
-          return k < a.Sk ? (use_pos ? kpb[k] : k) : kInvalidPos;
-        };
-        int pc[PL];
-#pragma unroll
-        for (int i = 0; i < PL; ++i) pc[i] = key_pos(lane + 32 * i);
-        for (int kt = 0; kt < n_kt; ++kt) {
-          const int k0 = kt * BN;
-          // the next tile's positions load while this one is handled
-          int pn[PL], pmin = INT_MAX, pmax = INT_MIN;
-#pragma unroll
-          for (int i = 0; i < PL; ++i) {
-            pn[i] = key_pos(k0 + BN + lane + 32 * i);
-            pmin = min(pmin, pc[i]);
-            pmax = max(pmax, pc[i]);
-          }
-          const int kmin = __reduce_min_sync(0xffffffffu, pmin);
-          const int kmax = __reduce_max_sync(0xffffffffu, pmax);
-          if (!use_pos || kmin <= qmax) {  // else no key is visible to any row
-            const bool full = k0 + BN <= a.Sk && (!use_pos || kmax <= qmin);
-            mbar_wait(empty0 + 8 * stage, phase ^ 1);
-#pragma unroll
-            for (int i = 0; i < PL; ++i)
-              kpos_s[stage * BN + lane + 32 * i] = pc[i];
-            __syncwarp();
-            if (lane == 0) {
-              const uint32_t fb = full0 + 8 * stage;
-              const uint32_t ks = base + S::K_OFF + stage * S::KV_BYTES;
-              const uint32_t vs = base + S::V_OFF + stage * S::KV_BYTES;
-              meta_k0[stage] = k0;
-              meta_full[stage] = full;
-              mbar_arrive_tx(fb, 2 * S::KV_BYTES);
-#pragma unroll
-              for (int c = 0; c < NW; ++c) {
-                tma_load_4d(ks + c * BN * 128, &maps.k[0], fb, c * 64, k0,
-                            hk, b);
-                tma_load_4d(vs + c * BN * 128, &maps.v[0], fb, c * 64, k0,
-                            hk, b);
-              }
-              if constexpr (S::T32 != 0) {
-                tma_load_4d(ks + S::OFF32 * BN, &maps.k[M32], fb, NW * 64, k0,
-                            hk, b);
-                tma_load_4d(vs + S::OFF32 * BN, &maps.v[M32], fb, NW * 64, k0,
-                            hk, b);
-              }
-              if constexpr (S::T16 != 0) {
-                tma_load_4d(ks + S::OFF16 * BN, &maps.k[M16], fb,
-                            NW * 64 + S::T32, k0, hk, b);
-                tma_load_4d(vs + S::OFF16 * BN, &maps.v[M16], fb,
-                            NW * 64 + S::T32, k0, hk, b);
-              }
-            }
-            if (++stage == ST) { stage = 0; phase ^= 1; }
-          }
-#pragma unroll
-          for (int i = 0; i < PL; ++i) pc[i] = pn[i];
-        }
-        // a stage with k0 = -1 ends the item
-        mbar_wait(empty0 + 8 * stage, phase ^ 1);
-        if (lane == 0) {
-          meta_k0[stage] = -1;
-          mbar_arrive(full0 + 8 * stage);
-        }
-        if (++stage == ST) { stage = 0; phase ^= 1; }
+        for (int c = 0; c < NW; ++c)
+          tma_load_4d(qs + c * S::BM * 128, &maps.q[0], qf, c * 64, q0, h,
+                      b);
+        if constexpr (S::T32 != 0)
+          tma_load_4d(qs + S::OFF32 * S::BM, &maps.q[M32], qf, NW * 64, q0,
+                      h, b);
+        if constexpr (S::T16 != 0)
+          tma_load_4d(qs + S::OFF16 * S::BM, &maps.q[M16], qf,
+                      NW * 64 + S::T32, q0, h, b);
+      }
+      walk_start(q0, b, h / group);
+      while (!w_end) {   // the next stage, then the next tile's positions
+        post();
+        if (!w_end) load_tile(next_tile(w_tile + 1));
       }
     }
   } else {
@@ -596,9 +712,20 @@ attention_fwd_kernel(__grid_constant__ const FwdMaps<DP> maps,
     // consumer index; where a branch on it guards a product (the split),
     // warp-uniform to the compiler (a shuffle from lane 0), as ptxas
     // serializes the products of a branch it takes for divergent
-    const int cw = SPLIT ? __shfl_sync(0xffffffffu, wg, 0) - 1 : wg - 1;
+    const int cw = (SPLIT ? __shfl_sync(0xffffffffu, wg, 0) : wg) - 1;
+    if (use_pos) {
+      // one item per block: the consumers' eight warps build its masks
+      // (their query and key position loads in flight together) while the
+      // producer loads Q and tile 0, then let the walk go on
+      const TileCoord tc = plan_tile(blockIdx.x, n_qt, hbn, true);
+      const int q0 = tc.tile * BM, b = tc.hb / a.Hq;
+      int qmin, qmax;
+      visit_masks<BM, BN, 8>(a.q_pos + (long long)b * a.Sq + q0, a.Sq - q0,
+                             a.k_pos + (long long)b * a.Sk, a.Sk, n_kt,
+                             vmask, fmask, warp - 4, 8, lane, qmin, qmax);
+      named_arrive(kMaskBuilt, S::NC * 128 + 32);
+    }
     const int t = threadIdx.x - 128 * wg;
-    const int lane = t & 31;
     const int quad = lane & 3;
     const bool capped = a.soft_cap > 0.f;
     const float sl2 = a.scale * kLog2e;           // plain: score -> log2
@@ -675,7 +802,7 @@ attention_fwd_kernel(__grid_constant__ const FwdMaps<DP> maps,
         // first tile: S_0 and its softmax (O is still zero)
         if (turns) named_sync(1 + cw, 256);
         wgmma_fence();
-        issue_qk<DP>(s, dq, dk, stage * S::KV_BYTES);
+        issue_qk<S>(s, dq, dk, stage * S::KV_BYTES);
         wgmma_commit();
         if (turns) named_arrive(2 - cw, 256);
         wgmma_wait<0>();
@@ -695,11 +822,11 @@ attention_fwd_kernel(__grid_constant__ const FwdMaps<DP> maps,
           if (k0 < 0) break;
           if (turns) named_sync(1 + cw, 256);
           wgmma_fence();
-          issue_qk<DP>(s, dq, dk, stage * S::KV_BYTES);
+          issue_qk<S>(s, dq, dk, stage * S::KV_BYTES);
           wgmma_commit();
           rescale<NO>(o, al0, al1);
           wgmma_fence();
-          issue_pv<DP, NCH>(o, p, dv, prev * S::KV_BYTES);
+          issue_pv<S, NCH>(o, p, dv, prev * S::KV_BYTES);
           wgmma_commit();
           if (turns) named_arrive(2 - cw, 256);
           wgmma_wait<1>();
@@ -724,7 +851,7 @@ attention_fwd_kernel(__grid_constant__ const FwdMaps<DP> maps,
       if (prev >= 0) {
         rescale<NO>(o, al0, al1);
         wgmma_fence();
-        issue_pv<DP, NCH>(o, p, dv, prev * S::KV_BYTES);
+        issue_pv<S, NCH>(o, p, dv, prev * S::KV_BYTES);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs<NO>(o);
@@ -811,43 +938,49 @@ inline int sm_count() {
   return n;
 }
 
-// One instance's launch: its shared-memory attribute is set and its
-// blocks per SM are asked once.
-template <int DP, bool SPLIT>
+// One instance's launch: its shared-memory limit (the SM's, as a launch
+// under positions adds the mask to S::SMEM) is set and its blocks per SM
+// are asked once.
+template <int DP, bool SPLIT, bool KT128>
 inline cudaError_t launch_forward(const FwdMaps<DP>& m, const FwdArgs& a,
                                   int bm, cudaStream_t stream) {
-  using S = FwdShape<DP>;
+  using S = FwdShape<DP, KT128>;
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        attention_fwd_kernel<DP, SPLIT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+        attention_fwd_kernel<DP, SPLIT, KT128>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
   static int per_sm = 0;
   if (per_sm == 0) {
     const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, attention_fwd_kernel<DP, SPLIT>, S::THREADS, S::SMEM);
+        &per_sm, attention_fwd_kernel<DP, SPLIT, KT128>, S::THREADS,
+        S::SMEM);
     if (e != cudaSuccess) return e;
     if (per_sm == 0) return cudaErrorInvalidConfiguration;
   }
   const long long items = (long long)((a.Sq + bm - 1) / bm) * a.Hq * a.B;
   if (items == 0) return cudaSuccess;
-  if (items > INT_MAX) return cudaErrorInvalidValue;
-  const int grid =
-      plan_grid((int)items, sm_count(), per_sm, a.q_pos != nullptr);
-  attention_fwd_kernel<DP, SPLIT><<<grid, S::THREADS, S::SMEM, stream>>>(m,
-                                                                         a);
+  const bool pos = a.q_pos != nullptr;
+  // a launch under positions is one item per block (the mask is the
+  // item's) and holds a mask bit per key tile
+  if (items > INT_MAX || (pos && a.Sk > S::MAX_KEYS))
+    return cudaErrorInvalidValue;
+  const int grid = plan_grid((int)items, sm_count(), per_sm, pos);
+  attention_fwd_kernel<DP, SPLIT, KT128>
+      <<<grid, S::THREADS, S::smem(a.Sk, pos), stream>>>(m, a);
   return cudaGetLastError();
 }
 
-// The forward at padded head dim DP. K1 (no positions, DP < 128) takes
-// the key split where plan_split says so (one block per SM: the shared
-// memory of every instance is over half of the SM's).
-template <int DP>
-inline cudaError_t attention_forward(const FwdArgs& a, cudaStream_t stream) {
-  using S = FwdShape<DP>;
+// The forward at padded head dim DP and key tiles FwdShape<DP, KT128>::BN.
+// K1 (no positions, DP < 128) takes the key split where plan_split says
+// so (one block per SM: the shared memory of every instance is over half
+// of the SM's).
+template <int DP, bool KT128>
+inline cudaError_t forward_instance(const FwdArgs& a, cudaStream_t stream) {
+  using S = FwdShape<DP, KT128>;
   static_assert(2 * S::SMEM > kSmemMax, "one block per SM");
   const bool split = a.q_pos == nullptr && DP < 128 &&
                      plan_split(a.Sq, a.Hq * a.B, sm_count());
@@ -867,9 +1000,19 @@ inline cudaError_t attention_forward(const FwdArgs& a, cudaStream_t stream) {
       return cudaErrorInvalidValue;
   }
   if constexpr (DP < 128) {
-    if (split) return launch_forward<DP, true>(m, a, bm, stream);
+    if (split) return launch_forward<DP, true, KT128>(m, a, bm, stream);
   }
-  return launch_forward<DP, false>(m, a, bm, stream);
+  return launch_forward<DP, false, KT128>(m, a, bm, stream);
+}
+
+// The forward at padded head dim DP: K3 at 128 (the training forward,
+// with its logsumexp) takes 128-key tiles (FwdShape).
+template <int DP>
+inline cudaError_t attention_forward(const FwdArgs& a, cudaStream_t stream) {
+  if constexpr (DP == 128) {
+    if (a.lse != nullptr) return forward_instance<DP, true>(a, stream);
+  }
+  return forward_instance<DP, false>(a, stream);
 }
 
 }  // namespace

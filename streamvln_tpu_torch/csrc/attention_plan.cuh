@@ -2,11 +2,16 @@
 // the forward (attention_fwd.cuh; query tile, batch x head) and of the
 // backward (flash_attention_bwd.cu; K4 takes the forward's, K5 key tile,
 // batch x KV head and, at head dim 256, a share of the query heads), the
-// forward's query rows per item (K1's key split) and grid size, and the
-// forward's tile geometry and shared-memory layout (FwdShape). Plain C++
-// with no CUDA types, so the host compiler can build it too
+// forward's query rows per item (K1's key split) and grid size, the
+// forward's tile geometry and shared-memory layout (FwdShape) and, under
+// positions, the key tiles a block visits (the skip rule, the "full" tile
+// rule and the walk over the visited-tile mask). Plain C++ with no CUDA
+// types, so the host compiler can build it too
 // (tests/test_torch_attention_plan.py).
 #pragma once
+
+#include <limits.h>
+#include <stdint.h>
 
 #ifdef __CUDACC__
 #define SVT_HD __host__ __device__ __forceinline__
@@ -19,13 +24,83 @@ namespace svt {
 constexpr int kConsumers = 2;          // consumer warpgroups per block
 constexpr int kSmemMax = 232448;       // dynamic shared memory of a block
 
-// The forward's tile geometry at padded head dim DP (attention_fwd.cuh).
+// ---- the key tiles a block visits under positions ----
+// Key j is visible to query i iff k_pos[j] <= q_pos[i]. A block whose real
+// query rows hold positions in [qmin, qmax] visits key tile t (the BN keys
+// from t * BN; none at or past Sk) iff the smallest position of its keys
+// is <= qmax: the exact skip rule, for positions in any order. A visited
+// tile is "full" (no per-element mask) when it holds BN keys and its
+// largest position is <= qmin, so that every row sees every key. The
+// kernels keep two masks of one bit per tile (bit t % 32 of word t / 32):
+// the visited tiles, then the full ones, built by all of a block's
+// consumer warps before the walk (attention_fwd.cuh::visit_masks), which
+// then loads no key position of a tile it skips or of a full one.
+
+SVT_HD int mask_words(int n_tiles) { return (n_tiles + 31) / 32; }
+
+SVT_HD bool mask_bit(const uint32_t* mask, int t) {
+  return (mask[t >> 5] >> (t & 31)) & 1u;
+}
+
+SVT_HD bool tile_visited(int kmin, int qmax) { return kmin <= qmax; }
+
+SVT_HD bool tile_full(int t, int bn, int sk, int kmax, int qmin) {
+  return (long long)(t + 1) * bn <= sk && kmax <= qmin;
+}
+
+// The mask builder's share of the tiles: warp w of the nw building warps
+// takes batches of u consecutive tiles (u divides 32), its r-th batch
+// starting at tile mask_batch(r, w, nw, u), a multiple of u, so that the
+// batch's bits share one mask word.
+SVT_HD int mask_batch(int r, int warp, int nw, int u) {
+  return (r * nw + warp) * u;
+}
+
+// Tile t = t0 + i of a batch from t0 (of n_tiles, with the smallest and
+// largest position of its keys) sets bit i of the batch's visited bits vb
+// and, where full, of its full bits fb.
+SVT_HD void tile_bits(int t, int i, int n_tiles, int bn, int sk, int kmin,
+                      int kmax, int qmin, int qmax, uint32_t* vb,
+                      uint32_t* fb) {
+  if (t < n_tiles && tile_visited(kmin, qmax)) {
+    *vb |= 1u << i;
+    if (tile_full(t, bn, sk, kmax, qmin)) *fb |= 1u << i;
+  }
+}
+
+// A batch's bits from tile t0 go into mask word mask_word(t0), shifted
+// as mask_place(bits, t0): bit i lands on tile t0 + i.
+SVT_HD int mask_word(int t0) { return t0 >> 5; }
+
+SVT_HD uint32_t mask_place(uint32_t bits, int t0) {
+  return bits << (t0 & 31);
+}
+
+// The first visited tile at or after tile t in a mask of n_tiles bits, or
+// n_tiles where none is left (the producer's walk).
+SVT_HD int next_visited(const uint32_t* mask, int n_tiles, int t) {
+  if (t >= n_tiles) return n_tiles;
+  int w = t >> 5;
+  uint32_t bits = mask[w] & (0xffffffffu << (t & 31));
+  while (bits == 0) {
+    if (++w >= mask_words(n_tiles)) return n_tiles;
+    bits = mask[w];
+  }
+#ifdef __CUDA_ARCH__
+  return (w << 5) + __ffs(bits) - 1;
+#else
+  return (w << 5) + __builtin_ctz(bits);
+#endif
+}
+
+// The forward's tile geometry at padded head dim DP (attention_fwd.cuh);
+// KT128: 128-key tiles at DP = 128 (K3, below).
 // A tile's head dim is kept as 64-column chunks (128-byte swizzle), then
 // a 32-column chunk (64-byte swizzle) and a 16-column chunk (32-byte
 // swizzle) where DP needs them: 80 = 64 + 16, 96 = 64 + 32, 112 = 64 + 32
 // + 16. A chunk of a tile of R rows holds R rows of its width; the
 // chunks follow one another, each on a 1024-byte boundary.
-template <int DP>
+template <int DP, bool KT128 = false>
 struct FwdShape {
   // WIDE (DP = 256): a 64-row O accumulator would be 128 f32 registers a
   // thread, so both consumer warpgroups take the same 64 query rows, each
@@ -34,8 +109,17 @@ struct FwdShape {
   static constexpr int NC = kConsumers;
   static constexpr int BM = WIDE ? 64 : 64 * NC;   // query rows per block
   // keys per tile: 128 where the stages fit (fewer pipeline round trips
-  // per key, wider S products), else 64
-  static constexpr int BN = DP <= 80 ? 128 : 64;
+  // per key, wider S products), else 64. At DP = 128 three stages of 64
+  // KB fit beside the Q tile, and the consumers hold S, O and P of a
+  // 128-key tile (64 + 64 f32 and 32 words a thread) within setmaxnreg's
+  // 232 registers: K3 (the training forward) takes them. K2 keeps 64-key
+  // tiles there, so that its outputs stay those of the 64-key online
+  // softmax (P rounded against the running max of every 64 keys): a
+  // serving check that holds speculative decoding to greedy call by call
+  // on random weights (chip_smoke.py phase 3e) failed on a three-way
+  // near tie when K2's prefill took 128-key tiles (PERF.md, PR 20)
+  static constexpr int BN = DP <= 80 || KT128 ? 128 : 64;
+  static_assert(!KT128 || DP == 128, "128-key tiles at DP = 128 only");
   static constexpr int NW = DP / 64;               // 64-column chunks
   static constexpr int T32 = DP % 64 >= 32 ? 32 : 0;
   static constexpr int T16 = DP % 32;
@@ -44,8 +128,9 @@ struct FwdShape {
   // bytes of a chunk's rows: columns 64 * c .. are at chunk(c) * rows
   static constexpr int OFF32 = NW * 128;            // x rows: the 32-col
   static constexpr int OFF16 = NW * 128 + T32 * 2;  // x rows: the 16-col
-  // stages: a consumer holds two at a time; three at DP = 256
-  static constexpr int ST = WIDE ? 3 : 4;
+  // stages: a consumer holds two at a time; three where a stage is 64 KB
+  // (DP = 256, and 128 keys at DP = 128)
+  static constexpr int ST = WIDE || BN * DP >= 128 * 128 ? 3 : 4;
   static constexpr int THREADS = 128 * (NC + 1);
   // O registers a consumer thread holds (a 64 x 64 chunk is 32)
   static constexpr int NO = (WIDE ? NW / 2 : NW) * 32 + T32 / 2 + T16 / 2;
@@ -65,8 +150,18 @@ struct FwdShape {
   static constexpr int POS_OFF = M_OFF + M_BYTES;
   static constexpr int META_OFF = POS_OFF + ST * BN * 4;
   static constexpr int BAR_OFF = META_OFF + ST * 8;     // 8-byte aligned
-  static constexpr int SMEM = BAR_OFF + (4 + 2 * ST) * 8 + 1024;  // + align
+  // under positions, the visited- and full-tile masks (one bit per key
+  // tile each) follow the barriers; their size depends on Sk (smem)
+  static constexpr int MASK_OFF = BAR_OFF + (4 + 2 * ST) * 8;
+  static constexpr int SMEM = MASK_OFF + 1024;          // + align
   static_assert(SMEM <= kSmemMax, "the block's shared memory fits the SM");
+  // a launch's dynamic shared memory: the mask's words under positions
+  static SVT_HD int smem(int sk, bool pos) {
+    return SMEM + (pos ? 8 * mask_words((sk + BN - 1) / BN) : 0);
+  }
+  // the most keys whose masks fit beside the ring
+  static constexpr long long MAX_KEYS =
+      (long long)(kSmemMax - SMEM) / 8 * 32 * BN;
 };
 
 // K1 (no positions, DP < 128): the query rows of a work item. 128 rows,

@@ -18,20 +18,26 @@
 // D=128, GQA 28/4; Gemma's D=256, 8/1) and in training (S=4096) that is
 // hundreds to thousands of FLOPs per byte, so the tensor cores bound it.
 // Head dims 64, 128 and 256. The design (attention_fwd.cuh): wgmma on
-// TMA-loaded, swizzled K/V tiles that a producer warp keeps in flight
-// behind mbarriers (loads overlap the products, V is read transposed by
-// the tensor cores), 128-row blocks of two consumer warpgroups that share
-// each K/V tile, no per-element mask on tiles wholly below the diagonal,
-// and the query tiles that see the most keys started first, so the short
-// tiles fill the last wave. At D = 256 (Gemma) a 64-row O is 128 f32
-// registers a thread, and a 384-thread block caps a thread at 168: WIDE
-// takes 64-row tiles on which both warpgroups compute the whole S and
-// softmax and each holds half of O's columns.
+// TMA-loaded, swizzled K/V tiles that one warp keeps in flight behind
+// mbarriers (loads overlap the products, V is read transposed by the
+// tensor cores), 128-row blocks of two consumer warpgroups that share
+// each K/V tile, masks of the key tiles a block visits and of the full
+// ones written before its walk by the consumers' eight warps (no position
+// of a skipped or full tile is loaded on the way, and the walk ends at
+// the last visited tile), no per-element mask on full tiles, and the
+// query tiles that see the most keys started first, so the short tiles
+// fill the last wave. At D = 128 K3 takes 128-key tiles (3 stages) and
+// K2 64-key ones (4; FwdShape says why). At D = 256 (Gemma)
+// a 64-row O is 128 f32 registers a thread, and a 384-thread block caps a
+// thread at 168: WIDE takes 64-row tiles on which both warpgroups compute
+// the whole S and softmax and each holds half of O's columns.
 //
 // C interface (ctypes): q/o are [B, Sq, Hq, D]; k/v are [B, Hkv, Sk, D]
 // (kv_major, the cache layout) or [B, Sk, Hkv, D], described by strides
 // in elements (multiples of 8); q_pos [B, Sq], k_pos [B, Sk] int32; lse
-// [B, Hq, Sq] f32.
+// [B, Hq, Sq] f32. Sk is at most the instance's FwdShape::MAX_KEYS (the
+// tile masks beside the ring: 208,896 for K3 at D = 128, 301,056 at 256);
+// more returns cudaErrorInvalidValue.
 #include "attention_fwd.cuh"
 
 static int flash_forward(

@@ -263,7 +263,13 @@ def flash_attention(q, k, v, q_positions=None, k_positions=None,
     With grad enabled and any of q/k/v requiring grad this is the training
     path (`_FlashAttentionFn`: K3 forward, K4/K5 backward); the soft cap
     has no backward there and raises, as in the JAX package. Otherwise it
-    is K2 (no residuals kept)."""
+    is K2 (no residuals kept).
+
+    At head dim 128 the two forwards round differently: K3 walks 128-key
+    tiles and K2 64-key tiles, so P is rounded to bf16 against running
+    maxima of different key spans. Both stay within the plain version's
+    tolerance, but a call under grad and one without (a policy's forward
+    and its no-grad rollout) are not bit-equal on the same inputs."""
     global launches
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         if logits_soft_cap is not None:

@@ -12,9 +12,11 @@ forward is one replay followed by one read of the loop's `more` flag.
 Capture: a warm-up run of the step on a side stream, on a copy of the
 loop state with every row done (it writes nothing: done rows write back
 what the cache and the shadow hold and keep their lengths), then
-`torch.cuda.graph` over static copies of the state. A sampling step's
-generator is registered with the graph, so each replay draws what the
-eager step would draw from the generator's current seed and offset.
+`torch.cuda.graph` over static copies of the state, with the garbage
+collector off (a collection inside the capture can free another graph).
+A sampling step's generator is registered with the graph, so each replay
+draws what the eager step would draw from the generator's current seed
+and offset.
 
 A graph reads through the addresses it captured. Before each replay the
 storage of every tensor the step reads (the cache's k, v and length, the
@@ -30,6 +32,7 @@ adds that much per replay; the warm-up's launches run and stay counted.
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Dict, Optional
 
@@ -81,9 +84,20 @@ class StepGraph:
             self.graph.register_generator_state(generator)
         # only this thread's calls are held out of the capture: another
         # thread (the trainer's prefetch worker, uploading the next batch
-        # while the mid-training evaluation captures) may use the CUDA API
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            self.outputs = fn(self.state)
+        # while the mid-training evaluation captures) may use the CUDA API.
+        # No garbage collection runs while capturing: one would free the
+        # CUDA graphs of dropped engines left in reference cycles, on this
+        # thread, and that invalidates the capture (the next launch then
+        # returns cudaErrorStreamCaptureInvalidated)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
+                self.outputs = fn(self.state)
+        finally:
+            if collecting:
+                gc.enable()
         self.per_replay = [a - b for a, b in zip(_counts(), base)]
         _add([-d for d in self.per_replay])
         torch.cuda.synchronize()

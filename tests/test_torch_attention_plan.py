@@ -2,10 +2,13 @@
 (`streamvln_tpu_torch/csrc/attention_plan.cuh`): the order of the work
 items of the forward and of the backward's dK/dV kernel (K5), K5's split
 of a KV head's query heads at head dim 256, the forward's grid size, K1's
-query rows per item (the key split) and the forward's tile geometry and
-shared-memory layout at every padded head dim. The header is plain
-C++; the host compiler builds it here behind a small C shim, so these tests
-run the very functions the kernels' launcher and blocks call.
+query rows per item (the key split), the forward's tile geometry and
+shared-memory layout at every padded head dim, and the key tiles a block
+of the forward visits under positions (the skip and full-tile rules, the
+mask builder's batches, words and bits, and the walk over the masks). The
+header is plain C++; the host compiler builds it here behind a small C
+shim, so these tests run the very functions the kernels' launcher and
+blocks call.
 """
 import ctypes
 import os
@@ -46,19 +49,61 @@ void key_item(int item, int hb, int group, int splits, int* out) {
 int split(int S, int hb, int slots) {
   return svt::plan_split(S, hb, slots);
 }
+int mask_batch(int r, int warp, int nw, int u) {
+  return svt::mask_batch(r, warp, nw, u);
 }
-template <int DP>
+int mask_word(int t0) { return svt::mask_word(t0); }
+uint32_t mask_place(uint32_t bits, int t0) {
+  return svt::mask_place(bits, t0);
+}
+// One block's masks as attention_fwd.cuh::visit_masks builds them (nw
+// warps, batches of u tiles, each tile's smallest and largest key position
+// where the kernel reduces them over a warp), then the producer's walk
+// over them: the visited tiles in order into `list`, their full flags into
+// `full`; returns their count. `mask` has 2 mask_words(tiles) words.
+int visits(const int* kpos, int sk, int bn, int qmin, int qmax, int nw,
+           int u, uint32_t* mask, int* list, int* full) {
+  const int n = (sk + bn - 1) / bn, words = svt::mask_words(n);
+  for (int w = 0; w < 2 * words; ++w) mask[w] = 0;
+  for (int w = 0; w < nw; ++w)
+    for (int r = 0, t0 = 0; (t0 = svt::mask_batch(r, w, nw, u)) < n; ++r) {
+      uint32_t vb = 0, fb = 0;
+      for (int i = 0; i < u; ++i) {
+        int lo = INT_MAX, hi = INT_MIN;   // keys past Sk do not exist
+        for (long long k = (long long)(t0 + i) * bn;
+             k < sk && k < (long long)(t0 + i + 1) * bn; ++k) {
+          lo = kpos[k] < lo ? kpos[k] : lo;
+          hi = kpos[k] > hi ? kpos[k] : hi;
+        }
+        svt::tile_bits(t0 + i, i, n, bn, sk, lo, hi, qmin, qmax, &vb, &fb);
+      }
+      mask[svt::mask_word(t0)] |= svt::mask_place(vb, t0);
+      mask[words + svt::mask_word(t0)] |= svt::mask_place(fb, t0);
+    }
+  int c = 0;
+  for (int t = svt::next_visited(mask, n, 0); t < n;
+       t = svt::next_visited(mask, n, t + 1)) {
+    list[c] = t;
+    full[c++] = svt::mask_bit(mask + words, t);
+  }
+  return c;
+}
+}
+template <int DP, bool KT128 = false>
 static void fill_shape(int* out) {
-  using S = svt::FwdShape<DP>;
+  using S = svt::FwdShape<DP, KT128>;
   const int v[] = {S::SMEM, S::BM, S::BN, S::NW, S::T32, S::T16, S::ST,
                    S::NO, S::Q_BYTES, S::KV_BYTES, S::QB, S::Q_OFF,
                    S::K_OFF, S::V_OFF, S::M_OFF, S::M_BYTES, S::POS_OFF,
                    S::WIDE, S::OFF32, S::OFF16, S::THREADS,
-                   S::BAR_OFF};
+                   S::BAR_OFF, S::MASK_OFF,
+                   S::smem(4096, true), S::smem(32768, true),
+                   S::smem(4096, false), (int)S::MAX_KEYS};
   for (int i = 0; i < (int)(sizeof(v) / sizeof(v[0])); ++i) out[i] = v[i];
 }
 extern "C" int fwd_shape(int dp, int* out) {
   switch (dp) {
+    case 129: fill_shape<128, true>(out); return 0;   // K3's 128-key tiles
     case 64: fill_shape<64>(out); return 0;
     case 80: fill_shape<80>(out); return 0;
     case 96: fill_shape<96>(out); return 0;
@@ -72,7 +117,8 @@ extern "C" int fwd_shape(int dp, int* out) {
 SHAPE_KEYS = ("SMEM", "BM", "BN", "NW", "T32", "T16", "ST", "NO", "Q_BYTES",
               "KV_BYTES", "QB", "Q_OFF", "K_OFF", "V_OFF", "M_OFF",
               "M_BYTES", "POS_OFF", "WIDE", "OFF32", "OFF16",
-              "THREADS", "BAR_OFF")
+              "THREADS", "BAR_OFF", "MASK_OFF", "SMEM_4096",
+              "SMEM_32768", "SMEM_NOPOS", "MAX_KEYS")
 # the block's dynamic shared memory on the H100 (227 KB)
 SMEM_MAX = 232448
 # K1's head dims and the instance each runs (csrc/vit_attention.cu)
@@ -290,6 +336,13 @@ def test_forward_layout_fits_the_sm(plan, dp):
         assert s[off] % 1024 == 0
     assert s["THREADS"] == 384
     assert s["SMEM"] == s["BAR_OFF"] + (4 + 2 * s["ST"]) * 8 + 1024
+    assert s["MASK_OFF"] == s["BAR_OFF"] + (4 + 2 * s["ST"]) * 8
+    # under positions the two masks' words (one bit per key tile each:
+    # visited, full) follow
+    assert s["SMEM_NOPOS"] == s["SMEM"]
+    for sk in (4096, 32768):
+        words = -(-(-(-sk // s["BN"])) // 32)
+        assert s[f"SMEM_{sk}"] == s["SMEM"] + 8 * words <= SMEM_MAX
     if dp < 128:
         assert s["M_BYTES"] == s["NO"] * 128 * 4 + 128 * 16
     else:
@@ -374,3 +427,166 @@ def test_k1_grid_fills_the_card_where_no_round_is_added(plan, B, S, H,
     n64, n128 = -(-S // 64) * hb, -(-S // 128) * hb
     # the grid is the most blocks a plan can have in one round
     assert grid == (n64 if n64 <= H100_SMS else min(n128, H100_SMS))
+
+
+def test_forward_at_head_dim_128_fits_its_masks(plan):
+    """DP = 128 (Qwen2 and most families): 128-row blocks of a producer
+    and two consumer warpgroups; K3 (the training forward) takes 128-key
+    tiles in three stages of 64 KB beside the 32 KB Q tile (a fourth would
+    not fit), K2 64-key tiles in four of 32 KB; both leave room for the
+    visited- and full-tile masks far past the 32k step's 32,768 keys."""
+    for dp, bn, st in ((128, 64, 4), (129, 128, 3)):
+        s = _shape(plan, dp)
+        assert s["WIDE"] == 0 and s["THREADS"] == 384
+        assert s["BM"] == 128 and s["BN"] == bn and s["ST"] == st
+        assert s["QB"] == 1 and s["Q_BYTES"] == 32768
+        assert s["KV_BYTES"] == bn * 256 and s["NO"] == 64
+        assert s["SMEM"] <= SMEM_MAX
+        words = -(-(32768 // bn) // 32)
+        assert s["SMEM_32768"] == s["SMEM"] + 8 * words <= SMEM_MAX
+        assert s["MAX_KEYS"] >= 200_000
+        assert SMEM_MAX - 8 < s["SMEM"] + 8 * (s["MAX_KEYS"] // bn // 32) \
+            <= SMEM_MAX
+    k3 = _shape(plan, 129)
+    assert k3["SMEM"] + 2 * k3["KV_BYTES"] > SMEM_MAX
+
+
+# the kernels' mask builder: the consumers' eight warps, 8-tile batches
+MASK_WARPS, MASK_BATCH = 8, 8
+
+
+def _visits(plan, kpos, bn, qmin, qmax):
+    """The visited tiles and full flags of one block, from its masks as the
+    kernels build them (the shim's `visits`)."""
+    import numpy as np
+    sk = len(kpos)
+    n = -(-sk // bn)
+    kp = np.ascontiguousarray(kpos, np.int32)
+    mask = (ctypes.c_uint32 * max(1, 2 * -(-n // 32)))()
+    lst, full = (ctypes.c_int * max(1, n))(), (ctypes.c_int * max(1, n))()
+    c = plan.visits(kp.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), sk, bn,
+                    qmin, qmax, MASK_WARPS, MASK_BATCH, mask, lst, full)
+    return list(lst[:c]), list(full[:c])
+
+
+def _enumerate(kpos, bn, qmin, qmax):
+    """The same by plain enumeration: tile t (bn keys from t * bn, none past
+    Sk) is visited iff its smallest position is <= qmax, full iff it
+    holds bn keys and its largest is <= qmin."""
+    sk, lst, full = len(kpos), [], []
+    for t in range(-(-sk // bn)):
+        keys = kpos[t * bn:(t + 1) * bn]
+        if min(keys) <= qmax:
+            lst.append(t)
+            full.append(int(len(keys) == bn and max(keys) <= qmin))
+    return lst, full
+
+
+INVALID = 1 << 30
+WAVE_OFFSETS = (0, 765, 772, 0, 1536, 3000, 300, 0)
+
+
+def _rows(case):
+    """(q_pos rows, k_pos rows) of a main-path case, as numpy int32."""
+    import numpy as np
+    ar = np.arange
+    if case in ("prefill300", "prefill1900", "prefill2560"):
+        off, sq = {"prefill300": (300, 768), "prefill1900": (1900, 768),
+                   "prefill2560": (300, 2560)}[case]
+        q = (off + ar(sq))[None].astype(np.int32)
+        q[0, 7] = -1                           # a query that sees no key
+        return q, ar(4096, dtype=np.int32)[None]
+    if case == "wave":
+        # the B=8 wave: rows at their offsets, an idle row (the last) and
+        # keys from slot 1000 on INVALID_POS (the one before it)
+        q = (np.asarray(WAVE_OFFSETS)[:, None] + ar(768)[None]) \
+            .astype(np.int32)
+        q[0, 7] = -1
+        q[-1] = -1
+        k = np.tile(ar(4096, dtype=np.int32), (8, 1))
+        k[-2, 1000:] = INVALID
+        return q, k
+    if case in ("anyres3032", "anyres3046"):
+        n = int(case[6:])
+        return ar(n, dtype=np.int32)[None], ar(n, dtype=np.int32)[None]
+    if case in ("train", "long"):
+        S, nv = (4096, 3900) if case == "train" else (32768, 32000)
+        p = ar(S, dtype=np.int32)
+        q = np.where(p < nv, p, 0)[None].repeat(2 if case == "train" else 1,
+                                                0)
+        q[-1, 7] = -1
+        k = np.where(p < nv, p, INVALID)[None].repeat(q.shape[0], 0)
+        return q.astype(np.int32), k.astype(np.int32)
+    if case == "ragged":
+        # Sq = 700 from position 300 over Sk = 1500 slots, a padded tail
+        q = (300 + ar(700))[None].astype(np.int32)
+        k = ar(1500, dtype=np.int32)[None]
+        k[:, 1040:] = INVALID
+        return q, k
+    # unsorted: positions shuffled on both sides, ragged lengths
+    rng = np.random.default_rng(7)
+    k = rng.permutation(1000).astype(np.int32)[None]
+    k[0, rng.choice(1000, 50, replace=False)] = INVALID
+    q = rng.integers(-5, 1200, (1, 333)).astype(np.int32)
+    return q, k
+
+
+@pytest.mark.parametrize("case", [
+    "prefill300", "prefill1900", "prefill2560", "wave", "anyres3032",
+    "anyres3046", "train", "long", "ragged", "unsorted"])
+@pytest.mark.parametrize("bm,bn", [(128, 128), (128, 64), (64, 64)])
+def test_visited_tiles_match_enumeration(plan, case, bm, bn):
+    """The key tiles a block visits and their full flags, from the masks
+    built with the kernels' batch, word and bit arithmetic (eight warps of
+    8-tile batches, tile_bits) and walked with next_visited, against a
+    plain enumeration of
+    kmin <= qmax over the key tiles, for every query tile of the main
+    paths' rows: the 7B prefill at offsets 300 and 1900 of the 4096-slot
+    cache, the B=8 wave (an idle row, an INVALID_POS tail), anyres's 3032
+    and 3046, training at 3,900 of 4096 and 32,000 of 32768 (every 16th
+    query tile and the last), Sq and Sk not multiples of 64, and unsorted
+    positions; 128-row blocks of 128-key tiles (head dim 64, and K3 at
+    128) and of 64-key tiles (K2 at 128), and 64-row blocks of 64-key
+    tiles (head dim 256)."""
+    q, k = _rows(case)
+    sq = q.shape[1]
+    tiles = range(-(-sq // bm))
+    if case == "long":
+        tiles = sorted(set(tiles[::16]) | {tiles[-1]})
+    for b in range(q.shape[0]):
+        kpos = k[min(b, k.shape[0] - 1)]
+        kl = kpos.tolist()
+        for t in tiles:
+            rows = q[b, t * bm:(t + 1) * bm]
+            qmin, qmax = int(rows.min()), int(rows.max())
+            got = _visits(plan, kpos, bn, qmin, qmax)
+            assert got == _enumerate(kl, bn, qmin, qmax), (case, b, t)
+    # the walk is the visible prefix: nothing after the last visited tile
+    if case == "prefill300":
+        got, _ = _visits(plan, k[0], bn, int(q[0].min()), int(q[0].max()))
+        assert got == list(range(-(-1068 // bn)))
+
+
+@pytest.mark.parametrize("n_tiles", [1, 33, 48, 64, 100, 256, 512, 4096])
+def test_mask_batches_set_every_tile_once(plan, n_tiles):
+    """The mask builder's share of the key tiles (mask_batch, mask_word,
+    mask_place), as the kernels' eight warps of 8-tile batches take them:
+    every tile is taken by one warp in one batch, and its bit lands in word
+    t / 32 at bit t % 32 (64 key tiles: the 4096-slot cache; 48: anyres;
+    256 and 512: the 32k step at 128- and 64-key tiles; 4096: 262,144
+    keys)."""
+    plan.mask_place.restype = ctypes.c_uint32
+    taken = [0] * n_tiles
+    for w in range(MASK_WARPS):
+        r = 0
+        while (t0 := plan.mask_batch(r, w, MASK_WARPS, MASK_BATCH)) < n_tiles:
+            assert t0 % MASK_BATCH == 0
+            word = plan.mask_word(t0)
+            for i in range(MASK_BATCH):
+                t = t0 + i
+                if t < n_tiles:
+                    taken[t] += 1
+                    assert word == t // 32
+                    assert plan.mask_place(1 << i, t0) == 1 << (t % 32)
+            r += 1
+    assert taken == [1] * n_tiles

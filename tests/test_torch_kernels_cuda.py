@@ -161,6 +161,104 @@ def test_flash_kernel_tiling_edges(dev, off, kv_major, soft_cap, fused_q):
         logits_soft_cap=soft_cap))
 
 
+def _d128_case(case, dev):
+    """q, k, v (kv_major or not), q_pos, k_pos of a head-dim-128 case at
+    the forward's plan edges (Qwen2-7B's 28/4 heads)."""
+    rng = np.random.default_rng(21)
+    Hq, Hkv, D = 28, 4, 128
+    ar = np.arange
+    kv_major = case in ("ragged", "wave", "sk_small")
+    if case == "ragged":
+        # Sq = 700 from position 300 over 1500 slots (neither a multiple of
+        # 64), keys from 1040 on INVALID_POS, row 5 sees no key
+        q_pos = (300 + ar(700))[None]
+        q_pos[0, 5] = -1
+        k_pos = ar(1500)[None].copy()
+        k_pos[:, 1040:] = fa.INVALID_POS
+    elif case == "unsorted":
+        # shuffled positions on both sides, some keys INVALID_POS, queries
+        # from -5 (no key) past the largest key
+        k_pos = np.stack([rng.permutation(1000) for _ in range(2)])
+        k_pos[:, rng.choice(1000, 60, replace=False)] = fa.INVALID_POS
+        q_pos = rng.integers(-5, 1200, (2, 333))
+    elif case == "wave":
+        # a batched wave over the 4096-slot cache: rows at their offsets,
+        # a row whose keys from slot 1000 on are INVALID_POS, an idle row
+        # (no query sees a key)
+        q_pos = np.asarray([0, 765, 3000, 0])[:, None] + ar(768)[None]
+        q_pos[0, 7] = -1
+        q_pos[-1] = -1
+        k_pos = np.tile(ar(4096), (4, 1))
+        k_pos[-2, 1000:] = fa.INVALID_POS
+    elif case == "train":
+        # the training layout at 1,000 valid of 1,100, row 3 of batch 1
+        # sees no key
+        q_pos, k_pos = (x.cpu().numpy() for x in _train_positions(
+            2, 1100, 1100, 1000, "cpu"))
+    elif case == "nokey":
+        # every query before every key
+        q_pos = np.full((1, 200), -1)
+        k_pos = ar(300)[None]
+    else:
+        # one whole and one ragged key tile (Sk = 190), 130 queries
+        q_pos = (60 + ar(130))[None]
+        k_pos = ar(190)[None]
+    B, Sq, Sk = q_pos.shape[0], q_pos.shape[1], k_pos.shape[1]
+    q = _rand(rng, (B, Sq, Hq, D), dev)
+    kshape = (B, Hkv, Sk, D) if kv_major else (B, Sk, Hkv, D)
+    k, v = _rand(rng, kshape, dev), _rand(rng, kshape, dev)
+    q_pos, k_pos = (torch.from_numpy(np.ascontiguousarray(x, np.int32))
+                    .to(dev) for x in (q_pos, k_pos))
+    return q, k, v, q_pos, k_pos, kv_major
+
+
+# K2 and K3 at head dim 128 (K2 on 64-key tiles, K3 on 128-key tiles,
+# both with the producer warpgroup and the visited- and full-tile masks)
+# at the plan's edges: ragged Sq and
+# Sk, unsorted positions, INVALID_POS keys, rows and a whole batch row
+# that see no key, a query tile none of whose rows sees a key, one whole
+# and one ragged key tile. Each within the tolerance of its plain version
+# (K3's LSE within 1e-4 + 1e-5 |ref|, -1e30 exactly where no key is
+# seen), a second call bit-equal, one kernel enqueued per call and
+# replays of a captured graph bit-equal to the eager call.
+@pytest.mark.parametrize("lse", [False, True], ids=["K2", "K3"])
+@pytest.mark.parametrize("case", ["ragged", "unsorted", "wave", "train",
+                                  "nokey", "sk_small"])
+def test_flash_kernel_d128_edges(dev, case, lse):
+    import chip_smoke as cs
+    q, k, v, q_pos, k_pos, kv_major = _d128_case(case, dev)
+
+    def call():
+        if lse:
+            return fa.flash_attention_lse(q, k, v, q_pos, k_pos,
+                                          kv_major=kv_major)
+        return fa.flash_attention(q, k, v, q_pos, k_pos, kv_major=kv_major)
+    n0 = fa.lse_launches if lse else fa.launches
+    first, again = call(), call()
+    torch.cuda.synchronize()
+    assert (fa.lse_launches if lse else fa.launches) == n0 + 2
+    first = first if lse else (first,)
+    again = again if lse else (again,)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+    out = first[0]
+    ref = fa.flash_attention_plain(q, k, v, q_pos, k_pos, kv_major=kv_major)
+    _assert_close(out, ref, fa.flash_attention_plain(
+        q, k, v.abs(), q_pos, k_pos, kv_major=kv_major))
+    seen = (k_pos[:, None, :] <= q_pos[:, :, None]).any(-1)    # [B, Sq]
+    assert torch.all(out[~seen] == 0)
+    if lse:
+        _, ref_lse = fa.flash_attention_lse_plain(q, k, v, q_pos, k_pos,
+                                                  kv_major=kv_major)
+        got = first[1]
+        unseen = ref_lse == fa.NEG_INF
+        assert torch.equal(got == fa.NEG_INF, unseen)
+        assert torch.equal(unseen, ~seen[:, None, :].expand_as(unseen))
+        err = (got - ref_lse).abs()[~unseen]
+        assert bool((err <= 1e-4 + 1e-5 * ref_lse.abs()[~unseen]).all())
+    assert cs.launches_per_call(torch, call) == ["kernel"]
+    assert cs.replay_equals_eager(torch, call, first if lse else out)
+
+
 def test_non_bf16_cuda_calls_raise(dev):
     """The kernels take bf16 only: f32 CUDA tensors raise, both at the
     wrappers and through the dispatchers that pick them by shape."""
@@ -691,6 +789,92 @@ def test_int4_engine_on_card_matches_dequantized_dense(dev):
     for a, b in zip(logits["int4"], logits["dense"]):
         cos = torch.nn.functional.cosine_similarity(a, b, dim=-1).min()
         assert cos.item() > 0.99, cos.item()
+
+
+_FRESH_CAPTURE = r"""
+import dataclasses, gc, sys
+import numpy as np
+import torch
+sys.path.insert(0, "tests")
+from test_torch_kernels_cuda import _small_wide_cfg
+from streamvln_tpu_torch.data import chatml
+from streamvln_tpu_torch.data.tokenizer import ByteTokenizer
+from streamvln_tpu_torch.models import quant
+from streamvln_tpu_torch.ops import int4_matmul as i4
+from streamvln_tpu_torch.streaming.engine import StreamingEngine
+from streamvln_tpu_torch.weights import init
+
+dev = torch.device("cuda")
+# a CUDA graph with memory in its pool, which each decode capture drops
+# into a fresh reference cycle right after it begins, while the collector
+# runs on every allocation until the capture ends
+x = torch.ones(1 << 20, device=dev)
+held = [torch.cuda.CUDAGraph()]
+with torch.cuda.graph(held[0]):
+    y = x * 2
+begin, end = torch.cuda.CUDAGraph.capture_begin, \
+    torch.cuda.CUDAGraph.capture_end
+dropped = []
+
+
+def capture_begin(self, *a, **k):
+    begin(self, *a, **k)
+    if held:
+        cycle = [held.pop(), y]
+        cycle.append(cycle)
+        dropped.append(1)
+    gc.set_threshold(1, 1, 1)
+
+
+def capture_end(self, *a, **k):
+    gc.set_threshold(700, 10, 10)
+    end(self, *a, **k)
+
+
+torch.cuda.CUDAGraph.capture_begin = capture_begin
+torch.cuda.CUDAGraph.capture_end = capture_end
+wide = _small_wide_cfg()
+cfg = dataclasses.replace(wide, llm=dataclasses.replace(wide.llm,
+                                                        hidden_size=512))
+params = init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+q4 = quant.quantize_llm(params, bits=4)
+tok = ByteTokenizer()
+frame = np.random.default_rng(4).integers(0, 256, (48, 64, 3), np.uint8)
+ids, _ = chatml.tokenize_dialogue(
+    tok, [("user", chatml.observation_prompt(None, "go"))],
+    add_system=True, with_labels=False)
+ids = np.concatenate([ids, np.asarray(chatml.generation_prompt(tok),
+                                      np.int32)])
+assert i4.launches == 0
+out = {}
+for graphs in (True, False):
+    eng = StreamingEngine(q4, cfg, cache_capacity=2048, max_new_tokens=4,
+                          stop_ids=(tok.im_end_id,), buckets=(256, 512, 1024),
+                          cuda_graphs=graphs)
+    out[graphs] = [int(t) for t in eng.generate(0, frame, ids, step_id=0)]
+    if graphs:
+        assert eng.graphs and dropped == [1], (eng.graphs, dropped)
+        assert sum(g.replays for g in eng.graphs.values()) >= 1
+assert out[True] == out[False], out
+print("captured", len(out[True]))
+"""
+
+
+def test_int4_decode_capture_in_a_fresh_process(dev):
+    """An int4 engine's decode graph captured in a fresh process (K6's
+    first launches there: the prefill's lm_head, then the step's warm-up
+    and capture) while a dropped CUDA graph sits in a reference cycle and
+    the garbage collector runs on every allocation: the capture holds (no
+    collection frees the dropped graph inside it), and its replays give
+    the eager loop's tokens."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", _FRESH_CAPTURE], cwd=root,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    assert "captured" in r.stdout
 
 
 # K6 at the speculative verify's 7 rows (spec_lookup 6 + the fed token) at

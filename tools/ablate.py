@@ -25,7 +25,9 @@ K7 (int4 unpack, `int4_matmul.cu`) on the same yardstick at every shape
 chip_smoke.py checks, beside a copy and a fill of its output's size (the
 card's stream rates; the "int4" variant times K6 and K7 as they are).
 An ablated kernel computes wrong results: the point is how much of the
-time each part holds. Prints the card and one JSON line per variant;
+time each part holds (`fwd_noexp`, `fwd_noqk`, `fwd_nopv`, `fwd_noload`:
+the forward's exponentials, products and K/V loads). Prints the card and
+one JSON line per variant;
 "k8_stamps" also one per K8 case with K8's timeline: when its blocks reach
 each phase, from the first block's start.
 Needs a CUDA card and nvcc. Each edit names a file of `csrc/` and exact text
@@ -92,9 +94,9 @@ _FWD_HILO = [
     (FWD, "    uint32_t p[BN / 16][4];",
      "    uint32_t p[BN / 16][4], pl[BN / 16][4];"),
     (FWD, "pack_p<BN / 16>(s, p);", "pack_p_hilo<BN / 16>(s, p, pl);"),
-    (FWD, "issue_pv<DP, NCH>(o, p, dv, prev * S::KV_BYTES);",
-     "issue_pv<DP, NCH>(o, p, dv, prev * S::KV_BYTES);\n"
-     "          issue_pv<DP, NCH>(o, pl, dv, prev * S::KV_BYTES);")]
+    (FWD, "issue_pv<S, NCH>(o, p, dv, prev * S::KV_BYTES);",
+     "issue_pv<S, NCH>(o, p, dv, prev * S::KV_BYTES);\n"
+     "          issue_pv<S, NCH>(o, pl, dv, prev * S::KV_BYTES);")]
 _BWD_HILO = [
     (BWD_CU, "// ---- K4: dQ ----", _HILO.format("pack_ds_hilo")
      + "// ---- K4: dQ ----"),
@@ -122,6 +124,48 @@ _BWD_HILO = [
     (BWD_CU, "      issue_rs<NW, BQ / 16>(acc, f, desc_add(dt, so), BQ * 128);",
      "      issue_rs<NW, BQ / 16>(acc, f, desc_add(dt, so), BQ * 128);\n"
      "      issue_rs<NW, BQ / 16>(acc, fl, desc_add(dt, so), BQ * 128);")]
+_BN = "static constexpr int BN = DP <= 80 || KT128 ? 128 : 64;"
+_BN64 = [(PLAN_A, _BN, "static constexpr int BN = DP <= 80 ? 128 : 64;")]
+# the forward's parts (each variant computes wrong results): the
+# softmax's exponentials, S = Q K^T or P V in the loop over key tiles, the
+# K/V loads (the stage's barrier completes on the walking warp's arrival)
+_EXP = """    s[i] = ex2(fmaf(s[i], f, -mn0));
+    s[i + 1] = ex2(fmaf(s[i + 1], f, -mn0));
+    s[i + 2] = ex2(fmaf(s[i + 2], f, -mn1));
+    s[i + 3] = ex2(fmaf(s[i + 3], f, -mn1));"""
+_QK = """          issue_qk<S>(s, dq, dk, stage * S::KV_BYTES);
+          wgmma_commit();
+          rescale<NO>(o, al0, al1);"""
+_KV = """        mbar_arrive_tx(fb, 2 * S::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < NW; ++c) {
+          tma_load_4d(ks + c * BN * 128, &maps.k[0], fb, c * 64, k0, w_hk,
+                      w_b);
+          tma_load_4d(vs + c * BN * 128, &maps.v[0], fb, c * 64, k0, w_hk,
+                      w_b);
+        }"""
+# under positions: tile 0 issued only once the consumers' masks are built
+# (as PR 20 first had it), and the masks built without loading a position
+# (right for positions 0..S-1 only: anyres's rows; the rest compute wrong
+# results)
+_EARLY0 = """    if (vb) {
+      w_tile = 0;
+      post();
+    }
+"""
+_LATE0 = [(FWD, _EARLY0, ""), (FWD, "    load_tile(next_tile(vb));",
+                               "    w_tile = next_tile(0);\n"
+                               "    if (w_tile != 0) load_tile(w_tile);")]
+_MASKS = """      visit_masks<BM, BN, 8>(a.q_pos + (long long)b * a.Sq + q0, a.Sq - q0,
+                             a.k_pos + (long long)b * a.Sk, a.Sk, n_kt,
+                             vmask, fmask, warp - 4, 8, lane, qmin, qmax);"""
+_MASKS_NOPOS = """      qmin = q0;
+      qmax = min(q0 + BM, a.Sq) - 1;
+      for (int t = threadIdx.x - 128; t < n_kt; t += 256) {
+        if (t * BN <= qmax) atomicOr(vmask + (t >> 5), 1u << (t & 31));
+        if (tile_full(t, BN, a.Sk, t * BN + BN - 1, qmin))
+          atomicOr(fmask + (t >> 5), 1u << (t & 31));
+      }"""
 # K8's rows: (case tag, Hq, Hkv, D, layers, live lengths of 4096 slots)
 K8_ROWS = (("", 28, 4, 128, 28, (300, 1900, 2049, 4096)),
            (" D=256", 8, 1, 256, 18, (300, 1900, 2049, 4096)),
@@ -371,8 +415,6 @@ VARIANTS = {
     # reverse (for a tree that takes 64)
     "k8_share64": ((K8,), [(PLAN, "constexpr int kDecMinShare = 32;",
                             "constexpr int kDecMinShare = 64;")]),
-    "k8_share32": ((K8,), [(PLAN, "constexpr int kDecMinShare = 64;",
-                            "constexpr int kDecMinShare = 32;")]),
     # K8 (bf16): TMA boxes of 64 key rows (a whole tile; the last one
     # ending at the share's end) instead of 16
     "k8_box64": ((K8,), [(PLAN, "constexpr int kDecBoxRows = 16;",
@@ -382,8 +424,9 @@ VARIANTS = {
                             "cluster_arrive();")]),
     # K8: clusters of any size up to 16, not powers of two only
     "k8_any_size": ((K8,), [(PLAN, "p > 1; p /= 2)", "p > 1; --p)")]),
-    # the attention forward as it is, alone
+    # the attention forward as it is, alone (K1, K2, K3), and K2/K3 alone
     "attn": (ATTN, []),
+    "fwd": (ATTN[1:], []),
     # K1 without the key split: 128-row items at every shape
     "k1_nosplit": (ATTN[:1], [(PLAN_A, _SPLIT_RULE, "  return false;")]),
     # K1's split also where 128-row items leave block slots idle (the
@@ -391,8 +434,26 @@ VARIANTS = {
     "k1_fill": (ATTN[:1], [(PLAN_A, _SPLIT_RULE,
                             "  return n128 < slots ||" + _SPLIT_RULE[8:])]),
     # the forward at head dim 256 with two stages instead of three
-    "d256_st2": (ATTN[1:], [(PLAN_A, "static constexpr int ST = WIDE ? 3 : 4;",
-                             "static constexpr int ST = WIDE ? 2 : 4;")]),
+    "d256_st2": (ATTN[1:], [(
+        PLAN_A,
+        "static constexpr int ST = WIDE || BN * DP >= 128 * 128 ? 3 : 4;",
+        "static constexpr int ST = WIDE ? 2 : BN * DP >= 128 * 128 ? 3 : 4;"
+    )]),
+    "fwd_noexp": (ATTN[1:], [(FWD, _EXP, _EXP.replace("ex2(", "("))]),
+    "fwd_noqk": (ATTN[1:], [(FWD, _QK, _QK.split("\n", 1)[1])]),
+    "fwd_nopv": (ATTN[1:], [(
+        FWD, "          issue_pv<S, NCH>(o, p, dv, prev * S::KV_BYTES);\n",
+        "")]),
+    # (K2/K3 only: every flash instance's head dim is a multiple of 64)
+    "fwd_noload": (ATTN[1:], [(FWD, _KV, "        mbar_arrive(fb);")]),
+    "fwd_tile0_late": (ATTN[1:], _LATE0),
+    "fwd_masks_nopos": (ATTN[1:], [(FWD, _MASKS, _MASKS_NOPOS)]),
+    # the forward at head dim 128 with K3 at 64-key tiles in 4 stages, or
+    # K2 at 128-key tiles in 3
+    "d128_bn64": (ATTN[1:], _BN64),
+    "d128_bn128": (ATTN[1:], [(
+        PLAN_A, _BN,
+        "static constexpr int BN = DP <= 80 || DP == 128 ? 128 : 64;")]),
     # K1 at head dims 88 and 104 on the DP = 128 instance (the TPU
     # kernel's padding to 128 lanes) instead of 96 and 112
     "k1_pad128": (ATTN[:1], [
@@ -526,6 +587,25 @@ def cases(torch, libs) -> dict:
                     out[f"K3{tag} Sq={sq}"] = ("flash_attention", [
                         lambda q=q, k=k, v=v, qp=qp: fa.flash_attention_lse(
                             q, k, v, qp, kp, kv_major=True)] * 10, 0)
+                if (hq, sq) == (28, 768):
+                    # the cache cut to the slots a query sees: the same
+                    # output without the walk over the key tiles past them
+                    n = 300 + sq
+                    out["K2 Sq=768 live"] = ("flash_attention", [
+                        lambda q=q, k=k[:, :, :n], v=v[:, :, :n], qp=qp,
+                        kp=kp[:, :n].contiguous(): fa.flash_attention(
+                            q, k, v, qp, kp, kv_major=True)] * 10, 0)
+        # K2 without a cache at anyres's prefills, over operand copies
+        # past the L2 cache
+        for S in (3032, 3046):
+            pos = torch.arange(S, device="cuda", dtype=torch.int32)[None] \
+                .contiguous()
+            ops = [(rnd(1, S, 28, 128), rnd(1, S, 4, 128), rnd(1, S, 4, 128))
+                   for _ in range(chip_smoke._copies(
+                       2 * (2 * S * 28 * 128 + 2 * S * 4 * 128)))]
+            out[f"K2 anyres Sq={S}"] = ("flash_attention", [
+                lambda o=o, p=pos: fa.flash_attention(*o, p, p)
+                for o in ops], 0)
     if ATTN[1] in libs or BWD in libs:
         S, n = 4096, 3900
         q, k, v = rnd(2, S, 28, 128), rnd(2, S, 4, 128), rnd(2, S, 4, 128)
@@ -536,6 +616,13 @@ def cases(torch, libs) -> dict:
         out["K3"] = ("flash_attention", [
             lambda q=q, k=k, v=v, qp=qp: fa.flash_attention_lse(
                 q, k, v, qp, kp3)] * 10, 0)
+        # the 32k step's (B=1, 32,000 valid), by CUDA events as phase 9c
+        SL, nl = chip_smoke.LONG_S, chip_smoke.LONG_VALID
+        ql, kl, vl = rnd(1, SL, 28, 128), rnd(1, SL, 4, 128), \
+            rnd(1, SL, 4, 128)
+        qpl, kpl = chip_smoke.train_positions(torch, 1, SL, nl, "cuda")
+        out["K3 32k"] = ("flash_attention", [
+            lambda: fa.flash_attention_lse(ql, kl, vl, qpl, kpl)], "events")
         o, lse = fa.flash_attention_lse(q, k, v, qp, kp3)
         do = rnd(2, S, 28, 128)
         bwd = (q, k, v, do, lse, fa._dsum(do, o), qp, kp3)
@@ -602,7 +689,10 @@ def cases(torch, libs) -> dict:
 
 def time_case(torch, case, fns, calls) -> float:
     """The attention forward and K8 on the settled yardstick (no bound: an
-    ablated kernel may beat it; `calls` 0), the others by device time."""
+    ablated kernel may beat it; `calls` 0), K3 at 32k by CUDA events
+    (`calls` "events", 5 calls), the others by device time."""
+    if calls == "events":
+        return chip_smoke.time_ms(torch, fns[0], iters=5)
     if not calls or case.startswith("K8"):
         return chip_smoke.graph_ms(torch, fns, 0.0, case)["ms"]
     return chip_smoke.device_ms(torch, fns, calls)

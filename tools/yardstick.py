@@ -11,6 +11,15 @@ script. Groups (default all):
   int4    K6 at every int4 projection's shape and K7 at its shapes
           (beside a copy of its output's size);
   anyres  K2 without a cache at anyres's two prefills (ANYRES_SQ);
+  d128    the positioned forward at head dim 128 (Qwen2-7B's 28/4 heads):
+          K2 at the prefill buckets 768 and 2560 over the 4096-slot
+          KV-head-major cache from position 300 (SDPA on the live prefix
+          beside it), K2 at 768 over the cache cut to its live prefix
+          (1,068 slots: the same output, so the gap is the walk over the
+          key tiles no query sees), K3 (with K4/K5) at the train step's
+          shape (B=2 S=4096, 3,900 valid; causal SDPA over the valid rows
+          beside it), K2 uncached at ANYRES_SQ, and K3 at S=32768 (32,000
+          valid) by CUDA events (LONG_K3_CALLS calls);
   d256    K2 and K3 at head dim 256 (8/1 heads) over the 4096-slot cache
           at Sq 768 and 2560, and K3 (with K4/K5) at Gemma-2B's training
           shape (B=2 S=4096, 3,900 valid);
@@ -41,11 +50,12 @@ _spec = importlib.util.spec_from_file_location(
 chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
 
-GROUPS = ("k1", "int4", "anyres", "d256", "cross")
+GROUPS = ("k1", "int4", "anyres", "d128", "d256", "cross")
 SIGLIP_BATCHES = (1, 8, 16, 28, 32)
 # the uncached prefill lengths of chip_smoke's two anyres images
 ANYRES_SQ = (3032, 3046)
 CROSS_ROWS = (16, 32, 64, 128, 256)
+LONG_K3_CALLS = 5
 CROSS_SHAPES = (("gu", 3584, 37888), ("o", 3584, 3584),
                 ("down", 18944, 3584))
 
@@ -77,6 +87,29 @@ def crossover(torch, i4, quant) -> list:
     return recs
 
 
+def long_k3(torch, fa) -> dict:
+    """K3 at the 32k step's attention shape (B=1, S=32768, 32,000 valid,
+    28/4 heads, D=128, the training layout) by CUDA events over
+    LONG_K3_CALLS calls, as phase 9c times it; phase 9c holds it against
+    chunked_attention."""
+    cs = chip_smoke
+    S, n = cs.LONG_S, cs.LONG_VALID
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v = (torch.randn((1, S, h, 128), generator=g, device="cuda")
+               .to(torch.bfloat16) for h in (28, 4, 4))
+    q_pos, k_pos = cs.train_positions(torch, 1, S, n, "cuda")
+    ms = cs.time_ms(torch, lambda: fa.flash_attention_lse(q, k, v, q_pos,
+                                                          k_pos),
+                    iters=LONG_K3_CALLS)
+    # query 7 sees no key (8 pairs less); padded queries see key 0
+    pairs = (n * (n + 1) // 2 - 8 + (S - n)) * 28
+    nbytes = 2 * (2 * S * 28 * 128 + 2 * S * 4 * 128) + 4 * 28 * S + 8 * S
+    b_ms, b_by = cs.bound(4.0 * pairs * 128, nbytes)
+    return {"kernel": "flash_attention_lse", "shape": f"B=1 S={S} "
+            f"valid={n} Hq=28 Hkv=4 D=128 bf16 [B,S,Hkv,D]", "event_ms": ms,
+            "calls": LONG_K3_CALLS, "bound_ms": b_ms, "bound_by": b_by}
+
+
 def run(torch, group: str) -> list:
     import torch.nn.functional as F
 
@@ -96,10 +129,19 @@ def run(torch, group: str) -> list:
         return crossover(torch, i4, quant)
     if group == "anyres":
         return [cs.check_flash_uncached(torch, F, fa, s) for s in ANYRES_SQ]
+    if group == "d128":
+        recs = [cs.check_flash(torch, F, fa, sq, graph=True)
+                for sq in (768, 2560)]
+        recs.append(cs.check_flash(torch, F, fa, 768, graph=True, live=True))
+        train = cs.check_training_kernels(torch, F, fa, graph=True)
+        recs += [dict(train[n], kernel=n) for n in train]
+        recs += [cs.check_flash_uncached(torch, F, fa, s) for s in ANYRES_SQ]
+        return recs + [long_k3(torch, fa)]
     recs = [cs.check_flash(torch, F, fa, sq, Hq=8, Hkv=1, D=256, lse=lse,
                            graph=True)
             for sq in (768, 2560) for lse in (False, True)]
-    train = cs.check_training_kernels(torch, F, fa, Hq=8, Hkv=1, D=256)
+    train = cs.check_training_kernels(torch, F, fa, Hq=8, Hkv=1, D=256,
+                                      graph=True)
     return recs + [dict(train[n], kernel=n) for n in train]
 
 
