@@ -630,7 +630,7 @@ def time_ms(torch, fn, iters=10, warmup=2) -> float:
 
 
 def graph_ms(torch, fns, bound_ms, what, replays=GRAPH_REPLAYS,
-             runs=GRAPH_RUNS, attempts=3) -> dict:
+             runs=GRAPH_RUNS, attempts=3, stream=None) -> dict:
     """Per-call device time of a rotation of `fns` on the settled
     yardstick: the rotation (each call once, in order) captured into one
     CUDA graph, replayed `replays` times between two CUDA events, `runs`
@@ -638,12 +638,14 @@ def graph_ms(torch, fns, bound_ms, what, replays=GRAPH_REPLAYS,
     profiler window can drop kernels, and the host's launch cost is out.
     A reading below `bound_ms` cannot be a measurement of the work: the
     set is logged as refused and taken again, up to `attempts` times, and
-    after that not recorded (ms None)."""
+    after that not recorded (ms None). `stream`: the stream to capture on
+    (where an autograd backward is captured, the stream its forward ran
+    on, so that its kernels go to the capture)."""
     for f in fns:
         f()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for f in fns:
             f()
     refused = []
@@ -1291,8 +1293,9 @@ def check_training_kernels(torch, F, fa, B=2, S=4096, n_valid=3900,
                            Hq=28, Hkv=4, D=128, seed=3, graph=False):
     """Phase 4a: K3, K4 and K5 against their plain versions on the same
     inputs at the train step's attention shape, each timed beside its
-    plain version and SDPA (forward for K3; its backward, which computes
-    dQ, dK and dV in one call, for K4 and K5). With `graph`, K3 also on
+    plain version and causal SDPA over the n_valid valid rows (forward for
+    K3; its backward, which computes dQ, dK and dV in one call, for K4 and
+    K5: the same causal work without the padding). With `graph`, K3 also on
     the settled yardstick (graph_ms over GRAPH_CALLS calls) beside causal
     SDPA over the n_valid valid rows (the same causal work without the
     padding)."""
@@ -1352,23 +1355,23 @@ def check_training_kernels(torch, F, fa, B=2, S=4096, n_valid=3900,
                      warmup=1)
     plain5 = time_ms(torch, lambda: fa.flash_bwd_dkv_plain(*args), iters=2,
                      warmup=1)
-    # yardstick: SDPA on the same masked work ([B, H, S, D]), forward
-    # alone and its backward under autograd; the faster of GQA without
-    # copies (enable_gqa) and K/V repeated per query head beforehand
+    # yardstick: causal SDPA over the n_valid valid rows ([B, H, n, D]),
+    # forward alone and its backward under autograd; the faster of GQA
+    # without copies (enable_gqa) and K/V repeated per query head
     mask = (k_pos[:, None, :] <= q_pos[:, :, None])[:, None]
-    dot = dout.transpose(1, 2).contiguous()
+    dot = dout[:, :n_valid].transpose(1, 2).contiguous()
     lib = {}
     for variant in ("enable_gqa", "repeated"):
-        kt, vt = (x.transpose(1, 2) for x in (k, v))
+        kt, vt = (x[:, :n_valid].transpose(1, 2) for x in (k, v))
         if variant == "repeated":
             kt, vt = (x.repeat_interleave(Hq // Hkv, dim=1)
                       for x in (kt, vt))
         qt, kt, vt = (x.contiguous().requires_grad_()
-                      for x in (q.transpose(1, 2), kt, vt))
+                      for x in (q[:, :n_valid].transpose(1, 2), kt, vt))
 
         def sdpa():
             return F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask,
+                qt, kt, vt, is_causal=True,
                 enable_gqa=variant == "enable_gqa")
         with torch.no_grad():
             fwd = time_ms(torch, sdpa)
@@ -1377,7 +1380,8 @@ def check_training_kernels(torch, F, fa, B=2, S=4096, n_valid=3900,
             o, (qt, kt, vt), dot, retain_graph=True))
         lib[variant] = (fwd, bwd)
         del o, qt, kt, vt
-    log(f"4a SDPA (fwd ms, bwd ms): {lib}")
+    log(f"4a causal SDPA over the {n_valid} valid rows (fwd ms, bwd ms): "
+        f"{lib}")
     lib_fwd = min(f for f, _ in lib.values())
     lib_bwd = min(b for _, b in lib.values())
 
@@ -1406,7 +1410,8 @@ def check_training_kernels(torch, F, fa, B=2, S=4096, n_valid=3900,
                       "flops": flops, "bytes": nbytes,
                       "replaces": f"streamvln_tpu/ops/flash_attention.py:"
                                   f"{line}",
-                      "library": "F.scaled_dot_product_attention "
+                      "library": "causal F.scaled_dot_product_attention "
+                                 f"over the {n_valid} valid rows, "
                                  + ("forward" if line == 108 else
                                     "backward (dQ, dK and dV in one call)")}
         log(f"4a {name} {shape}: {json.dumps(c)} kernel {ms:.4f} ms plain "

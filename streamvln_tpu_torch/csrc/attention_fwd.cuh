@@ -1005,12 +1005,13 @@ inline cudaError_t forward_instance(const FwdArgs& a, cudaStream_t stream) {
   return launch_forward<DP, false, KT128>(m, a, bm, stream);
 }
 
-// The forward at padded head dim DP: K3 at 128 (the training forward,
-// with its logsumexp) takes 128-key tiles (FwdShape).
+// The forward at padded head dim DP: at 128 the key-tile width is the
+// shape's (fwd_keys128), the same for K2 and K3.
 template <int DP>
 inline cudaError_t attention_forward(const FwdArgs& a, cudaStream_t stream) {
   if constexpr (DP == 128) {
-    if (a.lse != nullptr) return forward_instance<DP, true>(a, stream);
+    if (fwd_keys128(a.Sq, a.Sk, a.Hq * a.B, a.q_pos != nullptr))
+      return forward_instance<DP, true>(a, stream);
   }
   return forward_instance<DP, false>(a, stream);
 }

@@ -3,10 +3,12 @@
 // backward (flash_attention_bwd.cu; K4 takes the forward's, K5 key tile,
 // batch x KV head and, at head dim 256, a share of the query heads), the
 // forward's query rows per item (K1's key split) and grid size, the
-// forward's tile geometry and shared-memory layout (FwdShape) and, under
-// positions, the key tiles a block visits (the skip rule, the "full" tile
-// rule and the walk over the visited-tile mask). Plain C++ with no CUDA
-// types, so the host compiler can build it too
+// forward's tile geometry and shared-memory layout (FwdShape) and its
+// key-tile width at head dim 128 (fwd_keys128), the backward's (DqShape,
+// DkvShape) and, under positions, the key tiles a block of the forward
+// visits (the skip rule, the "full" tile rule and the walk over the
+// visited-tile mask). Plain C++ with no CUDA types, so the host compiler
+// can build it too
 // (tests/test_torch_attention_plan.py).
 #pragma once
 
@@ -94,7 +96,7 @@ SVT_HD int next_visited(const uint32_t* mask, int n_tiles, int t) {
 }
 
 // The forward's tile geometry at padded head dim DP (attention_fwd.cuh);
-// KT128: 128-key tiles at DP = 128 (K3, below).
+// KT128: 128-key tiles at DP = 128 (fwd_keys128 below says where).
 // A tile's head dim is kept as 64-column chunks (128-byte swizzle), then
 // a 32-column chunk (64-byte swizzle) and a 16-column chunk (32-byte
 // swizzle) where DP needs them: 80 = 64 + 16, 96 = 64 + 32, 112 = 64 + 32
@@ -112,12 +114,8 @@ struct FwdShape {
   // per key, wider S products), else 64. At DP = 128 three stages of 64
   // KB fit beside the Q tile, and the consumers hold S, O and P of a
   // 128-key tile (64 + 64 f32 and 32 words a thread) within setmaxnreg's
-  // 232 registers: K3 (the training forward) takes them. K2 keeps 64-key
-  // tiles there, so that its outputs stay those of the 64-key online
-  // softmax (P rounded against the running max of every 64 keys): a
-  // serving check that holds speculative decoding to greedy call by call
-  // on random weights (chip_smoke.py phase 3e) failed on a three-way
-  // near tie when K2's prefill took 128-key tiles (PERF.md, PR 20)
+  // 232 registers; both widths are built there, and fwd_keys128 picks
+  // one by the shape
   static constexpr int BN = DP <= 80 || KT128 ? 128 : 64;
   static_assert(!KT128 || DP == 128, "128-key tiles at DP = 128 only");
   static constexpr int NW = DP / 64;               // 64-column chunks
@@ -163,6 +161,83 @@ struct FwdShape {
   static constexpr long long MAX_KEYS =
       (long long)(kSmemMax - SMEM) / 8 * 32 * BN;
 };
+
+// The forward's key-tile width at padded head dim 128: 128-key tiles
+// (FwdShape<128, true>) or 64. K2 and K3 take the width this gives for
+// their shape, whether or not the LSE is written, so that a forward under
+// grad (K3) and one without (K2) round P against the running maxima of the
+// same key spans and give the same bits (the reference's two forwards run
+// one kernel body). The widths were timed against each other on the H100
+// at the main paths' shapes (tools/ablate.py d128_bn64 and d128_bn128;
+// PERF.md): 128-key tiles were faster wherever the grid holds
+// kKeys128Items (128-row query tile, batch x head) items or more (5-12%
+// at a B=8 wave of 768-row prefills, S = 1024 preference pairs, the 2560
+// bucket, anyres, the train and 32k steps); at fewer, one item's latency
+// rules and 64-key tiles were faster or level (the 7B's served 768-row
+// prefill, 168 items: 10% for K2; 32 and 40 heads at 768 rows). A call
+// past the 128-key instance's MAX_KEYS takes 64-key tiles, whose masks
+// hold 81x the keys.
+constexpr int kKeys128Items = 256;
+
+SVT_HD bool fwd_keys128(int sq, int sk, int heads_batch, bool pos) {
+  if (pos && sk > FwdShape<128, true>::MAX_KEYS) return false;
+  return (long long)((sq + 127) / 128) * heads_batch >= kKeys128Items;
+}
+
+// ---- the backward's tile geometry (flash_attention_bwd.cu) ----
+
+// K4's shared memory: the Q and dO tiles (BM rows), ST stages of K and V
+// (64 keys), when WIDE the P (f32) and dS (bf16) exchange tiles, the
+// stages' key positions and (k0, full) words, the barriers, then for each
+// 64-key tile its smallest and largest position and the list of the tiles
+// the block visits.
+template <int DP>
+struct DqShape {
+  static constexpr bool WIDE = DP > 128;
+  static constexpr int BM = WIDE ? 64 : 64 * kConsumers, BN = 64;
+  static constexpr int NW = DP / 64, ST = WIDE ? 2 : 4;
+  static constexpr int Q_BYTES = BM * DP * 2, KV_BYTES = BN * DP * 2;
+  static constexpr int Q_OFF = 0, DO_OFF = Q_BYTES;
+  static constexpr int K_OFF = 2 * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + ST * KV_BYTES;
+  static constexpr int XP_OFF = V_OFF + ST * KV_BYTES;
+  static constexpr int XD_OFF = XP_OFF + (WIDE ? BM * BN * 4 : 0);
+  static constexpr int POS_OFF = XD_OFF + (WIDE ? BM * BN * 2 : 0);
+  static constexpr int META_OFF = POS_OFF + ST * BN * 4;
+  static constexpr int BAR_OFF = META_OFF + 2 * ST * 4;
+  static constexpr int TILE_OFF = BAR_OFF + (1 + 2 * ST) * 8;
+};
+
+// K5's shared memory: the K and V tiles (BK keys), ST stages of Q and dO
+// (64 rows), when WIDE the P^T exchange tile (f32), the stages' row
+// position, LSE (log2 units) and Dsum, their (q0, full) words, when WIDE
+// the "last split" flag, the barriers, then for each 64-row query tile its
+// smallest and largest position and the list of the tiles the block
+// visits.
+template <int DP>
+struct DkvShape {
+  static constexpr bool WIDE = DP > 128;
+  static constexpr int BK = WIDE ? 64 : 64 * kConsumers, BQ = 64;
+  static constexpr int NW = DP / 64, ST = WIDE ? 2 : 4;
+  static constexpr int KV_BYTES = BK * DP * 2, QS_BYTES = BQ * DP * 2;
+  static constexpr int K_OFF = 0, V_OFF = KV_BYTES;
+  static constexpr int Q_OFF = 2 * KV_BYTES;
+  static constexpr int DO_OFF = Q_OFF + ST * QS_BYTES;
+  static constexpr int XP_OFF = DO_OFF + ST * QS_BYTES;
+  static constexpr int ROW_OFF = XP_OFF + (WIDE ? BK * BQ * 4 : 0);
+  static constexpr int META_OFF = ROW_OFF + 3 * ST * BQ * 4;
+  static constexpr int BAR_OFF = META_OFF + 2 * ST * 4 + (WIDE ? 8 : 0);
+  static constexpr int TILE_OFF = BAR_OFF + (1 + 2 * ST) * 8;
+};
+
+// Dynamic shared memory of a backward kernel whose streamed dimension
+// has n_tiles 64-entry tiles (its smallest and largest position and its
+// place in the visit list: three ints each), with room to align the base;
+// a launch needing more than kSmemMax is refused.
+template <typename S>
+SVT_HD long long bwd_smem(long long n_tiles) {
+  return S::TILE_OFF + 12 * n_tiles + 1024;
+}
 
 // K1 (no positions, DP < 128): the query rows of a work item. 128 rows,
 // one 64-row half per consumer warpgroup, or 64 rows that both

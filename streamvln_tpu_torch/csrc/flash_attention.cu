@@ -26,8 +26,10 @@
 // of a skipped or full tile is loaded on the way, and the walk ends at
 // the last visited tile), no per-element mask on full tiles, and the
 // query tiles that see the most keys started first, so the short tiles
-// fill the last wave. At D = 128 K3 takes 128-key tiles (3 stages) and
-// K2 64-key ones (4; FwdShape says why). At D = 256 (Gemma)
+// fill the last wave. At D = 128 the shape picks 128-key tiles (3
+// stages) or 64-key ones (4), for K2 and K3 alike
+// (attention_plan.cuh::fwd_keys128), so both give the same output on the
+// same inputs. At D = 256 (Gemma)
 // a 64-row O is 128 f32 registers a thread, and a 384-thread block caps a
 // thread at 168: WIDE takes 64-row tiles on which both warpgroups compute
 // the whole S and softmax and each holds half of O's columns.
@@ -36,8 +38,9 @@
 // (kv_major, the cache layout) or [B, Sk, Hkv, D], described by strides
 // in elements (multiples of 8); q_pos [B, Sq], k_pos [B, Sk] int32; lse
 // [B, Hq, Sq] f32. Sk is at most the instance's FwdShape::MAX_KEYS (the
-// tile masks beside the ring: 208,896 for K3 at D = 128, 301,056 at 256);
-// more returns cudaErrorInvalidValue.
+// tile masks beside the ring: at D = 128 208,896 on 128-key tiles, past
+// which the 64-key instance takes the call; 301,056 at 256); more returns
+// cudaErrorInvalidValue.
 #include "attention_fwd.cuh"
 
 static int flash_forward(
@@ -103,4 +106,18 @@ extern "C" int svt_flash_attention_lse(
                        q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                        o_sb, o_ss, o_sh, B, Sq, Sk, Hq, Hkv, D, scale, 0.f,
                        stream);
+}
+
+// The key-tile width K2 and K3 take at this shape (keys a tile; -1 for a
+// head dim they do not take).
+extern "C" int svt_flash_key_tile(int B, int Sq, int Sk, int Hq, int D,
+                                  int pos) {
+  switch (D) {
+    case 64: return svt::FwdShape<64>::BN;
+    case 128: return svt::fwd_keys128(Sq, Sk, Hq * B, pos != 0)
+                         ? svt::FwdShape<128, true>::BN
+                         : svt::FwdShape<128>::BN;
+    case 256: return svt::FwdShape<256>::BN;
+    default: return -1;
+  }
 }

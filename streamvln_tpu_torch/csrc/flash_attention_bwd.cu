@@ -154,61 +154,6 @@ constexpr int kLeaderWarp = 4;
 // K4's dS tile written and read.
 constexpr int kPFull = 1, kPEmpty = 2, kDsFull = 3, kDsEmpty = 4;
 
-// K4's shared memory: the Q and dO tiles (BM rows), ST stages of K and V
-// (64 keys), when WIDE the P (f32) and dS (bf16) exchange tiles, the
-// stages' key positions and (k0, full) words, the barriers, then for each
-// 64-key tile its smallest and largest position and the list of the tiles
-// the block visits.
-template <int DP>
-struct DqShape {
-  static constexpr bool WIDE = DP > 128;
-  static constexpr int BM = WIDE ? 64 : 64 * kConsumers, BN = 64;
-  static constexpr int NW = DP / 64, ST = WIDE ? 2 : 4;
-  static constexpr int Q_BYTES = BM * DP * 2, KV_BYTES = BN * DP * 2;
-  static constexpr int Q_OFF = 0, DO_OFF = Q_BYTES;
-  static constexpr int K_OFF = 2 * Q_BYTES;
-  static constexpr int V_OFF = K_OFF + ST * KV_BYTES;
-  static constexpr int XP_OFF = V_OFF + ST * KV_BYTES;
-  static constexpr int XD_OFF = XP_OFF + (WIDE ? BM * BN * 4 : 0);
-  static constexpr int POS_OFF = XD_OFF + (WIDE ? BM * BN * 2 : 0);
-  static constexpr int META_OFF = POS_OFF + ST * BN * 4;
-  static constexpr int BAR_OFF = META_OFF + 2 * ST * 4;
-  static constexpr int TILE_OFF = BAR_OFF + (1 + 2 * ST) * 8;
-};
-
-// K5's shared memory: the K and V tiles (BK keys), ST stages of Q and dO
-// (64 rows), when WIDE the P^T exchange tile (f32), the stages' row
-// position, LSE (log2 units) and Dsum, their (q0, full) words, when WIDE
-// the "last split" flag, the barriers, then for each 64-row query tile its
-// smallest and largest position and the list of the tiles the block
-// visits.
-template <int DP>
-struct DkvShape {
-  static constexpr bool WIDE = DP > 128;
-  static constexpr int BK = WIDE ? 64 : 64 * kConsumers, BQ = 64;
-  static constexpr int NW = DP / 64, ST = WIDE ? 2 : 4;
-  static constexpr int KV_BYTES = BK * DP * 2, QS_BYTES = BQ * DP * 2;
-  static constexpr int K_OFF = 0, V_OFF = KV_BYTES;
-  static constexpr int Q_OFF = 2 * KV_BYTES;
-  static constexpr int DO_OFF = Q_OFF + ST * QS_BYTES;
-  static constexpr int XP_OFF = DO_OFF + ST * QS_BYTES;
-  static constexpr int ROW_OFF = XP_OFF + (WIDE ? BK * BQ * 4 : 0);
-  static constexpr int META_OFF = ROW_OFF + 3 * ST * BQ * 4;
-  static constexpr int BAR_OFF = META_OFF + 2 * ST * 4 + (WIDE ? 8 : 0);
-  static constexpr int TILE_OFF = BAR_OFF + (1 + 2 * ST) * 8;
-};
-// room for 64 tiles' lists (S = 4096) and the alignment slack
-static_assert(DqShape<256>::TILE_OFF + 12 * 64 + 1024 <= 232448 &&
-                  DkvShape<256>::TILE_OFF + 12 * 64 + 1024 <= 232448,
-              "head dim 256 tiles must leave room for the tile lists");
-
-// Dynamic shared memory of a kernel whose streamed dimension has n_tiles
-// 64-entry tiles (three ints each), with room to align the base.
-template <typename S>
-int smem_bytes(int n_tiles) {
-  return S::TILE_OFF + 12 * n_tiles + 1024;
-}
-
 // d (+)= A B^T over the head dim: A's rows from `da` (K-major, 64-column
 // chunks `a_chunk` bytes apart), B's N rows from `db` (chunks `b_chunk`
 // apart); NW * 4 steps of depth 16.
@@ -999,18 +944,18 @@ flash_bwd_dkv_kernel(__grid_constant__ const BwdMaps maps, const BwdArgs a) {
 // launch needs more than the last; a launch the card refuses returns its
 // error.
 template <typename Kernel>
-cudaError_t launch_bwd_kernel(Kernel kernel, int smem, long long items,
+cudaError_t launch_bwd_kernel(Kernel kernel, long long smem, long long items,
                               const BwdMaps& m, const BwdArgs& a,
                               cudaStream_t stream, int& smem_set) {
   if (items == 0) return cudaSuccess;
-  if (items > INT_MAX) return cudaErrorInvalidValue;
+  if (items > INT_MAX || smem > kSmemMax) return cudaErrorInvalidValue;
   if (smem > smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
-    smem_set = smem;
+    smem_set = (int)smem;
   }
-  kernel<<<(int)items, kBwdThreads, smem, stream>>>(m, a);
+  kernel<<<(int)items, kBwdThreads, (int)smem, stream>>>(m, a);
   return cudaGetLastError();
 }
 
@@ -1035,7 +980,7 @@ cudaError_t launch_bwd(const BwdArgs& a, bool dkv, cudaStream_t stream) {
     const long long items = (long long)((a.Sq + S::BM - 1) / S::BM) * a.Hq *
                             a.B;
     return launch_bwd_kernel(flash_bwd_dq_kernel<DP>,
-                             smem_bytes<S>((a.Sk + S::BN - 1) / S::BN), items,
+                             bwd_smem<S>((a.Sk + S::BN - 1) / S::BN), items,
                              m, a, stream, smem_set);
   }
   using S = DkvShape<DP>;
@@ -1050,7 +995,7 @@ cudaError_t launch_bwd(const BwdArgs& a, bool dkv, cudaStream_t stream) {
     return cudaErrorInvalidValue;
   const long long items = pairs * a.splits;
   return launch_bwd_kernel(flash_bwd_dkv_kernel<DP>,
-                           smem_bytes<S>((a.Sq + S::BQ - 1) / S::BQ), items,
+                           bwd_smem<S>((a.Sq + S::BQ - 1) / S::BQ), items,
                            m, a, stream, smem_set);
 }
 

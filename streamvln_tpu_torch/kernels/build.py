@@ -44,6 +44,8 @@ ARGTYPES = {
     "svt_flash_bwd_dkv": [_P] * 13 + [_I] * 7 + [_F, _P],
     # B, Sk, Hq, Hkv, D -> K5's head split
     "svt_flash_bwd_dkv_splits": [_I] * 5,
+    # B, Sq, Sk, Hq, D, positions given -> K2/K3's key-tile width
+    "svt_flash_key_tile": [_I] * 6,
     # x, w, scales, out | M, din, dout, is_bf16
     "svt_int4_matmul": [_P] * 4 + [_I] * 4 + [_P],
     # w, scales, out | half, dout, is_bf16

@@ -265,11 +265,10 @@ def flash_attention(q, k, v, q_positions=None, k_positions=None,
     has no backward there and raises, as in the JAX package. Otherwise it
     is K2 (no residuals kept).
 
-    At head dim 128 the two forwards round differently: K3 walks 128-key
-    tiles and K2 64-key tiles, so P is rounded to bf16 against running
-    maxima of different key spans. Both stay within the plain version's
-    tolerance, but a call under grad and one without (a policy's forward
-    and its no-grad rollout) are not bit-equal on the same inputs."""
+    K2 and K3 walk key tiles of one width at a given shape
+    (`csrc/attention_plan.cuh::fwd_keys128` at head dim 128), so a call
+    under grad and one without (a policy's forward and its no-grad
+    rollout) give the same output on the same inputs."""
     global launches
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         if logits_soft_cap is not None:
@@ -323,6 +322,17 @@ def flash_attention_lse(q, k, v, q_positions=None, k_positions=None,
     build.check(rc, "flash_attention_lse")
     lse_launches += 1
     return out, lse
+
+
+def key_tile(B: int, Sq: int, Sk: int, Hq: int, D: int) -> int:
+    """The key-tile width K2 and K3 take for a call under positions of B
+    rows of Sq queries over Sk keys, Hq query heads at head dim D (one
+    width for both kernels)."""
+    n = build.load("flash_attention").svt_flash_key_tile(B, Sq, Sk, Hq, D,
+                                                         1)
+    if n < 1:
+        raise ValueError(f"flash_attention: no kernel at head dim {D}")
+    return n
 
 
 def _bwd_launch(what, q, k, v, dout, lse, dsum, q_positions, k_positions,

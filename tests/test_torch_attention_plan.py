@@ -101,6 +101,41 @@ static void fill_shape(int* out) {
                    S::smem(4096, false), (int)S::MAX_KEYS};
   for (int i = 0; i < (int)(sizeof(v) / sizeof(v[0])); ++i) out[i] = v[i];
 }
+template <int DP>
+static void fill_bwd(int* out, int dkv) {
+  if (dkv) {
+    using S = svt::DkvShape<DP>;
+    const int v[] = {S::WIDE, S::BK, S::BQ, S::NW, S::ST, S::KV_BYTES,
+                     S::QS_BYTES, S::K_OFF, S::V_OFF, S::Q_OFF, S::DO_OFF,
+                     S::XP_OFF, S::ROW_OFF, S::META_OFF, S::BAR_OFF,
+                     S::TILE_OFF, svt::bwd_smem<S>(4096 / 64),
+                     svt::bwd_smem<S>(32768 / 64)};
+    for (int i = 0; i < (int)(sizeof(v) / sizeof(v[0])); ++i) out[i] = v[i];
+  } else {
+    using S = svt::DqShape<DP>;
+    const int v[] = {S::WIDE, S::BM, S::BN, S::NW, S::ST, S::KV_BYTES,
+                     S::Q_BYTES, S::K_OFF, S::V_OFF, S::Q_OFF, S::DO_OFF,
+                     S::XP_OFF, S::POS_OFF, S::META_OFF, S::BAR_OFF,
+                     S::TILE_OFF, svt::bwd_smem<S>(4096 / 64),
+                     svt::bwd_smem<S>(32768 / 64), S::XD_OFF};
+    for (int i = 0; i < (int)(sizeof(v) / sizeof(v[0])); ++i) out[i] = v[i];
+  }
+}
+extern "C" int bwd_shape(int dp, int dkv, int* out) {
+  switch (dp) {
+    case 64: fill_bwd<64>(out, dkv); return 0;
+    case 128: fill_bwd<128>(out, dkv); return 0;
+    case 256: fill_bwd<256>(out, dkv); return 0;
+  }
+  return 1;
+}
+extern "C" int keys128(int sq, int sk, int hb, int pos) {
+  return svt::fwd_keys128(sq, sk, hb, pos != 0);
+}
+extern "C" long long max_keys(int keys128) {
+  return keys128 ? svt::FwdShape<128, true>::MAX_KEYS
+                 : svt::FwdShape<128>::MAX_KEYS;
+}
 extern "C" int fwd_shape(int dp, int* out) {
   switch (dp) {
     case 129: fill_shape<128, true>(out); return 0;   // K3's 128-key tiles
@@ -590,3 +625,105 @@ def test_mask_batches_set_every_tile_once(plan, n_tiles):
                     assert plan.mask_place(1 << i, t0) == 1 << (t % 32)
             r += 1
     assert taken == [1] * n_tiles
+
+
+# The backward's geometry (DqShape, DkvShape): K4's fields, then K5's
+# (BM/BK the rows or keys a block holds, BN/BQ the streamed tile, Q_BYTES
+# or QS_BYTES its tile of one operand, KV_BYTES K4's streamed / K5's held
+# tile)
+DQ_KEYS = ("WIDE", "BM", "BN", "NW", "ST", "KV_BYTES", "Q_BYTES", "K_OFF",
+           "V_OFF", "Q_OFF", "DO_OFF", "XP_OFF", "POS_OFF", "META_OFF",
+           "BAR_OFF", "TILE_OFF", "SMEM_4096", "SMEM_32768", "XD_OFF")
+DKV_KEYS = ("WIDE", "BK", "BQ", "NW", "ST", "KV_BYTES", "QS_BYTES", "K_OFF",
+            "V_OFF", "Q_OFF", "DO_OFF", "XP_OFF", "ROW_OFF", "META_OFF",
+            "BAR_OFF", "TILE_OFF", "SMEM_4096", "SMEM_32768")
+
+
+def _bwd_shape(plan, dp, dkv):
+    keys = DKV_KEYS if dkv else DQ_KEYS
+    out = (ctypes.c_int * len(keys))()
+    assert plan.bwd_shape(dp, int(dkv), out) == 0
+    return dict(zip(keys, out))
+
+
+@pytest.mark.parametrize("dkv", [False, True], ids=["K4", "K5"])
+@pytest.mark.parametrize("dp", [64, 128, 256])
+def test_backward_layout_fits_the_sm(plan, dp, dkv):
+    """Every backward instance's tiles start on 1024-byte boundaries (the
+    128-byte swizzle's pattern), its regions follow one another without
+    overlap, and its shared memory with the tile lists (three ints per
+    64-entry tile of the streamed dimension) and the alignment slack fits
+    227 KB at S = 4096 (the train step) and S = 32768 (the 32k step)."""
+    s = _bwd_shape(plan, dp, dkv)
+    held, streamed = (s["BK"], s["BQ"]) if dkv else (s["BM"], s["BN"])
+    tile = s["QS_BYTES"] if dkv else s["KV_BYTES"]   # a streamed tile
+    own = s["KV_BYTES"] if dkv else s["Q_BYTES"]     # a held tile
+    assert s["NW"] * 64 == dp
+    assert own == held * dp * 2 and tile == streamed * dp * 2
+    if dkv:
+        order = [(s["K_OFF"], own), (s["V_OFF"], own),
+                 (s["Q_OFF"], s["ST"] * tile), (s["DO_OFF"], s["ST"] * tile)]
+        after = s["XP_OFF"]
+    else:
+        order = [(s["Q_OFF"], own), (s["DO_OFF"], own),
+                 (s["K_OFF"], s["ST"] * tile), (s["V_OFF"], s["ST"] * tile)]
+        after = s["XP_OFF"]
+    assert order[0][0] == 0
+    for (a, n), (b, _) in zip(order, order[1:] + [(after, 0)]):
+        assert a % 1024 == 0 and a + n == b
+    assert s["META_OFF"] < s["BAR_OFF"] < s["TILE_OFF"]
+    for sk in (4096, 32768):
+        assert s[f"SMEM_{sk}"] == s["TILE_OFF"] + 12 * (sk // 64) + 1024
+        assert s[f"SMEM_{sk}"] <= SMEM_MAX, (dp, dkv, sk)
+
+
+@pytest.mark.parametrize("dp,held,st", [(64, 128, 4), (128, 128, 4),
+                                         (256, 64, 2)])
+def test_backward_stage_counts(plan, dp, held, st):
+    """D = 64 and 128: K4 holds 128 query rows and K5 128 keys (one 64-row
+    half per consumer warpgroup), each streaming 64-entry tiles through 4
+    stages. D = 256 (WIDE): both warpgroups on one 64-row tile, 2 stages of
+    64 entries, and the exchange tiles (K4: P in f32 and dS in bf16, K5:
+    P^T in f32) between the stages and the rows' words."""
+    dq, dkv = _bwd_shape(plan, dp, False), _bwd_shape(plan, dp, True)
+    assert (dq["BM"], dq["BN"], dq["ST"]) == (held, 64, st)
+    assert (dkv["BK"], dkv["BQ"], dkv["ST"]) == (held, 64, st)
+    wide = dp == 256
+    assert dq["WIDE"] == dkv["WIDE"] == int(wide)
+    assert dq["XD_OFF"] - dq["XP_OFF"] == (64 * 64 * 4 if wide else 0)
+    assert dq["POS_OFF"] - dq["XD_OFF"] == (64 * 64 * 2 if wide else 0)
+    assert dkv["ROW_OFF"] - dkv["XP_OFF"] == (64 * 64 * 4 if wide else 0)
+
+
+# The forward's key-tile width at head dim 128 (fwd_keys128), one for K2
+# and K3, at the shapes the card runs, as timed on the H100 (PERF.md, PR
+# 21): (B, Sq, Sk, Hq, width). The 7B's prefill buckets 768 and 2560 in
+# the 4096-slot cache, the B=8 wave of 768-row prefills, Llama-2's (32
+# heads) and Qwen2-14B's (40) 768-row prefills, anyres's uncached
+# prefills, phase 12's DPO / reward / PPO forwards (B=2, S = 1024), the
+# train step and the 32k step.
+KEY_TILE_SHAPES = ((1, 768, 4096, 28, 64), (1, 2560, 4096, 28, 128),
+                   (8, 768, 4096, 28, 128), (1, 768, 4096, 32, 64),
+                   (1, 768, 4096, 40, 64), (1, 3032, 3032, 28, 128),
+                   (1, 3046, 3046, 28, 128), (2, 1024, 1024, 28, 128),
+                   (2, 4096, 4096, 28, 128), (1, 32768, 32768, 28, 128))
+
+
+@pytest.mark.parametrize("B,sq,sk,hq,width", KEY_TILE_SHAPES)
+def test_key_tile_width_at_the_main_shapes(plan, B, sq, sk, hq, width):
+    assert (128 if plan.keys128(sq, sk, B * hq, 1) else 64) == width
+
+
+@pytest.mark.parametrize("sk", [4096, 208_896, 208_897, 1 << 20,
+                                17_006_592])
+def test_key_tile_width_never_exceeds_its_masks(plan, sk):
+    """The rule sends no call under positions past the key count whose
+    visited- and full-tile masks fit beside the chosen instance's ring
+    (FwdShape::MAX_KEYS), at any query count: past the 128-key
+    instance's, the 64-key instance takes the call."""
+    plan.max_keys.restype = ctypes.c_longlong
+    for sq in (1, 768, 4096, 32768):
+        wide = plan.keys128(sq, sk, 28, 1)
+        assert sk <= plan.max_keys(wide), (sq, sk, wide)
+    assert plan.max_keys(1) == 208_896
+    assert not plan.keys128(32768, 208_897, 28, 1)

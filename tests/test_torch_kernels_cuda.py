@@ -259,6 +259,41 @@ def test_flash_kernel_d128_edges(dev, case, lse):
     assert cs.replay_equals_eager(torch, call, first if lse else out)
 
 
+# One key-tile width for K2 and K3 at a shape (attention_plan.cuh::
+# fwd_keys128): on the same head-dim-128 inputs the forward without grad
+# (K2), K3 and the forward under grad (K3 through the autograd Function)
+# give the same bits, at a shape of each width (the 7B's prefill buckets
+# 768 (168 query-tile items: 64-key tiles) and 2560 (560 items: 128) from
+# position 300 of a 4096-slot cache, the tail past the live prefix
+# INVALID_POS, a row that sees no key), in the KV-head-major cache layout
+# and in [B, S, Hkv, D].
+@pytest.mark.parametrize("kv_major", [True, False])
+@pytest.mark.parametrize("Sq,width", [(768, 64), (2560, 128)])
+def test_flash_forwards_agree_bit_for_bit(dev, Sq, width, kv_major):
+    rng = np.random.default_rng(31)
+    Hq, Hkv, D, cap = 28, 4, 128, 4096
+    q = _rand(rng, (1, Sq, Hq, D), dev)
+    kshape = (1, Hkv, cap, D) if kv_major else (1, cap, Hkv, D)
+    k, v = _rand(rng, kshape, dev), _rand(rng, kshape, dev)
+    q_pos = (300 + torch.arange(Sq, device=dev, dtype=torch.int32))[None]
+    q_pos[0, 9] = -1
+    k_pos = torch.arange(cap, device=dev, dtype=torch.int32)[None]
+    k_pos[:, 300 + Sq:] = fa.INVALID_POS
+    assert fa.key_tile(1, Sq, cap, Hq, D) == width
+    out2 = fa.flash_attention(q, k, v, q_pos, k_pos, kv_major=kv_major)
+    out3, _ = fa.flash_attention_lse(q, k, v, q_pos, k_pos,
+                                     kv_major=kv_major)
+    qg = q.clone().requires_grad_()
+    with torch.enable_grad():
+        outg = fa.flash_attention(qg, k, v, q_pos, k_pos, kv_major=kv_major)
+    torch.cuda.synchronize()
+    assert torch.equal(out2, out3)
+    assert torch.equal(out2, outg.detach())
+    _assert_close(out2, fa.flash_attention_plain(
+        q, k, v, q_pos, k_pos, kv_major=kv_major), fa.flash_attention_plain(
+        q, k, v.abs(), q_pos, k_pos, kv_major=kv_major))
+
+
 def test_non_bf16_cuda_calls_raise(dev):
     """The kernels take bf16 only: f32 CUDA tensors raise, both at the
     wrappers and through the dispatchers that pick them by shape."""
@@ -496,6 +531,67 @@ def test_flash_training_kernels_match_plain(dev, S, n_valid, Hq, Hkv,
     dk2, dv2 = fa.flash_bwd_dkv(*args, kv_major=kv_major)
     assert torch.equal(fa.flash_bwd_dq(*args, kv_major=kv_major), dq)
     assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+
+
+# K4 and K5 at head dim 128 at the backward's edges, on the forward's
+# head-dim-128 cases (_d128_case: ragged Sq and Sk, neither a multiple of
+# 64; unsorted positions; INVALID_POS keys; rows, an idle batch row and a
+# query tile that see no key; the KV-head-major cache; Sq != Sk) and at
+# S = 8192 (the training layout, 8,000 valid; one KV head of G = 7): each
+# within the tolerances above, rows that see no key exactly zero in dQ, a
+# second call bit-equal, one kernel enqueued per call and replays of a
+# captured graph bit-equal to the eager call.
+@pytest.mark.parametrize("case", ["ragged", "unsorted", "wave", "train",
+                                  "nokey", "sk_small", "s8192"])
+def test_flash_backward_d128_edges(dev, case):
+    import chip_smoke as cs
+    if case == "s8192":
+        rng = np.random.default_rng(22)
+        S, Hq, Hkv, D = 8192, 7, 1, 128
+        q = _rand(rng, (1, S, Hq, D), dev)
+        k, v = _rand(rng, (1, S, Hkv, D), dev), _rand(rng, (1, S, Hkv, D),
+                                                      dev)
+        pos = torch.arange(S, device=dev, dtype=torch.int32)
+        q_pos = torch.where(pos < 8000, pos, 0)[None].contiguous()
+        k_pos = torch.where(pos < 8000, pos, fa.INVALID_POS)[None] \
+            .contiguous()
+        q_pos[0, 3] = -1
+        kv_major = False
+    else:
+        q, k, v, q_pos, k_pos, kv_major = _d128_case(case, dev)
+        rng = np.random.default_rng(23)
+    dout = _rand(rng, tuple(q.shape), dev)
+    out, lse = fa.flash_attention_lse(q, k, v, q_pos, k_pos,
+                                      kv_major=kv_major)
+    dsum = fa._dsum(dout, out)
+    args = (q, k, v, dout, lse, dsum, q_pos, k_pos)
+
+    def dq_call():
+        return fa.flash_bwd_dq(*args, kv_major=kv_major)
+
+    def dkv_call():
+        return fa.flash_bwd_dkv(*args, kv_major=kv_major)
+    n4, n5 = fa.dq_launches, fa.dkv_launches
+    dq, (dk, dv) = dq_call(), dkv_call()
+    dq2, (dk2, dv2) = dq_call(), dkv_call()
+    torch.cuda.synchronize()
+    assert (fa.dq_launches - n4, fa.dkv_launches - n5) == (2, 2)
+    assert torch.equal(dq2, dq) and torch.equal(dk2, dk) \
+        and torch.equal(dv2, dv)
+    seen = (k_pos[:, None, :] <= q_pos[:, :, None]).any(-1)    # [B, Sq]
+    assert torch.all(dq[~seen] == 0)
+    t_dq, t_dk, t_dv = _rounding_terms(*args, kv_major)
+    _assert_grad_close(dq, fa.flash_bwd_dq_plain(*args, kv_major=kv_major),
+                       t_dq, "dq")
+    del t_dq
+    rdk, rdv = fa.flash_bwd_dkv_plain(*args, kv_major=kv_major)
+    _assert_grad_close(dk, rdk, t_dk, "dk")
+    _assert_grad_close(dv, rdv, t_dv, "dv")
+    del rdk, rdv, t_dk, t_dv
+    assert cs.launches_per_call(torch, dq_call) == ["kernel"]
+    assert cs.launches_per_call(torch, dkv_call) == ["kernel"]
+    assert cs.replay_equals_eager(torch, dq_call, dq)
+    assert cs.replay_equals_eager(torch, dkv_call, (dk, dv))
 
 
 @pytest.mark.parametrize("B,S,Hq,Hkv,D,want", [

@@ -12,9 +12,11 @@ the settled yardstick (chip_smoke.graph_ms; K1 over operand copies past
 the L2 cache) at the SigLIP batches (1, 8, 16, 28, 32), the encoder zoo's
 shapes (chip_smoke.VIT_ZOO_SHAPES), the prefill shapes and the train
 step's, at head dims 128 and 256 (Gemma: K2 and K3 at Sq 768 and 2560 on
-the 4096-slot cache, K3 at B=2 S=4096), the backward
-(`flash_attention_bwd.cu`: K4 dQ, K5 dK/dV) at the train step's shape at
-head dims 128 and 256; K6
+the 4096-slot cache, K3 at B=2 S=4096; K2 and K3 both at the shapes of
+the key-tile width rule: the B=8 wave, S = 1024 pairs, the train and 32k
+steps), the backward (`flash_attention_bwd.cu`: K4 dQ, K5 dK/dV) on the
+same yardstick at the train step's shape at head dims 128 and 256 and by
+CUDA events at the 32k step's; K6
 (int4 dequant-matmul,
 `int4_matmul.cu`) and K8 (decode attention, `decode_attention.cu`) at the
 decode path's shapes over a rotation of operand copies that misses the L2
@@ -26,7 +28,10 @@ chip_smoke.py checks, beside a copy and a fill of its output's size (the
 card's stream rates; the "int4" variant times K6 and K7 as they are).
 An ablated kernel computes wrong results: the point is how much of the
 time each part holds (`fwd_noexp`, `fwd_noqk`, `fwd_nopv`, `fwd_noload`:
-the forward's exponentials, products and K/V loads). Prints the card and
+the forward's exponentials, products and K/V loads; `d128_bn64`,
+`d128_bn128`: the width rule forced one way; `bwd_k5_nowait`,
+`bwd_noscores`, `bwd_k4_early`: K5's dV/dK wait, the score products, K4's
+preamble). Prints the card and
 one JSON line per variant;
 "k8_stamps" also one per K8 case with K8's timeline: when its blocks reach
 each phase, from the first block's start.
@@ -101,7 +106,7 @@ _BWD_HILO = [
     (BWD_CU, "// ---- K4: dQ ----", _HILO.format("pack_ds_hilo")
      + "// ---- K4: dQ ----"),
     # K4: dS and its lo part through the exchange tile, twice its size
-    (BWD_CU, "XD_OFF + (WIDE ? BM * BN * 2 : 0)",
+    (PLAN_A, "XD_OFF + (WIDE ? BM * BN * 2 : 0)",
      "XD_OFF + (WIDE ? BM * BN * 4 : 0)"),
     (BWD_CU, "    uint32_t f[BN / 16][4];",
      "    uint32_t f[BN / 16][4], fl[BN / 16][4];"),
@@ -124,8 +129,49 @@ _BWD_HILO = [
     (BWD_CU, "      issue_rs<NW, BQ / 16>(acc, f, desc_add(dt, so), BQ * 128);",
      "      issue_rs<NW, BQ / 16>(acc, f, desc_add(dt, so), BQ * 128);\n"
      "      issue_rs<NW, BQ / 16>(acc, fl, desc_add(dt, so), BQ * 128);")]
-_BN = "static constexpr int BN = DP <= 80 || KT128 ? 128 : 64;"
-_BN64 = [(PLAN_A, _BN, "static constexpr int BN = DP <= 80 ? 128 : 64;")]
+# the key-tile width rule at head dim 128 (attention_plan.cuh::
+# fwd_keys128), forced one way for K2 and K3 alike
+_RULE = ("  return (long long)((sq + 127) / 128) * heads_batch >= "
+         "kKeys128Items;")
+# the backward's parts (each variant computes wrong results): K5 issuing
+# the next query tile's S^T and dP^T without waiting for this tile's dV
+# and dK products (the wait moved past the loop), K4's and K5's score
+# products (S and dP) left out, K4's Q and dO load issued before the tile
+# statistics (by thread 0, right after the barriers are made)
+_K5_WAIT = """      wgmma_wait<0>();
+      fence_regs<NO>(dk);
+      fence_regs<NO>(dv);
+      release(empty0 + 8 * stage, lane);"""
+_K5_STORE = """    const int n = a.Sk - k0;
+    bf16* kb = a.dk"""
+_K4_SCORES = ["""      issue_ss<NW, BN>(s, dqa, BM * 128, desc_add(dkb, stage * S::KV_BYTES),
+                       BN * 128);
+      issue_ss<NW, BN>(dp, doa, BM * 128, desc_add(dvb, stage * S::KV_BYTES),
+                       BN * 128);
+""", """        issue_ss<NW, BN>(s, dqa, BM * 128, desc_add(dkb, stage * S::KV_BYTES),
+                         BN * 128);
+        issue_ss<NW, BN>(dp, doa, BM * 128, desc_add(dvb, stage * S::KV_BYTES),
+                         BN * 128);
+"""]
+_K5_SCORES = """      issue_ss<NW, BQ>(s, dka, BK * 128, desc_add(dqb, so), BQ * 128);
+      issue_ss<NW, BQ>(dp, dva, BK * 128, desc_add(dob, so), BQ * 128);
+"""
+_K4_QLOAD = """    if (lane == 0) {
+      mbar_arrive_tx(qfull, 2 * S::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < NW; ++c) {
+        tma_load_4d(base + S::Q_OFF + c * BM * 128, &maps.q, qfull, c * 64,
+                    q0, h, b);
+        tma_load_4d(base + S::DO_OFF + c * BM * 128, &maps.dout, qfull,
+                    c * 64, q0, h, b);
+      }
+    }
+"""
+_K4_INIT = """      mbar_init(empty0 + 8 * s, kConsumers * 4);
+    }
+    mbar_init_fence();
+  }
+  tile_stats(kpb, a.Sk, n_kt, kInvalidPos, kInvalidPos, tmin, tmax);"""
 # the forward's parts (each variant computes wrong results): the
 # softmax's exponentials, S = Q K^T or P V in the loop over key tiles, the
 # K/V loads (the stage's barrier completes on the walking warp's arrival)
@@ -448,12 +494,24 @@ VARIANTS = {
     "fwd_noload": (ATTN[1:], [(FWD, _KV, "        mbar_arrive(fb);")]),
     "fwd_tile0_late": (ATTN[1:], _LATE0),
     "fwd_masks_nopos": (ATTN[1:], [(FWD, _MASKS, _MASKS_NOPOS)]),
-    # the forward at head dim 128 with K3 at 64-key tiles in 4 stages, or
-    # K2 at 128-key tiles in 3
-    "d128_bn64": (ATTN[1:], _BN64),
-    "d128_bn128": (ATTN[1:], [(
-        PLAN_A, _BN,
-        "static constexpr int BN = DP <= 80 || DP == 128 ? 128 : 64;")]),
+    # the forward at head dim 128 at every shape on 64-key tiles in 4
+    # stages, or on 128-key tiles in 3 (K2 and K3 alike)
+    "d128_bn64": (ATTN[1:], [(PLAN_A, _RULE, "  return false;")]),
+    "d128_bn128": (ATTN[1:], [(PLAN_A, _RULE, "  return true;")]),
+    # the backward (K4, K5) as it is, alone, and its parts
+    "bwd": ((BWD,), []),
+    "bwd_k5_nowait": ((BWD,), [
+        (BWD_CU, _K5_WAIT, "      release(empty0 + 8 * stage, lane);"),
+        (BWD_CU, _K5_STORE, "    wgmma_wait<0>();\n    fence_regs<NO>(dk);\n"
+         "    fence_regs<NO>(dv);\n" + _K5_STORE)]),
+    "bwd_noscores": ((BWD,), [(BWD_CU, x, "") for x in _K4_SCORES]
+                     + [(BWD_CU, _K5_SCORES, "")]),
+    "bwd_k4_early": ((BWD,), [
+        (BWD_CU, _K4_QLOAD, ""),
+        (BWD_CU, _K4_INIT, _K4_INIT.replace(
+            "    mbar_init_fence();\n",
+            "    mbar_init_fence();\n" + _K4_QLOAD.replace(
+                "    if (lane == 0) {\n", "    {\n")))]),
     # K1 at head dims 88 and 104 on the DP = 128 instance (the TPU
     # kernel's padding to 128 lanes) instead of 96 and 112
     "k1_pad128": (ATTN[:1], [
@@ -583,7 +641,7 @@ def cases(torch, libs) -> dict:
                 out[f"K2{tag} Sq={sq}"] = ("flash_attention", [
                     lambda q=q, k=k, v=v, qp=qp: fa.flash_attention(
                         q, k, v, qp, kp, kv_major=True)] * 10, 0)
-                if d == 256:
+                if d == 256 or hq == 28:
                     out[f"K3{tag} Sq={sq}"] = ("flash_attention", [
                         lambda q=q, k=k, v=v, qp=qp: fa.flash_attention_lse(
                             q, k, v, qp, kp, kv_major=True)] * 10, 0)
@@ -596,7 +654,7 @@ def cases(torch, libs) -> dict:
                         kp=kp[:, :n].contiguous(): fa.flash_attention(
                             q, k, v, qp, kp, kv_major=True)] * 10, 0)
         # K2 without a cache at anyres's prefills, over operand copies
-        # past the L2 cache
+        # past the L2 cache (K3 too: the width study)
         for S in (3032, 3046):
             pos = torch.arange(S, device="cuda", dtype=torch.int32)[None] \
                 .contiguous()
@@ -606,6 +664,31 @@ def cases(torch, libs) -> dict:
             out[f"K2 anyres Sq={S}"] = ("flash_attention", [
                 lambda o=o, p=pos: fa.flash_attention(*o, p, p)
                 for o in ops], 0)
+            out[f"K3 anyres Sq={S}"] = ("flash_attention", [
+                lambda o=o, p=pos: fa.flash_attention_lse(*o, p, p)
+                for o in ops], 0)
+        # the batch worker's wave of 8 768-row prefills at their offsets of
+        # the 4096-slot cache, and phase 12's DPO / reward / PPO forwards
+        # (B=2 S=1024, 919 valid): K2 and K3
+        q, k, v = rnd(8, 768, 28, 128), rnd(8, 4, 4096, 128), \
+            rnd(8, 4, 4096, 128)
+        qp = (torch.tensor(chip_smoke.WAVE_OFFSETS, device="cuda",
+                           dtype=torch.int32)[:, None]
+              + torch.arange(768, device="cuda", dtype=torch.int32)[None]) \
+            .contiguous()
+        kp8 = kp.repeat(8, 1).contiguous()
+        for tag, f in (("K2", fa.flash_attention),
+                       ("K3", fa.flash_attention_lse)):
+            out[f"{tag} wave B=8 Sq=768"] = ("flash_attention", [
+                lambda f=f, q=q, k=k, v=v, qp=qp: f(q, k, v, qp, kp8,
+                                                    kv_major=True)] * 10, 0)
+        qp12, kp12 = chip_smoke.train_positions(torch, 2, 1024, 919, "cuda")
+        q, k, v = rnd(2, 1024, 28, 128), rnd(2, 1024, 4, 128), \
+            rnd(2, 1024, 4, 128)
+        for tag, f in (("K2", fa.flash_attention),
+                       ("K3", fa.flash_attention_lse)):
+            out[f"{tag} pref B=2 S=1024"] = ("flash_attention", [
+                lambda f=f, q=q, k=k, v=v: f(q, k, v, qp12, kp12)] * 10, 0)
     if ATTN[1] in libs or BWD in libs:
         S, n = 4096, 3900
         q, k, v = rnd(2, S, 28, 128), rnd(2, S, 4, 128), rnd(2, S, 4, 128)
@@ -616,6 +699,9 @@ def cases(torch, libs) -> dict:
         out["K3"] = ("flash_attention", [
             lambda q=q, k=k, v=v, qp=qp: fa.flash_attention_lse(
                 q, k, v, qp, kp3)] * 10, 0)
+        out["K2 train"] = ("flash_attention", [
+            lambda q=q, k=k, v=v, qp=qp: fa.flash_attention(
+                q, k, v, qp, kp3)] * 10, 0)
         # the 32k step's (B=1, 32,000 valid), by CUDA events as phase 9c
         SL, nl = chip_smoke.LONG_S, chip_smoke.LONG_VALID
         ql, kl, vl = rnd(1, SL, 28, 128), rnd(1, SL, 4, 128), \
@@ -623,11 +709,19 @@ def cases(torch, libs) -> dict:
         qpl, kpl = chip_smoke.train_positions(torch, 1, SL, nl, "cuda")
         out["K3 32k"] = ("flash_attention", [
             lambda: fa.flash_attention_lse(ql, kl, vl, qpl, kpl)], "events")
+        out["K2 32k"] = ("flash_attention", [
+            lambda: fa.flash_attention(ql, kl, vl, qpl, kpl)], "events")
         o, lse = fa.flash_attention_lse(q, k, v, qp, kp3)
         do = rnd(2, S, 28, 128)
         bwd = (q, k, v, do, lse, fa._dsum(do, o), qp, kp3)
-        out["K4"] = (BWD, [lambda: fa.flash_bwd_dq(*bwd)], 10)
-        out["K5"] = (BWD, [lambda: fa.flash_bwd_dkv(*bwd)], 10)
+        out["K4"] = (BWD, [lambda: fa.flash_bwd_dq(*bwd)] * 10, 0)
+        out["K5"] = (BWD, [lambda: fa.flash_bwd_dkv(*bwd)] * 10, 0)
+        ol, lsel = fa.flash_attention_lse(ql, kl, vl, qpl, kpl)
+        dol = rnd(1, SL, 28, 128)
+        bwdl = (ql, kl, vl, dol, lsel, fa._dsum(dol, ol), qpl, kpl)
+        del ol
+        out["K4 32k"] = (BWD, [lambda: fa.flash_bwd_dq(*bwdl)], "events")
+        out["K5 32k"] = (BWD, [lambda: fa.flash_bwd_dkv(*bwdl)], "events")
         # ... and at Gemma's (head dim 256, 8/1 heads)
         q, k, v = rnd(2, S, 8, 256), rnd(2, S, 1, 256), rnd(2, S, 1, 256)
         out["K3 D=256"] = ("flash_attention", [
@@ -636,8 +730,9 @@ def cases(torch, libs) -> dict:
         o, lse = fa.flash_attention_lse(q, k, v, qp, kp3)
         do = rnd(2, S, 8, 256)
         bwd256 = (q, k, v, do, lse, fa._dsum(do, o), qp, kp3)
-        out["K4 D=256"] = (BWD, [lambda: fa.flash_bwd_dq(*bwd256)], 10)
-        out["K5 D=256"] = (BWD, [lambda: fa.flash_bwd_dkv(*bwd256)], 10)
+        out["K4 D=256"] = (BWD, [lambda: fa.flash_bwd_dq(*bwd256)] * 10, 0)
+        out["K5 D=256"] = (BWD, [lambda: fa.flash_bwd_dkv(*bwd256)] * 10,
+                           0)
     if K6 in libs:
         # K6 at every int4 projection's shape that chip_smoke.py checks:
         # the 7B's at 1, 7 and 128 rows, Qwen2-14B's at one row

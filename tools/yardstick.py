@@ -23,6 +23,18 @@ script. Groups (default all):
   d256    K2 and K3 at head dim 256 (8/1 heads) over the 4096-slot cache
           at Sq 768 and 2560, and K3 (with K4/K5) at Gemma-2B's training
           shape (B=2 S=4096, 3,900 valid);
+  bwd     the backward beside causal SDPA's over the valid rows alone (dQ,
+          dK and dV in one call, its forward outside the timed window; the
+          faster of GQA without copies and K/V repeated per query head,
+          with the backend the dispatcher took): K4, K5 and K4 + K5 as one
+          call, graph-timed at the 7B's training shape (B=2 S=4096, 3,900
+          valid, 28/4 heads, D=128) and Gemma-2B's (8/1 heads, D=256), and
+          by CUDA events at the 32k step's (B=1 S=32768, 32,000 valid,
+          LONG_K3_CALLS calls); K3 beside causal SDPA's forward over the
+          valid rows at Gemma-2B's shape (graph-timed) and at 32k (events).
+          Bounds: 6, 8 and 10 x D x visible pairs for K4, K5 and K4 + K5
+          (10 for the library too: the least work for the three gradients),
+          4 for K3 and its library;
   cross   the two int4 routes at 16-256 rows (CROSS_ROWS) of gate/up, o
           and down (CROSS_SHAPES): K6 (up to 128 rows) against K7 plus
           the f32-accumulating product (`int4_prefill_matmul`), each over
@@ -50,7 +62,7 @@ _spec = importlib.util.spec_from_file_location(
 chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
 
-GROUPS = ("k1", "int4", "anyres", "d128", "d256", "cross")
+GROUPS = ("k1", "int4", "anyres", "d128", "d256", "cross", "bwd")
 SIGLIP_BATCHES = (1, 8, 16, 28, 32)
 # the uncached prefill lengths of chip_smoke's two anyres images
 ANYRES_SQ = (3032, 3046)
@@ -110,6 +122,130 @@ def long_k3(torch, fa) -> dict:
             "calls": LONG_K3_CALLS, "bound_ms": b_ms, "bound_by": b_by}
 
 
+def sdpa_backend(torch, q, k, v, gqa: bool) -> str:
+    """The backend the SDPA dispatcher takes for a causal call on these
+    tensors ([B, H, S, D], requiring grad)."""
+    from torch.nn.attention import SDPBackend
+    try:
+        return SDPBackend(torch._fused_sdp_choice(
+            q, k, v, is_causal=True, enable_gqa=gqa)).name
+    except (RuntimeError, TypeError, ValueError) as e:   # a label only
+        return f"not known ({type(e).__name__}: {e})"
+
+
+def causal_sdpa(torch, F, q, k, v, dout, n, G, stream):
+    """Causal SDPA over the first n rows of [B, S, H, D] q/k/v (dO for the
+    backward), in [B, H, n, D]: for each of GQA without copies and K/V
+    repeated per query head, (variant, backend, forward call, backward
+    call). The backward call takes dQ, dK and dV of one forward made
+    beforehand on `stream` (retain_graph; autograd runs a backward on its
+    forward's stream), so the forward is outside its time."""
+    out = []
+    for variant in ("enable_gqa", "repeated"):
+        gqa = variant == "enable_gqa"
+        qt, kt, vt = (x[:, :n].transpose(1, 2) for x in (q, k, v))
+        if not gqa:
+            kt, vt = (x.repeat_interleave(G, dim=1) for x in (kt, vt))
+        qt, kt, vt = (x.contiguous().requires_grad_() for x in (qt, kt, vt))
+        dot = dout[:, :n].transpose(1, 2).contiguous()
+
+        def fwd(qt=qt, kt=kt, vt=vt, gqa=gqa):
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=gqa)
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=gqa)
+        torch.cuda.synchronize()
+
+        def bwd(o=o, qt=qt, kt=kt, vt=vt, dot=dot):
+            return torch.autograd.grad(o, (qt, kt, vt), dot,
+                                       retain_graph=True)
+        out.append((variant, sdpa_backend(torch, qt, kt, vt, gqa), fwd,
+                    bwd))
+    return out
+
+
+def backward_rows(torch, F, fa, B, S, n, Hq, Hkv, D, events=False) -> list:
+    """K4, K5, K4 + K5 (one call) and K3 at one training shape beside
+    causal SDPA's backward and forward over the n valid rows (the faster
+    variant; both logged): graph-timed (graph_ms over GRAPH_CALLS calls),
+    or by CUDA events over LONG_K3_CALLS calls with `events`."""
+    cs = chip_smoke
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda") \
+            .to(torch.bfloat16)
+    q, dout = rnd(B, S, Hq, D), rnd(B, S, Hq, D)
+    k, v = rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+    q_pos, k_pos = cs.train_positions(torch, B, S, n, "cuda")
+    out, lse = fa.flash_attention_lse(q, k, v, q_pos, k_pos)
+    args = (q, k, v, dout, lse, fa._dsum(dout, out), q_pos, k_pos)
+    # visible (query, key) pairs x heads: the valid rows' causal triangle,
+    # the padded queries (position 0) seeing key 0, query 7 of the last
+    # row none
+    pairs = float(B * (n * (n + 1) // 2 + (S - n)) - 8) * Hq
+    e, rows = 2, B * Hq * S * 4
+    qb, kb, pos_b = B * S * Hq * D * e, B * S * Hkv * D * e, 2 * B * S * 4
+    shape = (f"B={B} S={S} valid={n} Hq={Hq} Hkv={Hkv} D={D} bf16 "
+             f"[B,S,Hkv,D]")
+    kern = {
+        "flash_bwd_dq": (6, 3 * qb + 2 * kb + 2 * rows + pos_b,
+                         lambda: fa.flash_bwd_dq(*args)),
+        "flash_bwd_dkv": (8, 2 * qb + 4 * kb + 2 * rows + pos_b,
+                          lambda: fa.flash_bwd_dkv(*args)),
+        "flash_bwd_dq+dkv": (10, 3 * qb + 4 * kb + 2 * rows + pos_b,
+                             lambda: (fa.flash_bwd_dq(*args),
+                                      fa.flash_bwd_dkv(*args))),
+        "flash_attention_lse": (4, 2 * qb + 2 * kb + rows + pos_b,
+                                lambda: fa.flash_attention_lse(
+                                    q, k, v, q_pos, k_pos))}
+
+    def timed(fn, b_ms, what, stream=None):
+        if events:
+            return cs.time_ms(torch, fn, iters=LONG_K3_CALLS), None
+        r = cs.graph_ms(torch, [fn] * cs.GRAPH_CALLS, b_ms, what,
+                        stream=stream)
+        return r["ms"], r
+    lib = {}
+    side = torch.cuda.Stream()
+    for variant, backend, fwd, bwd in causal_sdpa(torch, F, q, k, v, dout,
+                                                  n, Hq // Hkv, side):
+        for what, fn, mult in (("bwd", bwd, 10), ("fwd", fwd, 4)):
+            b_ms, _ = cs.bound(mult * D * n * (n + 1) / 2 * B * Hq, 0)
+            ms, r = timed(fn, b_ms, f"causal SDPA {what} {variant}",
+                          side)
+            lib.setdefault(what, []).append(
+                {"variant": variant, "backend": backend, "ms": ms,
+                 "graph": r})
+        cs.log(f"bwd SDPA {variant} ({backend}) {shape}: "
+               f"{json.dumps({w: lib[w][-1]['ms'] for w in lib})}")
+    recs = []
+    for name, (mult, nbytes, fn) in kern.items():
+        b_ms, b_by = cs.bound(mult * D * pairs, nbytes)
+        ms, r = timed(fn, b_ms, f"{name} at {shape}")
+        side = lib["fwd" if name == "flash_attention_lse" else "bwd"]
+        best = min((x for x in side if x["ms"] is not None),
+                   key=lambda x: x["ms"], default=None)
+        recs.append({
+            "kernel": name, "shape": shape,
+            "timing": "cuda events" if events else "graph", "ms": ms,
+            "graph": r, "bound_ms": b_ms, "bound_by": b_by,
+            "flops": mult * D * pairs, "bytes": nbytes,
+            "library": "causal F.scaled_dot_product_attention over the "
+                       f"{n} valid rows, "
+                       + ("forward" if name == "flash_attention_lse" else
+                          "backward (dQ, dK, dV in one call)"),
+            "library_ms": best["ms"] if best else None,
+            "library_variant": best["variant"] if best else None,
+            "library_backend": best["backend"] if best else None,
+            "library_all": side,
+            "factor": ms / best["ms"] if best and ms else None})
+    return recs
+
+
 def run(torch, group: str) -> list:
     import torch.nn.functional as F
 
@@ -127,6 +263,11 @@ def run(torch, group: str) -> list:
         return k6 + k7
     if group == "cross":
         return crossover(torch, i4, quant)
+    if group == "bwd":
+        return backward_rows(torch, F, fa, 2, 4096, 3900, 28, 4, 128) + \
+            backward_rows(torch, F, fa, 2, 4096, 3900, 8, 1, 256) + \
+            backward_rows(torch, F, fa, 1, cs.LONG_S, cs.LONG_VALID, 28, 4,
+                          128, events=True)
     if group == "anyres":
         return [cs.check_flash_uncached(torch, F, fa, s) for s in ANYRES_SQ]
     if group == "d128":
